@@ -1,0 +1,45 @@
+"""Carry parameter pytrees between numpy arrays and the port's tensors.
+
+``jax.random.normal`` cannot be reproduced in torch, so runs that must
+start from the JAX package's parameters hand them over as numpy arrays
+(``jax.device_get``) and convert here.  bfloat16 arrays (numpy's
+``ml_dtypes`` extension type) cross bit for bit; going back, bfloat16
+tensors come out as float32 arrays (exact) so no extension type is
+needed on this side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _leaf_to_torch(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr, copy=True).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def to_torch(params, device: DeviceLike = None):
+    """numpy (or tensor) pytree -> dict of tensors on ``device``."""
+    dev = resolve_device(device)
+    return tree.tree_map(lambda x: _leaf_to_torch(x, dev), params)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def to_numpy(params):
+    """dict of tensors -> dict of numpy arrays (bfloat16 as float32)."""
+    return tree.tree_map(_leaf_to_numpy, params)

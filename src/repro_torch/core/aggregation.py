@@ -1,0 +1,103 @@
+"""Sparse global aggregation and local-model update rules — FedDD Eq. (4)-(6).
+
+Step 4 (server):      W^t     = sum_n m_n * What_n ⊙ M_n  /  sum_n m_n * M_n
+Step 7 (client, t mod h != 0): W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n)
+Step 7 (client, t mod h == 0): W_n^{t+1} = W^t
+
+Positions received from NO client keep the previous global value.  The
+Eq. (4) partials run through the ``sparse_agg`` kernel and Eq. (5) through
+the ``masked_merge`` kernel, for every leaf; masks stay channel-shaped
+(N, 1, ..., C, ..., 1) and are never broadcast to the parameters' shape.
+
+Only the weighted mean is ported; the Byzantine-robust variants wait for
+ROADMAP.md queue A item 12.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch import tree
+from repro_torch.kernels.masked_merge import ops as merge_ops
+from repro_torch.kernels.sparse_agg import ops as agg_ops
+
+EPS = 1e-12
+
+
+def leaf_masked_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
+                         w: torch.Tensor):
+    """Eq. (4) numerator/denominator of one client-stacked leaf.
+
+    (N, *leaf) values, channel-shaped mask, (N,) fp32 weights ->
+    (num, den), each (*leaf) fp32.
+    """
+    return agg_ops.masked_weighted_sum(stack_w, stack_m, w)
+
+
+def finish_masked_mean(num: torch.Tensor, den: torch.Tensor,
+                       gprev: Optional[torch.Tensor],
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Eq. (4) division + previous-global fill over reduced (num, den)."""
+    agg = num / torch.clamp(den, min=EPS)
+    if gprev is not None:
+        agg = torch.where(den > EPS, agg, gprev.float())
+    return agg.to(dtype)
+
+
+def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
+                             *, prev_global=None, robust: str = "mean"):
+    """Eq. (4) over client-stacked pytrees (leaves shaped (N, *leaf)).
+
+    ``stacked_masks`` leaves are channel-shaped (N, 1, ..., C, ..., 1) or
+    all-ones (N, 1, ..., 1); ``client_weights`` are the (N,) m_n — a zero
+    weight leaves that client out of both sums.
+    """
+    if robust != "mean":
+        raise NotImplementedError(
+            f"robust_agg {robust!r} is not ported yet (ROADMAP.md queue A "
+            "item 12); only 'mean' is")
+    leaves, treedef = tree.flatten(stacked_params)
+    mleaves = tree.leaves(stacked_masks)
+    gleaves = (tree.leaves(prev_global) if prev_global is not None
+               else [None] * len(leaves))
+    n = leaves[0].shape[0]
+    w = torch.as_tensor(client_weights, dtype=torch.float32,
+                        device=leaves[0].device)
+    if w.shape != (n,):
+        raise ValueError("weights count mismatch")
+    out = []
+    for sw, sm, gprev in zip(leaves, mleaves, gleaves):
+        num, den = leaf_masked_partials(sw, sm, w)
+        out.append(finish_masked_mean(num, den, gprev, sw.dtype))
+    return tree.unflatten(treedef, out)
+
+
+def client_update_sparse(global_params, stacked_local, stacked_masks):
+    """Eq. (5) for every client: W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n).
+
+    ``global_params`` is un-stacked; ``stacked_local`` and the
+    channel-shaped ``stacked_masks`` carry the client axis.
+    """
+    return tree.tree_map(merge_ops.masked_merge, global_params,
+                         stacked_local, stacked_masks)
+
+
+def client_update_full(global_params, local_params):
+    """Eq. (6): W_n^{t+1} = W^t (full broadcast round)."""
+    del local_params
+    return tree.tree_map(lambda g: g, global_params)
+
+
+def fedavg_aggregate(client_params: Sequence, client_weights):
+    """Classic Eq. (3) dense FedAvg over a list of pytrees (baseline)."""
+    w = torch.as_tensor(client_weights, dtype=torch.float32)
+    w = w / w.sum()
+
+    def _avg(*ls):
+        stack = torch.stack([l.float() for l in ls])
+        wts = w.to(stack.device).view((-1,) + (1,) * (stack.ndim - 1))
+        return (stack * wts).sum(0).to(ls[0].dtype)
+
+    return tree.tree_map(_avg, *client_params)

@@ -1,0 +1,228 @@
+"""Dropout-rate allocation — FedDD §4.1, the numpy subset of
+``repro.core.allocation``.
+
+Solves the linear program Eq. (16)/(17):
+
+    min_{D, t_srv}   t_srv + delta * sum_n re_n * D_n
+    s.t.             0 <= D_n <= D_max
+                     sum_n U_n (1 - D_n) = A_server * sum_n U_n
+                     t_n_cmp + U_n (1 - D_n) * (1/r_u + 1/r_d) <= t_srv
+
+For a fixed ``t_srv`` the straggler constraints are per-client lower
+bounds on ``D_n`` and the rest is a fractional knapsack, solved exactly;
+a golden-section search over ``t_srv`` finds the optimum of the convex
+piecewise-linear outer problem.  It stays in float64 numpy, the same
+arithmetic as the JAX package's reference solver, so the rates agree
+exactly (tests/test_torch_selection_aggregation.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+ALLOCATORS = ("numpy",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientTelemetry:
+    """Per-client state the server needs to run the allocation LP.
+
+    All arrays have shape ``(N,)`` for N clients.
+    """
+
+    model_bytes: np.ndarray        # U_n   — size of client n's local model
+    uplink_rate: np.ndarray        # r_n^u — bytes / s
+    downlink_rate: np.ndarray      # r_n^d — bytes / s
+    compute_latency: np.ndarray    # t_n^cmp — seconds (c_n * b_n / f_n)
+    num_samples: np.ndarray        # m_n
+    label_coverage: np.ndarray     # sum_c min(C * dis_n^c, 1)   (Eq. 13 term)
+    train_loss: np.ndarray         # loss_n^t
+
+    def __post_init__(self):
+        n = len(self.model_bytes)
+        for f in dataclasses.fields(self):
+            arr = getattr(self, f.name)
+            if len(arr) != n:
+                raise ValueError(
+                    f"telemetry field {f.name} has length {len(arr)} != {n}")
+
+    @property
+    def num_clients(self) -> int:
+        return len(self.model_bytes)
+
+
+def regularizer(tel: ClientTelemetry, global_model_bytes: float) -> np.ndarray:
+    """``re_n`` of Eq. (13): (m_n/m) * coverage * (U_n/U) * loss_n."""
+    m = float(np.sum(tel.num_samples))
+    return (
+        (tel.num_samples / m)
+        * tel.label_coverage
+        * (tel.model_bytes / float(global_model_bytes))
+        * tel.train_loss
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AllocationResult:
+    dropout_rates: np.ndarray   # D_n in [0, D_max]
+    t_server: float             # optimal round time (straggler makespan)
+    objective: float            # t_server + delta * sum re_n D_n
+    feasible: bool
+
+
+def _inner_knapsack(
+    lower: np.ndarray,
+    upper: np.ndarray,
+    weights: np.ndarray,   # U_n  (budget is in units of sum U_n D_n)
+    costs: np.ndarray,     # c_n = delta * re_n  (cost per unit of D_n)
+    budget: float,         # required sum_n U_n D_n
+) -> Tuple[Optional[np.ndarray], float]:
+    """Exactly minimise sum c_n D_n  s.t.  lower<=D<=upper, sum U_n D_n = budget.
+
+    Returns (D, cost) or (None, inf) when infeasible.
+    """
+    lo_mass = float(np.dot(weights, lower))
+    hi_mass = float(np.dot(weights, upper))
+    if budget < lo_mass - 1e-9 or budget > hi_mass + 1e-9:
+        return None, float("inf")
+    d = lower.astype(np.float64).copy()
+    remaining = budget - lo_mass
+    if remaining <= 1e-12:
+        return d, float(np.dot(costs, d))
+    # marginal cost of one unit of U*D mass for client n is costs_n/weights_n
+    order = np.argsort(costs / np.maximum(weights, 1e-30))
+    for i in order:
+        cap = (upper[i] - d[i]) * weights[i]
+        take = min(cap, remaining)
+        if take > 0:
+            d[i] += take / weights[i]
+            remaining -= take
+        if remaining <= 1e-12:
+            break
+    if remaining > 1e-6 * max(budget, 1.0):
+        return None, float("inf")
+    return d, float(np.dot(costs, d))
+
+
+def solve_dropout_rates(
+    tel: ClientTelemetry,
+    *,
+    a_server: float,
+    d_max: float,
+    delta: float,
+    global_model_bytes: Optional[float] = None,
+    tol: float = 1e-7,
+) -> AllocationResult:
+    """Exact numpy solver for the Eq. (16)/(17) LP.
+
+    Args:
+      a_server: fraction of total parameter mass the server requires
+        (``A_server``); the equality budget is ``(1-a_server) * sum U_n`` of
+        *dropped* mass.
+      d_max: per-client max dropout rate (``D_max``).
+      delta: penalty factor balancing system vs data/model heterogeneity.
+    """
+    if not 0.0 <= a_server <= 1.0:
+        raise ValueError(f"a_server must be in [0,1], got {a_server}")
+    if not 0.0 <= d_max <= 1.0:
+        raise ValueError(f"d_max must be in [0,1], got {d_max}")
+    u = tel.model_bytes.astype(np.float64)
+    n = tel.num_clients
+    gmb = float(global_model_bytes if global_model_bytes is not None
+                else np.max(u))
+    re = regularizer(tel, gmb)
+    costs = delta * re
+    k = u * (1.0 / tel.uplink_rate + 1.0 / tel.downlink_rate)  # secs at D=0
+    tc = tel.compute_latency.astype(np.float64)
+
+    total_u = float(np.sum(u))
+    budget = (1.0 - a_server) * total_u  # required dropped mass sum U_n D_n
+
+    upper = np.full(n, d_max)
+
+    # Feasible interval of t_srv: at t_lo every client drops D_max (the
+    # tightest makespan); at t_hi nothing is dropped.
+    t_lo = float(np.max(tc + k * (1.0 - d_max)))
+    t_hi = float(np.max(tc + k))
+
+    def inner(t_srv: float) -> Tuple[Optional[np.ndarray], float]:
+        # straggler constraint lower bound on D_n
+        with np.errstate(divide="ignore", invalid="ignore"):
+            l = 1.0 - (t_srv - tc) / np.maximum(k, 1e-30)
+        l = np.clip(l, 0.0, None)
+        if np.any(l > d_max + 1e-12):
+            return None, float("inf")
+        l = np.minimum(l, d_max)
+        d, cost = _inner_knapsack(l, upper, u, costs, budget)
+        if d is None:
+            return None, float("inf")
+        return d, t_srv + cost
+
+    # Budget feasibility is independent of t_srv at t_hi; check once.
+    d0, f_hi = inner(t_hi)
+    if d0 is None:
+        return AllocationResult(np.clip(np.full(n, 1 - a_server), 0, d_max),
+                                t_hi, float("inf"), False)
+
+    # Golden-section search on the convex piecewise-linear objective.
+    gr = (np.sqrt(5.0) - 1.0) / 2.0
+    a, b = t_lo, t_hi
+    # infeasible low end: bisect up to feasibility first
+    _, f_a = inner(a)
+    if not np.isfinite(f_a):
+        lo, hi = a, b
+        for _ in range(100):
+            mid = 0.5 * (lo + hi)
+            _, fm = inner(mid)
+            if np.isfinite(fm):
+                hi = mid
+            else:
+                lo = mid
+        a = hi
+    c = b - gr * (b - a)
+    d_pt = a + gr * (b - a)
+    _, fc = inner(c)
+    _, fd = inner(d_pt)
+    it = 0
+    while (b - a) > tol * max(1.0, abs(b)) and it < 200:
+        if fc <= fd:
+            b, d_pt, fd = d_pt, c, fc
+            c = b - gr * (b - a)
+            _, fc = inner(c)
+        else:
+            a, c, fc = c, d_pt, fd
+            d_pt = a + gr * (b - a)
+            _, fd = inner(d_pt)
+        it += 1
+    t_star = 0.5 * (a + b)
+    d_star, f_star = inner(t_star)
+    if d_star is None:   # numerical edge: fall back to safe end
+        d_star, f_star = d0, f_hi
+        t_star = t_hi
+    # The true makespan may be below t_star if constraints are slack.
+    makespan = float(np.max(tc + k * (1.0 - d_star)))
+    obj = makespan + float(np.dot(costs, d_star))
+    return AllocationResult(d_star, makespan, obj, True)
+
+
+def solve_dropout_rates_with(
+    allocator: str,
+    tel: ClientTelemetry,
+    *,
+    a_server: float,
+    d_max: float,
+    delta: float,
+    global_model_bytes: Optional[float] = None,
+) -> AllocationResult:
+    """Allocator dispatch.  Only ``"numpy"`` is ported; the jit-able
+    solver's torch twin is ROADMAP.md queue A item 4."""
+    if allocator != "numpy":
+        raise NotImplementedError(
+            f"allocator {allocator!r} is not ported yet (ROADMAP.md queue A "
+            "item 4); use allocator='numpy'")
+    return solve_dropout_rates(
+        tel, a_server=a_server, d_max=d_max, delta=delta,
+        global_model_bytes=global_model_bytes)

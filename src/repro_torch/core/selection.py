@@ -1,0 +1,126 @@
+"""Uploaded-parameter selection — FedDD Algorithm 2, client-stacked.
+
+Given each client's dropout rate ``D_n`` and its parameters before/after
+the local update, keep per layer the top ``ceil(C_l * (1 - D_n))``
+channels by importance (the same rate for every layer, channel-wise, as
+in the paper's §4.2).  1-D leaves (biases) ride along as channels of
+fan-in 1; 0-D leaves always upload.
+
+Ties rank toward the lower channel index, the order of ``lax.top_k`` in
+the JAX package: a stable descending sort gives the same order, which
+``torch.topk`` does not promise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.core import importance as imp_mod
+
+SCHEMES = ("feddd", "max", "delta", "random", "ordered")
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectionConfig:
+    scheme: str = "feddd"          # one of SCHEMES
+    channel_axis: int = -1         # which axis of each leaf is 'channels'
+
+    def __post_init__(self):
+        if self.scheme not in SCHEMES:
+            raise ValueError(f"unknown selection scheme {self.scheme!r}")
+
+
+def keep_count(num_channels: int, dropout_rate: torch.Tensor) -> torch.Tensor:
+    """ceil(C * (1-D)) in float32, clipped to [0, C], as int32."""
+    d = torch.as_tensor(dropout_rate, dtype=torch.float32)
+    k = torch.ceil(num_channels * (1.0 - d))
+    return torch.clamp(k, 0, num_channels).to(torch.int32)
+
+
+def mask_from_scores(scores: torch.Tensor, keep: torch.Tensor,
+                     num_channels: int) -> torch.Tensor:
+    """float32 mask keeping the top ``keep`` of ``scores`` along the last
+    axis (scores (..., C), keep broadcast against (...,)); ties keep the
+    lower index.  keep == 0 gives an all-zero mask."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    pos = torch.arange(num_channels, device=scores.device).expand_as(order)
+    ranks = torch.empty_like(order).scatter_(-1, order, pos)
+    keep = torch.as_tensor(keep, device=scores.device)
+    return (ranks < keep[..., None]).to(torch.float32)
+
+
+def _tensor_scores_batched(cfg: SelectionConfig, w_old: torch.Tensor,
+                           w_new: torch.Tensor) -> torch.Tensor:
+    """Scores of a client-stacked leaf: (N, *leaf) x2 -> (N, C)."""
+    ax = cfg.channel_axis
+    if cfg.scheme == "feddd":
+        return imp_mod.channel_importance_batched(w_old, w_new,
+                                                  channel_axis=ax)
+    if cfg.scheme == "max":
+        return imp_mod.channel_score_max_batched(w_old, w_new,
+                                                 channel_axis=ax)
+    if cfg.scheme == "delta":
+        return imp_mod.channel_score_delta_batched(w_old, w_new,
+                                                   channel_axis=ax)
+    if cfg.scheme == "ordered":
+        nch = w_new.shape[ax % (w_new.ndim - 1) + 1]
+        return imp_mod.channel_score_ordered(nch, w_new.device).expand(
+            w_new.shape[0], nch)
+    raise AssertionError(cfg.scheme)
+
+
+def build_masks_batched(stacked_old, stacked_new,
+                        dropout_rates: torch.Tensor, *,
+                        config: SelectionConfig = SelectionConfig()):
+    """All clients' masks in one pass over the stacked leaves.
+
+    Args:
+      stacked_old / stacked_new: pytrees whose leaves carry a leading
+        client axis, (N, *leaf).
+      dropout_rates: (N,) per-client dropout rates.
+
+    Returns ``(masks, density)``: a mask pytree with leaves shaped
+    (N, 1, ..., C, ..., 1) in the parameters' dtype, and the (N,) float32
+    fraction of parameter elements kept, accumulated in float32 leaf by
+    leaf as the JAX package does.
+    """
+    if config.scheme == "random":
+        raise NotImplementedError(
+            "scheme='random' needs the threefry twin of jax.random "
+            "(ROADMAP.md queue A item 8)")
+    flat_old = tree.leaves(stacked_old)
+    flat_new, treedef = tree.flatten(stacked_new)
+    if len(flat_old) != len(flat_new):
+        raise ValueError("stacked_old/stacked_new structure mismatch")
+    n = flat_new[0].shape[0]
+    dev = flat_new[0].device
+    rates = torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev)
+
+    masks = []
+    kept = torch.zeros((n,), dtype=torch.float32, device=dev)
+    total = 0.0
+    for w_old, w_new in zip(flat_old, flat_new):
+        leaf_ndim = w_new.ndim - 1
+        leaf_size = float(np.prod(w_new.shape[1:], dtype=np.float64))
+        if leaf_ndim == 0:
+            masks.append(torch.ones((n,), dtype=w_new.dtype, device=dev))
+            kept = kept + leaf_size
+            total += leaf_size
+            continue
+        ax = config.channel_axis % leaf_ndim + 1
+        nch = w_new.shape[ax]
+        scores = _tensor_scores_batched(config, w_old, w_new)
+        m1d = mask_from_scores(scores, keep_count(nch, rates), nch)
+        shape = [n] + [1] * leaf_ndim
+        shape[ax] = nch
+        masks.append(m1d.reshape(shape).to(w_new.dtype))
+        kept = kept + m1d.sum(dim=1) * (leaf_size / nch)
+        total += leaf_size
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, one ulp away from the true quotient the JAX package takes
+    density = kept / torch.tensor(total, dtype=torch.float32, device=dev)
+    return tree.unflatten(treedef, masks), density

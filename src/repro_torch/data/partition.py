@@ -1,0 +1,60 @@
+"""Client data partitions — a numpy copy of the part of
+``repro.data.partition`` the main path uses.
+
+  Non-IID-b  each client holds exactly 3 random classes (paper §6.1)
+
+Returns a list of index arrays (one per client), equal to the JAX
+package's for the same seed.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from repro_torch.data.synthetic import SyntheticImageDataset
+
+
+def _split_among(idx: np.ndarray, owners: List[int], rng,
+                 parts: List[List[int]]):
+    rng.shuffle(idx)
+    chunks = np.array_split(idx, len(owners))
+    for o, ch in zip(owners, chunks):
+        parts[o].extend(ch.tolist())
+
+
+def _partition_by_classes(ds, num_clients, classes_per_client, seed):
+    rng = np.random.default_rng(seed)
+    c = ds.num_classes
+    client_classes = [rng.choice(c, size=k, replace=False)
+                      for k in classes_per_client]
+    parts: List[List[int]] = [[] for _ in range(num_clients)]
+    for cls in range(c):
+        owners = [i for i in range(num_clients)
+                  if cls in client_classes[i]]
+        if not owners:   # ensure every class is held somewhere
+            owners = [int(rng.integers(num_clients))]
+        idx = np.where(ds.y == cls)[0].copy()
+        _split_among(idx, owners, rng, parts)
+    return [np.sort(np.asarray(p, np.int64)) for p in parts]
+
+
+def partition_noniid_b(ds: SyntheticImageDataset, num_clients: int,
+                       seed: int = 0) -> List[np.ndarray]:
+    return _partition_by_classes(ds, num_clients, [3] * num_clients, seed)
+
+
+def label_distribution(ds: SyntheticImageDataset, idx: np.ndarray
+                       ) -> np.ndarray:
+    """dis_n^c — proportion of each label in a client's shard."""
+    counts = np.bincount(ds.y[idx], minlength=ds.num_classes).astype(float)
+    return counts / max(counts.sum(), 1.0)
+
+
+def label_coverage_score(ds: SyntheticImageDataset, idx: np.ndarray
+                         ) -> float:
+    """sum_c min(C * dis_n^c, 1) — the Eq. (13) data-distribution term."""
+    c = ds.num_classes
+    dis = label_distribution(ds, idx)
+    return float(np.sum(np.minimum(c * dis, 1.0)))

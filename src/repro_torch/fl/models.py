@@ -1,0 +1,174 @@
+"""The paper's FL models (Table 2) as plain functions on tensors.
+
+  MLP   FC(784,100)-ReLU-FC(100,64)-ReLU-FC(64,10)           (MNIST)
+  CNN1  Conv(1,10,5)-pool-Conv(10,20,5)-pool-FC(320,50)-FC(50,10)   (FMNIST)
+  CNN2  3xConv(16/32/64,k3)+pool-FC(1024,500)-FC(500,100)-FC(100,10) (CIFAR10)
+
+Parameters are dicts of tensors in the JAX package's layout — dense
+``(in, out)``, conv ``HWIO``, images NHWC — so FedDD's channel masks
+(channel_axis=-1) apply unchanged and both packages compare leaf for
+leaf; convolutions run as NCHW ``F.conv2d`` inside :func:`apply_spec`.
+
+float32 stays float32 on the card: :func:`make_local_train_fn` and
+:func:`make_eval_fn` switch off TF32 for matmuls and cuDNN convolutions
+(``torch.backends.cuda.matmul.allow_tf32`` /
+``torch.backends.cudnn.allow_tf32``), process-wide.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+from repro_torch.device import DeviceLike, resolve_device
+
+# A spec is a list of layer tuples:
+#   ("conv", in_ch, out_ch, kernel)    SAME conv + ReLU
+#   ("pool",)                          2x2 max pool
+#   ("fc", d_in, d_out)                dense (+ReLU except last)
+MLP_SPEC = [("fc", 784, 100), ("fc", 100, 64), ("fc", 64, 10)]
+CNN1_SPEC = [("conv", 1, 10, 5), ("pool",), ("conv", 10, 20, 5), ("pool",),
+             ("fc", 320, 50), ("fc", 50, 10)]
+CNN2_SPEC = [("conv", 3, 16, 3), ("pool",), ("conv", 16, 32, 3), ("pool",),
+             ("conv", 32, 64, 3), ("pool",),
+             ("fc", 1024, 500), ("fc", 500, 100), ("fc", 100, 10)]
+
+
+def _full_fp32() -> None:
+    """float32 matmuls and convolutions in full float32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def init_cnn_spec(spec: Sequence[Tuple], *, seed: int = 0,
+                  device: DeviceLike = None) -> Dict:
+    """Random parameters with the JAX package's shapes and scales (a
+    torch generator, so not its numbers: carry those over with
+    :mod:`repro_torch.convert` where a run must match them)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    params: Dict[str, Dict] = {}
+    for li, layer in enumerate(l for l in spec if l[0] != "pool"):
+        if layer[0] == "conv":
+            _, cin, cout, k = layer
+            w = (torch.randn((k, k, cin, cout), generator=gen)
+                 / math.sqrt(cin * k * k))
+            params[f"conv{li}"] = {"w": w, "b": torch.zeros(cout)}
+        else:
+            _, din, dout = layer
+            w = torch.randn((din, dout), generator=gen) / math.sqrt(din)
+            params[f"fc{li}"] = {"w": w, "b": torch.zeros(dout)}
+    return tree.tree_map(lambda t: t.to(dev), params)
+
+
+def apply_spec(params: Dict, spec: Sequence[Tuple],
+               x: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, W, C) images or (B, D) flats for pure-MLP specs."""
+    li = 0
+    n_fc_seen = 0
+    n_fc = sum(1 for l in spec if l[0] == "fc")
+    nchw = False
+    for layer in spec:
+        if layer[0] == "conv":
+            if not nchw:
+                x = x.permute(0, 3, 1, 2)
+                nchw = True
+            p = params[f"conv{li}"]
+            x = F.conv2d(x, p["w"].permute(3, 2, 0, 1), padding="same")
+            x = F.relu(x + p["b"].view(1, -1, 1, 1))
+            li += 1
+        elif layer[0] == "pool":
+            x = F.max_pool2d(x, 2, 2)
+        elif layer[0] == "fc":
+            if x.ndim > 2:
+                if nchw:    # flatten in the JAX package's NHWC order
+                    x = x.permute(0, 2, 3, 1)
+                    nchw = False
+                x = x.reshape(x.shape[0], -1)
+            p = params[f"fc{li}"]
+            x = x @ p["w"] + p["b"]
+            n_fc_seen += 1
+            if n_fc_seen < n_fc:
+                x = F.relu(x)
+            li += 1
+    return x
+
+
+def model_bytes(params) -> int:
+    return int(sum(l.numel() * l.element_size() for l in tree.leaves(params)))
+
+
+# ------------------------------------------------------- train / eval ------
+
+def _ce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, y[:, None])[:, 0]
+    return (logz - gold).mean()
+
+
+def make_local_train_fn(spec: Sequence[Tuple], ds, parts,
+                        *, lr: float = 0.05, batch_size: int = 64,
+                        local_epochs: int = 1, flatten: bool = False,
+                        device: DeviceLike = None):
+    """Returns local_train_fn(params, client_idx, generator) -> (params,
+    loss): ``local_epochs`` epochs of minibatch SGD on the client's shard,
+    each epoch in an order ``torch.randperm`` draws from ``generator``.
+    Client shards move to the device once, here.  The loss is the mean
+    minibatch loss, a 0-d float64 tensor on the device."""
+    dev = resolve_device(device)
+    _full_fp32()
+    xs = [torch.from_numpy(ds.x[p]).to(dev) for p in parts]
+    ys = [torch.from_numpy(ds.y[p].astype(np.int64)).to(dev) for p in parts]
+    if flatten:
+        xs = [x.reshape(x.shape[0], -1) for x in xs]
+
+    def step(params, xb, yb):
+        leaves, treedef = tree.flatten(params)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        loss = _ce(apply_spec(tree.unflatten(treedef, leaves), spec, xb), yb)
+        grads = torch.autograd.grad(loss, leaves)
+        new = [(l - lr * g).detach() for l, g in zip(leaves, grads)]
+        return tree.unflatten(treedef, new), loss.detach()
+
+    def local_train(params, client_idx: int, generator: torch.Generator):
+        x, y = xs[client_idx], ys[client_idx]
+        n = x.shape[0]
+        if n == 0:
+            return params, 0.0
+        loss = torch.zeros((), dtype=torch.float64, device=dev)
+        steps = 0
+        for _ in range(local_epochs):
+            perm = torch.randperm(n, generator=generator).to(dev)
+            for s in range(0, max(n - batch_size + 1, 1), batch_size):
+                idx = perm[s:s + batch_size]
+                params, l = step(params, x[idx], y[idx])
+                loss = loss + l.double()
+                steps += 1
+        return params, loss / max(steps, 1)
+
+    return local_train
+
+
+def make_eval_fn(spec: Sequence[Tuple], test_ds, *, flatten: bool = False,
+                 batch_size: int = 512, device: DeviceLike = None):
+    """Returns eval_fn(params) -> {"accuracy": float}."""
+    dev = resolve_device(device)
+    _full_fp32()
+    x = torch.from_numpy(test_ds.x).to(dev)
+    y = np.asarray(test_ds.y)
+    if flatten:
+        x = x.reshape(x.shape[0], -1)
+
+    def eval_fn(params) -> Dict:
+        with torch.no_grad():
+            pred = torch.cat([
+                apply_spec(params, spec, x[s:s + batch_size]).argmax(-1)
+                for s in range(0, x.shape[0], batch_size)]).cpu().numpy()
+        return {"accuracy": float(np.mean(pred == y))}
+
+    return eval_fn

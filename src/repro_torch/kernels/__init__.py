@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels for FedDD's hot spots (sources in ``../csrc``).
+
+  importance    fused |dW (W+dW)/W|, per-channel reduction, sqrt and
+                coverage division, Eq. (20)/(21)              (Step 2)
+  sparse_agg    masked weighted (num, den) over stacked clients,
+                Eq. (4)                                       (Step 4)
+  masked_merge  Eq. (5) client update, a select of global and
+                local by channel                              (Step 7)
+
+Each kernel has ``ref.py`` (the plain PyTorch version) and ``ops.py``
+(the wrapper): a CPU tensor goes to ``ref.py``, a CUDA tensor to the
+kernel, anything else raises.  ``launch_counts`` reports how many times
+each kernel was launched since ``reset_launch_counts``.
+"""
+
+from repro_torch.kernels._lib import (KERNELS, build, launch_counts,
+                                      reset_launch_counts)
+
+__all__ = ["KERNELS", "build", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,183 @@
+"""Build, load and bind the CUDA kernels of ``repro_torch/csrc``.
+
+All ``.cu`` sources compile in ONE ``nvcc`` call for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+build runs at first use and lands in ``build/repro_torch/`` at the root
+of the checkout; the library's name carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+
+Also here: the per-kernel launch counts (each wrapper adds one where it
+launches its kernel, nowhere else) and the helpers the wrappers share.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("importance.cu", "sparse_agg.cu", "masked_merge.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("importance", "sparse_agg", "masked_merge")
+_launches: Dict[str, int] = collections.Counter()
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_SIGNATURES = {
+    # w_old, w_new, coverage, out, n, a, c, b, dtype, stream
+    "feddd_importance": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
+    # vals, mask, weights, num, den, n, a, c, b, mask_c, dtype, stream
+    "feddd_sparse_agg": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                         _I32, _P),
+    # g, l, mask, out, n, a, c, b, mask_c, dtype, stream
+    "feddd_masked_merge": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                           _I32, _P),
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
+    if cand is not None and cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in ("common.cuh",) + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libfeddd_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile the kernels if needed -> (library, seconds, compiler log)."""
+    out = _library_path()
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return out, secs, log
+
+
+def load() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        path, _, _ = build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(kernel: str, symbol: str, *args) -> None:
+    """Call ``symbol`` on PyTorch's current stream; raise on a launch
+    error, count the launch otherwise."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(load(), symbol)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    _launches[kernel] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: _launches[k] for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+# --------------------------------------------------------- wrapper helpers
+
+def kernel_device(*tensors: torch.Tensor) -> str:
+    """'cpu' or 'cuda' for tensors that all lie on one such device; the
+    wrappers run the plain version for 'cpu' and the kernel for 'cuda'."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}; use cuda or cpu")
+    return dev.type
+
+
+def check_contiguous(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_dtype(name: str, t: torch.Tensor, allowed) -> None:
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} has dtype {t.dtype}; expected one of "
+                        f"{tuple(allowed)}")
+
+
+def split_at(shape, axis: int) -> Tuple[int, int, int]:
+    """(A, C, B) of a leaf shape around its channel axis."""
+    a = 1
+    for s in shape[:axis]:
+        a *= int(s)
+    b = 1
+    for s in shape[axis + 1:]:
+        b *= int(s)
+    return a, int(shape[axis]), b
+
+
+def mask_view(leaf_shape, mask_shape) -> Tuple[Tuple[int, int, int], int]:
+    """((A, C, B), C_m) for a channel-shaped mask against a leaf.
+
+    ``mask_shape`` is the un-stacked mask shape: all ones except at most
+    one axis, which must equal the leaf's size there (the channel axis).
+    An all-ones mask shape (full uploads) gives C_m = 1.
+    """
+    if len(mask_shape) != len(leaf_shape):
+        raise ValueError(f"mask shape {tuple(mask_shape)} does not match "
+                         f"leaf shape {tuple(leaf_shape)}")
+    axes = [i for i, s in enumerate(mask_shape) if s != 1]
+    if not axes:
+        size = 1
+        for s in leaf_shape:
+            size *= int(s)
+        return (1, 1, size), 1
+    if len(axes) > 1 or mask_shape[axes[0]] != leaf_shape[axes[0]]:
+        raise ValueError(f"mask shape {tuple(mask_shape)} is not "
+                         f"channel-shaped for leaf {tuple(leaf_shape)}")
+    acb = split_at(leaf_shape, axes[0])
+    return acb, acb[1]

@@ -1,0 +1,28 @@
+"""Plain PyTorch version of the sparse aggregation kernel (FedDD Eq. (4)).
+
+num[a,c,b] = sum_n (W[n,a,c,b] * M[n,c]) * w_n
+den[a,c,b] = sum_n  M[n,c] * w_n
+
+The mask is channel-shaped, (N, C_m) with C_m == C or 1 (all-ones masks).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def masked_weighted_sum_ref(stack_w: torch.Tensor, stack_m: torch.Tensor,
+                            weights: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """stack_w: (N, A, C, B); stack_m: (N, C_m); weights: (N,).
+
+    Returns fp32 (num, den), each (A, C, B).
+    """
+    n = stack_w.shape[0]
+    m = stack_m.float().view(n, 1, -1, 1)
+    wts = weights.float().view(n, 1, 1, 1)
+    num = (stack_w.float() * m * wts).sum(0)
+    den = (m * wts).expand(stack_w.shape).sum(0)
+    return num, den

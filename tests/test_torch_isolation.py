@@ -1,0 +1,107 @@
+"""The PyTorch port stands alone and never falls back silently.
+
+* Importing every module of ``repro_torch`` pulls in neither ``jax`` nor
+  any module of the JAX package ``repro`` (checked in a fresh process).
+* Without a card, entry points raise unless ``device="cpu"`` is asked for.
+* Paths not ported yet raise with a pointer to ROADMAP.md.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import tree
+from repro_torch.comm import CommConfig
+from repro_torch.core import protocol, selection
+from repro_torch.fl import MLP_SPEC, init_cnn_spec
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for must in ("repro_torch.core.protocol", "repro_torch.quickstart",
+                 "repro_torch.kernels.importance.ops",
+                 "repro_torch.kernels.sparse_agg.ops",
+                 "repro_torch.kernels.masked_merge.ops",
+                 "repro_torch.convert"):
+        assert must in res["modules"]
+
+
+def _tiny_run(**kw):
+    params = init_cnn_spec(MLP_SPEC, device="cpu")
+    from repro_torch.fl import sample_system_telemetry
+    tel = sample_system_telemetry(2, [1e5, 1e5], [10, 10], [1.0, 1.0])
+    return protocol.run_scheme("feddd", params, tel,
+                               lambda p, i, g: (p, 1.0), rounds=1, **kw)
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.device import resolve_device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tiny_run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cnn_spec(MLP_SPEC)
+    assert _tiny_run(device="cpu").history[0].round == 1
+
+
+def test_random_selection_raises():
+    x = {"w": torch.ones(2, 4, 3)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        selection.build_masks_batched(
+            x, x, np.zeros(2),
+            config=selection.SelectionConfig(scheme="random"))
+
+
+@pytest.mark.parametrize("kw", [dict(sim=True), dict(faults=object()),
+                                dict(population=object()), dict(mesh=2),
+                                dict(allocator="jax")])
+def test_unported_paths_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _tiny_run(device="cpu", **kw)
+
+
+def test_unported_schemes_and_codecs_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        protocol.ProtocolConfig(scheme="oort")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CommConfig(codec="bitmask")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CommConfig(qbits=8)
+
+
+def test_tree_order_is_sorted_depth_first():
+    t = {"b": {"y": 1, "x": 2}, "a": 3, "c": {"z": {"k": 4}}}
+    leaves, td = tree.flatten(t)
+    assert leaves == [3, 2, 1, 4]
+    assert tree.unflatten(td, leaves) == t
+    assert tree.tree_map(lambda v, w: v + w, t, t)["b"]["x"] == 4
+    with pytest.raises(ValueError):
+        tree.tree_map(lambda v, w: v, t, {"a": 1})
