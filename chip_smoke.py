@@ -13,18 +13,42 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    leaves (a VGG conv and CNN2's fc), with the tolerances of the CPU tests
    (the Eq. (5) merge exact); time the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (a yardstick the
-   port never uses), as medians of CUDA-event pairs with a cold L2;
+   port never uses), as medians of CUDA-event pairs with a cold L2.
+   The flash-attention kernel is held the same way (3e-5 fp32, 2e-2
+   bf16) over the CPU tests' sweep (causal, window 24, non-causal), odd
+   lengths and head dims 16-256, and at the serving path's heads (B=1,
+   32/16 heads, hd 128, window 0 and 1024) over every row at S=8192 and
+   at the prefill's S=32768 (the plain version there in chunks of 1024
+   query rows), with bf16 inputs and again with fp32 ones; at both lengths
+   the kernel, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick the port never calls; not for the band mask at 32768) are
+   timed in bf16;
 4. one engine step on the card against the same step on the CPU (the
    plain versions), for a FedDD round, a full FedDD round and FedAvg;
-5. the main path: the quickstart configuration (synthetic MNIST 6000/1500,
-   10 clients, the paper's MLP, A_server=0.6, h=5, lr 0.1) for 5 FedDD
-   rounds and then 3 FedAvg rounds on cuda, with every kernel's launch
-   count set to 0 just before and read just after.
+5. the FedDD path: the quickstart configuration (synthetic MNIST
+   6000/1500, 10 clients, the paper's MLP, A_server=0.6, h=5, lr 0.1) for
+   5 FedDD rounds and then 3 FedAvg rounds on cuda, with every kernel's
+   launch count set to 0 just before and read just after: the three FedDD
+   kernels launch, flash attention does not;
+6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
+   hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
+   local:global periods), seeded random bf16 weights on cuda.  Two
+   prefills of one 32768-token request (``lm.prefill``: every layer
+   launches flash attention once), 32 greedy decode steps at batch 4 with
+   a 40-slot cache (no kernel launches), each with the counts set to 0
+   just before and read just after; the kernel route of an 8192-token
+   prefill against the plain-attention route; and decode from an empty
+   cache over 64 prompt tokens against ``lm.forward`` at every position
+   (asserted in fp32, reported in bf16).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  ``--out`` also writes
-every measurement as JSON.  Without a CUDA device, or outside a checkout
-of the repository, it exits non-zero and prints no result.
+The line before the last is a JSON object with one entry per kernel (the
+launches of its own path: FedDD for the three FedDD kernels, the prefill
+for flash attention; flash attention's times at the prefill's shape,
+causal, named by its ``shape`` and ``window`` keys); the last line is
+``{"ok": true, "device": {...}}``.
+``--out`` also writes every measurement as JSON.  Without a CUDA device,
+or outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -60,7 +84,32 @@ KERNEL_INFO = {
     "masked_merge": dict(
         source="src/repro_torch/csrc/masked_merge.cu",
         replaces="src/repro/kernels/masked_merge/masked_merge.py:31"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:87"),
 }
+FEDDD_KERNELS = ("importance", "sparse_agg", "masked_merge")
+
+# flash attention: the CPU tests' sweep (B, S, H, Hkv, hd), odd lengths and
+# the head dims of the LM configs, each in causal / window / bidirectional
+FLASH_SWEEP = [(2, 64, 4, 2, 32), (1, 100, 8, 8, 16), (2, 96, 4, 1, 32),
+               (1, 130, 4, 2, 48), (2, 333, 8, 2, 64), (1, 517, 4, 1, 128),
+               (1, 200, 2, 2, 256), (3, 77, 6, 3, 96), (1, 333, 8, 2, 192)]
+FLASH_MODES = [(True, 0), (True, 24), (False, 0)]
+SLICE_FLASH = (1, 8192, 32, 16, 128)      # the serving path's heads, S=8192
+SLICE_WINDOWS = (0, 1024)                 # global and local gemma3 layers
+PREFILL_SEQ = 32768                       # prefill_32k's sequence
+PLAIN_ROWS = 1024                         # query rows per plain-version chunk
+LONG_TIMED = 5                            # event pairs for the long calls
+
+SERVE_ARCH = "gemma3_27b"
+SERVE_LAYERS = 12                         # two 5:1 periods: n_super = 2
+PREFILL_CALLS = 2
+DECODE_BATCH, DECODE_CACHE, DECODE_STEPS = 4, 40, 32
+ROUTE_SEQ = 8192                          # kernel vs plain-attention route
+CONSIST_BATCH, CONSIST_T = 2, 64
+CONSIST_TOL_FP32 = 1e-4                   # of the largest |logit|
+ROUTE_TOL = 5e-2                          # bf16, of the largest |logit|
 
 
 def card_line() -> str:
@@ -78,16 +127,17 @@ class Card:
         pcie = "PCIe" in name
         self.bytes_per_s = 2.0e12 if pcie else 3.35e12
         self.fp32_flops = 51e12 if pcie else 67e12
+        self.bf16_flops = 756e12 if pcie else 989e12   # tensor cores
 
-    def bound(self, nbytes: float, flops: float):
+    def bound(self, nbytes: float, flops: float, peak: float = None):
         t_bytes = nbytes / self.bytes_per_s * 1e3
-        t_ops = flops / self.fp32_flops * 1e3
+        t_ops = flops / (peak or self.fp32_flops) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
 
-def time_ms(fn, flush) -> float:
-    """Median device time of ``fn`` over TIMED_LAUNCHES event pairs.
+def time_ms(fn, flush, reps: int = TIMED_LAUNCHES) -> float:
+    """Median device time of ``fn`` over ``reps`` event pairs.
 
     A sleep kernel keeps the card busy while the host queues the burst,
     so each pair brackets device work and not the host's launch overhead;
@@ -98,7 +148,7 @@ def time_ms(fn, flush) -> float:
     torch.cuda.synchronize()
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
-             for _ in range(TIMED_LAUNCHES)]
+             for _ in range(reps)]
     torch.cuda._sleep(SLEEP_CYCLES)
     for start, end in pairs:
         flush.zero_()
@@ -248,6 +298,120 @@ def _timed(card, flush, timer, name, n, leaf, dtype, kern, plain, lib,
     return rec
 
 
+def flash_bytes_flops(b, sq, skv, h, hkv, hd, causal, window, es):
+    """Bytes (q, k, v read once, out written once) and the flops of the
+    unmasked (query, key) pairs: 2 * hd for q.k and 2 * hd for p.v."""
+    from repro_torch.kernels.flash_attention.ref import valid_pairs
+    pairs = valid_pairs(sq, skv, causal, window)
+    nbytes = (2 * b * sq * h * hd + 2 * b * skv * hkv * hd) * es
+    return nbytes, 4 * b * h * hd * pairs, pairs
+
+
+def flash_checks(card: Card, flush, records: list, dev="cuda",
+                 timer=time_ms) -> dict:
+    """Phase 3, flash attention: the kernel against its plain version over
+    the sweep, and over every row at the slice's shape and the prefill's
+    (bf16 and fp32 inputs); times at both.  Returns max_abs_err and the
+    record of the line: the prefill's shape, causal."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        band_mask, gqa_attention_ref, gqa_attention_ref_chunked)
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    max_err = 0.0
+
+    def qkv(b, s, h, hkv, hd, dtype):
+        return [torch.randn((b, s, n, hd), generator=gen, device=dev
+                            ).to(dtype) for n in (h, hkv, hkv)]
+
+    def check(q, k, v, causal, window, plain=gqa_attention_ref):
+        nonlocal max_err
+        before = launch_counts()["flash_attention"]
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = plain(q, k, v, causal=causal, window=window)
+        if dev.type == "cuda" and (launch_counts()["flash_attention"]
+                                   != before + 1):
+            raise AssertionError("flash_attention did not count its launch")
+        tol = 3e-5 if q.dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = (got.float() - want.float()).abs().max().item()
+        max_err = max(max_err, err)
+        return err
+
+    def chunked(q, k, v, *, causal, window):
+        return gqa_attention_ref_chunked(q, k, v, causal=causal,
+                                         window=window, rows=PLAIN_ROWS)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FLASH_SWEEP:
+            q, k, v = qkv(*shape, dtype)
+            for causal, window in FLASH_MODES:
+                check(q, k, v, causal, window)
+        print(f"  flash_attention sweep {str(dtype).split('.')[-1]}: "
+              f"{len(FLASH_SWEEP) * len(FLASH_MODES)} cases agree, max err "
+              f"so far {max_err:.3g}", flush=True)
+
+    b, _, h, hkv, hd = SLICE_FLASH
+    line_rec = None
+    q, k, v = qkv(b, PREFILL_SEQ, h, hkv, hd, torch.bfloat16)
+    # the slice's shape against the whole plain version; the prefill's
+    # against it in chunks of PLAIN_ROWS query rows (137 GB of scores whole)
+    for s, plain_fn in ((SLICE_FLASH[1], gqa_attention_ref),
+                        (PREFILL_SEQ, chunked)):
+        qs, ks, vs = q[:, :s], k[:, :s], v[:, :s]
+        q32, k32, v32 = (t.float() for t in (qs, ks, vs))
+        qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))
+        for window in SLICE_WINDOWS:
+            err = check(qs, ks, vs, True, window, plain_fn)
+            err32 = check(q32, k32, v32, True, window, plain_fn)
+            kern = lambda: ops.flash_attention(qs, ks, vs, causal=True,  # noqa
+                                               window=window)
+            plain = lambda: plain_fn(qs, ks, vs, causal=True,            # noqa
+                                     window=window)
+            # SDPA: causal through its flash backend; a band mask sends it
+            # to the math backend, whose S^2 scores fit only at 8192
+            lib, mask = None, None
+            if not window:
+                lib = lambda: F.scaled_dot_product_attention(            # noqa
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            elif s == SLICE_FLASH[1]:
+                mask = band_mask(s, s, True, window, dev)
+                lib = lambda: F.scaled_dot_product_attention(            # noqa
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            nbytes, flops, pairs = flash_bytes_flops(b, s, s, h, hkv, hd,
+                                                     True, window, 2)
+            bound_ms, bound_by = card.bound(nbytes, flops, card.bf16_flops)
+            rec = dict(kernel="flash_attention", shape=[b, s, h, hkv, hd],
+                       window=window, dtype="bfloat16", max_abs_err=err,
+                       max_abs_err_fp32=err32,
+                       plain=plain_fn.__name__,
+                       ms=timer(kern, flush, LONG_TIMED),
+                       plain_ms=timer(plain, flush, LONG_TIMED),
+                       library_ms=(None if lib is None
+                                   else timer(lib, flush, LONG_TIMED)),
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                       flops=flops, pairs=pairs)
+            records.append(rec)
+            if s == PREFILL_SEQ and not window:
+                line_rec = rec
+            lib_col = ("-" if rec["library_ms"] is None
+                       else f"{rec['library_ms']:.3f}")
+            print(f"  flash_attention {(b, s, h, hkv, hd)} window "
+                  f"{window:4d}: every row agrees, max err bf16 {err:.3g} "
+                  f"fp32 {err32:.3g}; bf16 kernel {rec['ms']:.3f} ms  plain "
+                  f"{rec['plain_ms']:.3f} ms  sdpa {lib_col} ms  bound "
+                  f"{bound_ms:.3f} ms ({bound_by}; "
+                  f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s)", flush=True)
+            del plain, lib, mask
+        del q32, k32, v32
+    return {"max_abs_err": max_err, "main": line_rec}
+
+
 def engine_check(dev="cuda") -> None:
     """Phase 4: one engine step on the card vs the same step on the CPU."""
     import numpy as np
@@ -287,7 +451,8 @@ def engine_check(dev="cuda") -> None:
 
 
 def main_path(dev="cuda") -> dict:
-    """Phase 5: the quickstart configuration on cuda, kernels counted."""
+    """Phase 5: the FedDD quickstart configuration on cuda, kernels
+    counted."""
     import numpy as np
     import torch
     from repro_torch import kernels, tree
@@ -307,7 +472,7 @@ def main_path(dev="cuda") -> dict:
                              on_round=show)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    print(f"  main path: {wall:.2f} s, launches {counts}", flush=True)
+    print(f"  FedDD path: {wall:.2f} s, launches {counts}", flush=True)
 
     for res in (feddd, fedavg):
         for rec in res.history:
@@ -317,10 +482,12 @@ def main_path(dev="cuda") -> dict:
         if not all(l.device.type == torch.device(dev).type
                    for l in tree.leaves(res.global_params)):
             raise AssertionError("global params left the card")
-    for name, k in counts.items():
-        if k <= 0:
+    for name in FEDDD_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
+                                 "FedDD path")
+    if counts["flash_attention"] != 0:
+        raise AssertionError("flash_attention launched on the FedDD path")
     want_t1 = float(np.max(round_times(tel, np.zeros(tel.num_clients))))
     if feddd.history[0].sim_time != want_t1:
         raise AssertionError(f"round 1 sim_time {feddd.history[0].sim_time} "
@@ -340,6 +507,160 @@ def main_path(dev="cuda") -> dict:
                      host_wall_time=r.host_wall_time)
                 for s, res in (("feddd", feddd), ("fedavg", fedavg))
                 for r in res.history])
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def serving_phase(dev="cuda") -> dict:
+    """Phase 6: gemma3-27b at full width, 12 layers, on cuda: prefill,
+    greedy decode, the kernel route against the plain route, and decode
+    against forward."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, lm
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    cfg, params, gen = serve.build(SERVE_ARCH, reduced=False,
+                                   num_layers=SERVE_LAYERS, device=dev)
+    plan = lm.plan_for(cfg)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    print(f"  {cfg.name} d={cfg.d_model} heads={cfg.num_heads}/"
+          f"{cfg.num_kv_heads} hd={cfg.head_dim_} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} (n_super "
+          f"{plan.n_super}, period {len(plan.period)}): {n_params / 1e9:.3f}"
+          f" B params, init {init_s:.2f} s", flush=True)
+
+    def on_card(t) -> bool:
+        return t.device.type == torch.device(dev).type
+
+    # ---- prefill: one request of PREFILL_SEQ tokens, PREFILL_CALLS times
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ),
+                           generator=gen, device=dev)
+    prefill_s = []
+    kernels.reset_launch_counts()
+    for _ in range(PREFILL_CALLS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        last = lm.prefill(params, cfg, {"tokens": tokens})
+        _sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+    prefill_counts = kernels.launch_counts()
+    print(f"  prefill B=1 S={PREFILL_SEQ}: {prefill_s} s, launches "
+          f"{prefill_counts}", flush=True)
+    if tuple(last.shape) != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(last).all()):
+        raise AssertionError(f"prefill logits {tuple(last.shape)} not "
+                             f"finite")
+    want = {k: 0 for k in kernels.KERNELS}
+    want["flash_attention"] = cfg.num_layers * PREFILL_CALLS
+    if prefill_counts != want:
+        raise AssertionError(f"prefill launches {prefill_counts} != {want}")
+    del last, tokens
+
+    # ---- the kernel route against the plain-attention route, in-model
+    toks = torch.randint(0, cfg.vocab_size, (1, ROUTE_SEQ), generator=gen,
+                         device=dev)
+    by_kernel = lm.prefill(params, cfg, {"tokens": toks})
+    saved = attention.FLASH_MIN_SEQ
+    attention.FLASH_MIN_SEQ = ROUTE_SEQ + 1
+    try:
+        by_plain = lm.prefill(params, cfg, {"tokens": toks})
+    finally:
+        attention.FLASH_MIN_SEQ = saved
+    route_err = _rel_err(by_kernel, by_plain)
+    route_top1 = bool((by_kernel.argmax(-1) == by_plain.argmax(-1)).all())
+    print(f"  S={ROUTE_SEQ} prefill, kernel route vs plain route: max "
+          f"|diff| / max |logit| = {route_err:.3g}, same top-1 "
+          f"{route_top1}", flush=True)
+    if not route_err <= ROUTE_TOL:
+        raise AssertionError(f"kernel route differs by {route_err}")
+    del by_kernel, by_plain, toks
+
+    # ---- decode: DECODE_STEPS greedy steps at DECODE_BATCH, in two halves
+    state = lm.init_decode_state(params, cfg, DECODE_BATCH, DECODE_CACHE)
+    tok = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, 1), generator=gen,
+                        device=dev)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    first, _, state = serve.generate(params, cfg, state, tok,
+                                     DECODE_STEPS // 2)
+    _sync(dev)
+    half = time.perf_counter()
+    rest, logits, state = serve.generate(params, cfg, state, first[:, -1:],
+                                         DECODE_STEPS - DECODE_STEPS // 2)
+    _sync(dev)
+    t1 = time.perf_counter()
+    decode_counts = kernels.launch_counts()
+    decode_ms = (t1 - t0) / DECODE_STEPS * 1e3
+    steady_ms = (t1 - half) / (DECODE_STEPS - DECODE_STEPS // 2) * 1e3
+    print(f"  decode B={DECODE_BATCH} cache={DECODE_CACHE} "
+          f"{DECODE_STEPS} greedy steps: {decode_ms:.2f} ms/token "
+          f"(second half {steady_ms:.2f}), launches {decode_counts}",
+          flush=True)
+    if any(decode_counts.values()):
+        raise AssertionError(f"decode launched kernels: {decode_counts}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("decode logits not finite")
+    if not (all(on_card(t) for t in tree.leaves(params)) and all(
+            on_card(c.k) and on_card(c.v) for c in tree.leaves(state.stack))):
+        raise AssertionError("params or cache left the card")
+    seq = torch.cat([first, rest[:, 1:]], 1).cpu()
+    del state, logits
+
+    # ---- decode from an empty cache against forward, bf16 then fp32
+    prompt = torch.randint(0, cfg.vocab_size, (CONSIST_BATCH, CONSIST_T),
+                           generator=gen, device=dev)
+
+    def consistency(p, c) -> float:
+        full, _ = lm.forward(p, c, {"tokens": prompt})
+        st = lm.init_decode_state(p, c, CONSIST_BATCH, CONSIST_T)
+        stp = lm.make_serve_step(c)
+        outs = []
+        for t in range(CONSIST_T):
+            lg, st = stp(p, st, prompt[:, t:t + 1])
+            outs.append(lg)
+        return _rel_err(torch.stack(outs, 1), full)
+
+    consist_bf16 = consistency(params, cfg)
+    params = tree.tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    consist_fp32 = consistency(params, cfg32)
+    print(f"  decode vs forward over {CONSIST_T} tokens, batch "
+          f"{CONSIST_BATCH}: max |diff| / max |logit| = {consist_fp32:.3g} "
+          f"fp32 (limit {CONSIST_TOL_FP32}), {consist_bf16:.3g} bf16",
+          flush=True)
+    if not consist_fp32 <= CONSIST_TOL_FP32:
+        raise AssertionError(f"decode differs from forward by "
+                             f"{consist_fp32} in fp32")
+    del params
+    return dict(config=dict(arch=SERVE_ARCH, layers=cfg.num_layers,
+                            n_params=n_params, n_super=plan.n_super),
+                init_s=init_s, prefill_seq=PREFILL_SEQ, prefill_s=prefill_s,
+                prefill_launches=prefill_counts, route_seq=ROUTE_SEQ,
+                route_err=route_err, route_same_top1=route_top1,
+                decode_batch=DECODE_BATCH, decode_cache=DECODE_CACHE,
+                decode_steps=DECODE_STEPS, decode_ms_per_token=decode_ms,
+                decode_steady_ms_per_token=steady_ms,
+                decode_launches=decode_counts,
+                request0_tokens=seq[0, :8].tolist(),
+                consistency_fp32=consist_fp32, consistency_bf16=consist_bf16)
 
 
 def main(argv=None) -> int:
@@ -374,29 +695,39 @@ def main(argv=None) -> int:
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         records: list = []
         checks = kernel_checks(card, flush, records)
+        flash = flash_checks(card, flush, records)
         del flush
+        torch.cuda.empty_cache()
         engine_check()
         path_out = main_path()
+        serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
         traceback.print_exc()
         return 1
 
+    checks["main"]["flash_attention"] = flash["main"]
+    checks["max_abs_err"]["flash_attention"] = flash["max_abs_err"]
+    launches = dict(path_out["launches"])
+    launches["flash_attention"] = serve_out["prefill_launches"][
+        "flash_attention"]
     line_kernels = []
     for name, info in KERNEL_INFO.items():
         rec = checks["main"][name]
         line_kernels.append(dict(
             name=name, route="cuda", source=info["source"],
-            replaces=info["replaces"],
-            launches=path_out["launches"][name],
+            replaces=info["replaces"], launches=launches[name],
             max_abs_err=checks["max_abs_err"][name], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-            bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=rec["shape"], dtype=rec["dtype"]))
+        if "window" in rec:
+            line_kernels[-1]["window"] = rec["window"]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             card=line, build_s=secs, kernels=records, main_path=path_out,
-            summary=line_kernels), indent=1))
+            serving=serve_out, summary=line_kernels), indent=1))
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

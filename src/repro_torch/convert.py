@@ -43,3 +43,16 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 def to_numpy(params):
     """dict of tensors -> dict of numpy arrays (bfloat16 as float32)."""
     return tree.tree_map(_leaf_to_numpy, params)
+
+
+def lm_params_from_jax(numpy_tree, device: DeviceLike = None):
+    """The JAX package's LM parameters (``jax.device_get`` of
+    ``repro.models.lm.init_model``) -> the port's tree on ``device``.
+
+    The tree is the same ({"embed", "stack": {"super", "rem"},
+    "final_norm", ["lm_head"]}); bfloat16 leaves cross bit for bit and
+    every leaf keeps its dtype (norm scales stay float32)."""
+    for key in ("embed", "stack", "final_norm"):
+        if key not in numpy_tree:
+            raise ValueError(f"not an LM parameter tree: no {key!r} entry")
+    return to_torch(numpy_tree, device)

@@ -6,6 +6,8 @@
                 Eq. (4)                                       (Step 4)
   masked_merge  Eq. (5) client update, a select of global and
                 local by channel                              (Step 7)
+  flash_attention  causal / sliding-window GQA attention with an
+                online softmax, for the LM stack's long-sequence prefill
 
 Each kernel has ``ref.py`` (the plain PyTorch version) and ``ops.py``
 (the wrapper): a CPU tensor goes to ``ref.py``, a CUDA tensor to the

@@ -26,11 +26,12 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("importance.cu", "sparse_agg.cu", "masked_merge.cu")
+SOURCES = ("importance.cu", "sparse_agg.cu", "masked_merge.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("importance", "sparse_agg", "masked_merge")
+KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention")
 _launches: Dict[str, int] = collections.Counter()
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -43,6 +44,10 @@ _SIGNATURES = {
     # g, l, mask, out, n, a, c, b, mask_c, dtype, stream
     "feddd_masked_merge": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                            _I32, _P),
+    # q, k, v, out, b, sq, skv, h, hkv, hd, 9 strides (q, k, v: b, s, h),
+    # causal, window, dtype, stream
+    "feddd_flash_attention": (_P, _P, _P, _P) + (_I64,) * 15 + (_I32, _I64,
+                                                                _I32, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

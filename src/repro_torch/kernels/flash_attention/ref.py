@@ -1,0 +1,82 @@
+"""Plain PyTorch version of the flash-attention kernel: dense causal /
+sliding-window GQA attention with fp32 scores and softmax.
+
+The counterpart of ``repro.kernels.flash_attention.ref.gqa_attention_ref``:
+the (B, Hkv, G, Sq, Skv) scores are materialised in fp32 (scaled after
+the dot), masked to ``NEG_INF`` and soft-maxed.  Memory grows as Sq*Skv,
+so this is for checks: at B=1, H=32, S=8192 the scores alone take 8.6 GB;
+``gqa_attention_ref_chunked`` holds one chunk of query rows at a time.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -2.3819763e38
+
+
+def band_mask(sq: int, skv: int, causal: bool, window: int,
+              device, q_offset: int = 0) -> torch.Tensor:
+    """(sq, skv) boolean: query i (at position q_offset + i) attends key j
+    (window 0 = unlimited)."""
+    qi = torch.arange(q_offset, q_offset + sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window:
+        mask &= kj > qi - window
+    return mask
+
+
+def valid_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Number of (query, key) pairs the mask lets through: the work an
+    exact kernel must do (``band_mask(...).sum()`` without the matrix)."""
+    total = 0
+    for i in range(sq):
+        hi = min(skv - 1, i) if causal else skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, H, hd).
+
+    ``q_offset`` is the position of q's first row in the sequence of k/v
+    (the mask's row index), so a chunk of query rows gives those rows of
+    the whole."""
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, hd).float()
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k.float())
+    scores.div_(math.sqrt(hd))
+    mask = band_mask(sq, skv, causal, window, q.device, q_offset)
+    scores.masked_fill_(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    del scores
+    out = torch.einsum("bhgqs,bshk->bqhgk", w, v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def gqa_attention_ref_chunked(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0,
+                              rows: int = 1024) -> torch.Tensor:
+    """``gqa_attention_ref`` over chunks of ``rows`` query rows: one chunk's
+    scores are in memory at a time (4.3 GB at B=1, H=32, Skv=32768).  A
+    causal chunk reads the keys up to its last row only: the later ones are
+    masked for all its rows."""
+    out = torch.empty_like(q)
+    for r0 in range(0, q.shape[1], rows):
+        r1 = min(r0 + rows, q.shape[1])
+        kv_end = min(r1, k.shape[1]) if causal else k.shape[1]
+        out[:, r0:r1] = gqa_attention_ref(
+            q[:, r0:r1], k[:, :kv_end], v[:, :kv_end], causal=causal,
+            window=window, q_offset=r0)
+    return out

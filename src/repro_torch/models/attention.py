@@ -1,0 +1,198 @@
+"""Grouped-query self-attention: prefill forward and KV-cache decode step.
+
+The counterpart of ``repro.models.attention`` for the dense family:
+
+  * GQA (num_kv_heads < num_heads), query head h reading kv head
+    h // (H/Hkv),
+  * causal full attention, sliding-window ("local") causal attention with
+    a static window, bidirectional attention,
+  * RoPE (full or partial "2d"), optional QK-norm,
+  * decode: a single-token query against a static KV cache, ring-buffered
+    for local layers.
+
+Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).  Matmuls run in
+the compute dtype, the softmax in fp32.  At ``s >= FLASH_MIN_SEQ`` the
+causal and local modes go through the flash-attention wrapper: the Hopper
+kernel for CUDA tensors, its plain version for CPU tensors (where the JAX
+package routes to its Pallas kernel on a TPU).  ``cross_attention``
+(audio) and the JAX package's chunked non-TPU fallback are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+NEG_INF = -2.3819763e38   # lowest bf16-representable; standard flash value
+
+# Sequences at least this long attend through the flash kernel.
+FLASH_MIN_SEQ = 8192
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   lead=()) -> dict:
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    lead = tuple(lead)
+
+    def dense(d_in, d_out, shape, scale=None):
+        w = layers.init_dense(gen, d_in, d_out, dtype, scale=scale,
+                              lead=lead)["kernel"]
+        return w.reshape(lead + shape)
+
+    p = {
+        "wq": dense(d, h * hd, (d, h, hd)),
+        "wk": dense(d, hkv * hd, (d, hkv, hd)),
+        "wv": dense(d, hkv * hd, (d, hkv, hd)),
+        "wo": dense(h * hd, d, (h, hd, d), scale=1.0 / math.sqrt(h * hd)),
+    }
+    if cfg.qk_norm:
+        dev = gen.device
+        p["q_norm"] = layers.init_norm(hd, "rmsnorm", dev, lead)
+        p["k_norm"] = layers.init_norm(hd, "rmsnorm", dev, lead)
+    return p
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matmul."""
+    d, nh, hd = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, nh * hd)).unflatten(
+        -1, (nh, hd))
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = layers.apply_norm(p["q_norm"], q, "rmsnorm")
+        k = layers.apply_norm(p["k_norm"], k, "rmsnorm")
+    if cfg.rope != "none":
+        rot = int(cfg.head_dim_ * cfg.rotary_pct)
+        rot -= rot % 2
+        cos, sin = layers.rotary_angles(positions, rot, cfg.rope_theta)
+        q = layers.apply_rotary(q, cos, sin, cfg.rotary_pct)
+        k = layers.apply_rotary(k, cos, sin, cfg.rotary_pct)
+    return q, k, v
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped scaled-dot-product attention, the JAX package's order:
+    scores in the compute dtype, divided by sqrt(hd) in that dtype, then
+    cast to fp32 for the masked softmax.
+
+    q: (B, Sq, H, hd); k/v: (B, Skv, Hkv, hd); mask broadcastable to
+    (B, Sq, Skv) (True = attend).
+    """
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, sq, hkv, g, hd)
+    scores = torch.einsum("bqhgk,bshk->bhgqs", qg, k)
+    scores = scores / torch.tensor(math.sqrt(hd), dtype=scores.dtype,
+                                   device=scores.device)
+    scores = scores.float()
+    if mask is not None:
+        m = mask[:, None, None, :, :]
+        scores = torch.where(m, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", w, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def causal_mask(sq: int, skv: int, offset: int = 0, device=None
+                ) -> torch.Tensor:
+    """(sq, skv) boolean mask; query i attends kv j iff j <= i + offset."""
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    return kj <= qi + offset
+
+
+def local_mask(sq: int, skv: int, window: int, offset: int = 0,
+               device=None) -> torch.Tensor:
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(skv, device=device)[None, :]
+    return (kj <= qi + offset) & (kj > qi + offset - window)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matmul."""
+    h, hd, d = wo.shape
+    return torch.matmul(out.flatten(-2), wo.to(out.dtype).reshape(h * hd, d))
+
+
+def self_attention(p, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
+                   positions: Optional[torch.Tensor] = None,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """Prefill self-attention.  mode: full|local|bidir."""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    win = window or cfg.window_size
+    if mode in ("full", "local") and s >= FLASH_MIN_SEQ:
+        out = flash_ops.flash_attention(
+            q, k, v, causal=True, window=win if mode == "local" else 0)
+    elif mode == "full":
+        out = _sdpa(q, k, v, causal_mask(s, s, device=x.device)[None])
+    elif mode == "local":
+        out = _sdpa(q, k, v, local_mask(s, s, win, device=x.device)[None])
+    elif mode == "bidir":
+        out = _sdpa(q, k, v, None)
+    else:
+        raise ValueError(mode)
+    return _out_proj(out, p["wo"])
+
+
+# ------------------------------------------------------------- decode ------
+
+class KVCache(NamedTuple):
+    """Static-shape KV cache for one attention layer (or a stacked group).
+
+    k/v: (..., B, C, Hkv, hd) where C = the full sequence budget
+    (full/global layers) or the window (local layers: a ring buffer
+    indexed pos % C).  Decode writes the new token's k/v IN PLACE: the
+    cache is updated, not copied, each step.
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(b: int, c: int, hkv: int, hd: int, dtype, device,
+              lead=()) -> "KVCache":
+        shape = tuple(lead) + (b, c, hkv, hd)
+        return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                       v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor,
+                          cache: KVCache, pos: int, *, mode: str
+                          ) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode.  x: (B, 1, D); pos: the current position (a host
+    int).  Returns (output (B, 1, D), the cache, updated in place)."""
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    c = cache.k.shape[1]
+    slot = pos % c if mode == "local" else min(pos, c - 1)
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    idx = torch.arange(c, device=x.device)
+    if mode == "local":
+        # Ring buffer: slot j holds the token written at time
+        # t_j = pos - ((pos - j) mod c); it is valid iff t_j >= 0 (the
+        # window constraint holds since the buffer length is the window).
+        tj = pos - torch.remainder(pos - idx, c)
+        valid = (tj >= 0)[None, :]
+    else:
+        valid = (idx <= pos)[None, :]
+    mask = valid[:, None, :]                      # (1, sq=1, C)
+    out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask)
+    return _out_proj(out, p["wo"]), cache

@@ -1,0 +1,183 @@
+"""Block assembly and the layer stack, dense subset.
+
+The counterpart of ``repro.models.blocks``.  A layout (``cfg.layout()``)
+splits into ``(period, n_super, remainder)``; the parameters of each
+period position are stacked with a leading ``n_super`` axis, and the
+stack runs as a Python loop over that axis (where the JAX package runs a
+``lax.scan``), then the remainder layers.  The parameter tree is the JAX
+package's: ``{"super": {"p<i>": stacked}, "rem": {"r<i>": ...}}``.
+
+Decode state (the KV caches) is stacked the same way; slicing the stacked
+cache gives views, so the in-place cache writes of a decode step land in
+the stacked tensors.
+
+Mixers ``attn`` and ``attn_local`` and the ``dense`` feed-forward are
+ported; mamba, mLSTM, sLSTM, MoE and cross-attention raise with a pointer
+to ROADMAP.md A15.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.models import attention, layers, mlp
+from repro_torch.models.config import BlockSpec, ModelConfig, split_layout
+
+ATTN_MIXERS = ("attn", "attn_local")
+
+
+def _check_ported(spec: BlockSpec) -> None:
+    if spec.mixer not in ATTN_MIXERS:
+        raise NotImplementedError(
+            f"mixer {spec.mixer!r} is not ported yet; see ROADMAP.md A15")
+    if spec.ff not in ("dense", "none"):
+        raise NotImplementedError(
+            f"feed-forward {spec.ff!r} is not ported yet; see ROADMAP.md A15")
+    if spec.cross_attention:
+        raise NotImplementedError(
+            "cross-attention (enc-dec) is not ported yet; see ROADMAP.md A15")
+
+
+# --------------------------------------------------------------- params ----
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
+               dtype, lead=()) -> Dict:
+    _check_ported(spec)
+    dev = gen.device
+    p: Dict[str, Any] = {
+        "pre_norm": layers.init_norm(cfg.d_model, cfg.norm, dev, lead),
+        "mixer": attention.init_attention(gen, cfg, dtype, lead)}
+    if spec.ff == "dense":
+        p["post_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev, lead)
+        p["ff"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                               dtype, lead)
+    return p
+
+
+# --------------------------------------------------------------- states ----
+
+def init_block_state(cfg: ModelConfig, spec: BlockSpec, batch: int,
+                     cache_len: int, dtype, device, lead=()
+                     ) -> attention.KVCache:
+    """Decode-time state of one layer: its KV cache."""
+    _check_ported(spec)
+    c = cache_len
+    if spec.mixer == "attn_local":
+        c = min(spec.window or cfg.window_size, cache_len)
+    return attention.KVCache.zeros(batch, c, cfg.num_kv_heads,
+                                   cfg.head_dim_, dtype, device, lead)
+
+
+# --------------------------------------------------------------- apply -----
+
+def _attn_mode(spec: BlockSpec, mode: str) -> str:
+    if mode == "bidir":
+        return "bidir"
+    return "local" if spec.mixer == "attn_local" else "full"
+
+
+def apply_block(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor, *,
+                mode: str = "causal") -> torch.Tensor:
+    """Prefill application of one layer."""
+    _check_ported(spec)
+    h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
+    x = x + attention.self_attention(p["mixer"], cfg, h,
+                                     mode=_attn_mode(spec, mode),
+                                     window=spec.window)
+    if spec.ff == "dense":
+        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
+        x = x + mlp.apply_mlp(p["ff"], h, cfg.activation)
+    return x
+
+
+def apply_block_decode(p, cfg: ModelConfig, spec: BlockSpec,
+                       x: torch.Tensor, state: attention.KVCache, pos: int
+                       ) -> Tuple[torch.Tensor, attention.KVCache]:
+    """Single-token decode of one layer.  x: (B, 1, D)."""
+    _check_ported(spec)
+    h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
+    y, state = attention.decode_self_attention(
+        p["mixer"], cfg, h, state, pos, mode=_attn_mode(spec, "causal"))
+    x = x + y
+    if spec.ff == "dense":
+        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
+        x = x + mlp.apply_mlp(p["ff"], h, cfg.activation)
+    return x, state
+
+
+# ---------------------------------------------------------------- stack ----
+
+@dataclasses.dataclass(frozen=True)
+class StackPlan:
+    period: Tuple[BlockSpec, ...]
+    n_super: int
+    remainder: Tuple[BlockSpec, ...]
+
+    @staticmethod
+    def from_layout(specs: List[BlockSpec]) -> "StackPlan":
+        p, n, r = split_layout(specs)
+        return StackPlan(tuple(p), n, tuple(r))
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig, plan: StackPlan,
+               dtype) -> Dict:
+    """Stacked parameters: {'super': {'p0': stacked, ...}, 'rem': {...}}."""
+    out: Dict[str, Any] = {"super": {}, "rem": {}}
+    for pi, spec in enumerate(plan.period):
+        out["super"][f"p{pi}"] = init_block(gen, cfg, spec, dtype,
+                                            lead=(plan.n_super,))
+    for ri, spec in enumerate(plan.remainder):
+        out["rem"][f"r{ri}"] = init_block(gen, cfg, spec, dtype)
+    return out
+
+
+def init_stack_state(cfg: ModelConfig, plan: StackPlan, batch: int,
+                     cache_len: int, dtype, device) -> Dict:
+    out: Dict[str, Any] = {"super": {}, "rem": {}}
+    for pi, spec in enumerate(plan.period):
+        out["super"][f"p{pi}"] = init_block_state(
+            cfg, spec, batch, cache_len, dtype, device, lead=(plan.n_super,))
+    for ri, spec in enumerate(plan.remainder):
+        out["rem"][f"r{ri}"] = init_block_state(cfg, spec, batch, cache_len,
+                                                dtype, device)
+    return out
+
+
+def _slice(stacked, i: int):
+    """Super-block ``i`` of a stacked tree (views, no copies)."""
+    if isinstance(stacked, attention.KVCache):
+        return attention.KVCache(stacked.k[i], stacked.v[i])
+    return tree.tree_map(lambda t: t[i], stacked)
+
+
+def apply_stack(params: Dict, cfg: ModelConfig, plan: StackPlan,
+                x: torch.Tensor, *, mode: str = "causal") -> torch.Tensor:
+    """Forward through the whole stack."""
+    for i in range(plan.n_super):
+        for pi, spec in enumerate(plan.period):
+            x = apply_block(_slice(params["super"][f"p{pi}"], i), cfg, spec,
+                            x, mode=mode)
+    for ri, spec in enumerate(plan.remainder):
+        x = apply_block(params["rem"][f"r{ri}"], cfg, spec, x, mode=mode)
+    return x
+
+
+def apply_stack_decode(params: Dict, cfg: ModelConfig, plan: StackPlan,
+                       x: torch.Tensor, state: Dict, pos: int
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """One decode step through the stack; the caches in ``state`` are
+    updated in place and ``state`` is returned."""
+    for i in range(plan.n_super):
+        for pi, spec in enumerate(plan.period):
+            x, _ = apply_block_decode(_slice(params["super"][f"p{pi}"], i),
+                                      cfg, spec, x,
+                                      _slice(state["super"][f"p{pi}"], i),
+                                      pos)
+    for ri, spec in enumerate(plan.remainder):
+        x, _ = apply_block_decode(params["rem"][f"r{ri}"], cfg, spec, x,
+                                  state["rem"][f"r{ri}"], pos)
+    return x, state

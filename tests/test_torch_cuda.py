@@ -72,10 +72,79 @@ def test_kernel_on_card_matches_plain(kernel, dtype, cuda_device):
 
 def test_quickstart_rounds_on_card(cuda_device):
     """Two FedDD rounds and one FedAvg round of the quickstart on the card
-    go through all three kernels and keep the model there."""
+    go through all three FedDD kernels (and not flash attention) and keep
+    the model there."""
     from repro_torch.quickstart import run
     kernels.reset_launch_counts()
     feddd, fedavg, _ = run(2, fedavg_rounds=1, device=cuda_device)
-    assert all(v > 0 for v in kernels.launch_counts().values())
+    counts = kernels.launch_counts()
+    assert counts.pop("flash_attention") == 0
+    assert all(v > 0 for v in counts.values())
     assert all(np.isfinite(r.mean_loss) for r in feddd.history)
     assert all(leaf.is_cuda for leaf in tree.leaves(fedavg.global_params))
+
+
+FLASH_CASES = [((2, 64, 4, 2, 32), True, 24), ((1, 130, 4, 2, 48), True, 0),
+               ((1, 100, 8, 8, 16), False, 0), ((2, 333, 8, 2, 64), True, 0),
+               ((1, 517, 4, 1, 128), True, 100),
+               ((1, 200, 2, 2, 256), False, 37),
+               ((1, 333, 8, 2, 192), True, 64)]
+
+
+@pytest.mark.parametrize("shape,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_card_matches_plain(shape, causal, window, dtype,
+                                            cuda_device):
+    """The flash kernel against its plain version on the same CUDA
+    tensors (3e-5 fp32, 2e-2 bf16, as on the CPU), at odd lengths and
+    head dims 16-256; one launch per call."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    b, s, h, hkv, hd = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device
+                           ).to(dtype) for n in (h, hkv, hkv))
+    before = kernels.launch_counts()["flash_attention"]
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = gqa_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+
+
+def test_reduced_gemma3_prefill_and_decode_on_card(cuda_device, monkeypatch):
+    """A 4-layer reduced gemma3 (fp32) on the card: with the flash
+    threshold below the prompt every layer launches the kernel, the
+    prefill matches the same model on the CPU (plain version), and
+    decode over the prompt reproduces the forward logits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3_27b", reduced=True),
+                              num_layers=4, param_dtype="float32",
+                              compute_dtype="float32")
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 32)
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), cuda_device)
+    cpu_params = tree.tree_map(lambda t: t.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    got = lm.prefill(params, cfg, {"tokens": toks.to(cuda_device)})
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 4
+    want = lm.prefill(cpu_params, cfg, {"tokens": toks})
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    full, _ = lm.forward(params, cfg, {"tokens": toks[:, :20].to(cuda_device)})
+    step = lm.make_serve_step(cfg)
+    state = lm.init_decode_state(params, cfg, 2, 20)
+    outs = []
+    for t in range(20):
+        lg, state = step(params, state, toks[:, t:t + 1].to(cuda_device))
+        outs.append(lg)
+    dec = torch.stack(outs, 1)
+    assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())
+    assert all(c.k.is_cuda for c in tree.leaves(state.stack))

@@ -3,7 +3,8 @@
 * Importing every module of ``repro_torch`` pulls in neither ``jax`` nor
   any module of the JAX package ``repro`` (checked in a fresh process).
 * Without a card, entry points raise unless ``device="cpu"`` is asked for.
-* Paths not ported yet raise with a pointer to ROADMAP.md.
+* Paths and architectures not ported yet raise with a pointer to
+  ROADMAP.md.
 """
 
 import json
@@ -48,7 +49,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.kernels.importance.ops",
                  "repro_torch.kernels.sparse_agg.ops",
                  "repro_torch.kernels.masked_merge.ops",
-                 "repro_torch.convert"):
+                 "repro_torch.convert", "repro_torch.models.lm",
+                 "repro_torch.models.attention",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.launch.serve"):
         assert must in res["modules"]
 
 
@@ -95,6 +99,27 @@ def test_unported_schemes_and_codecs_raise():
         CommConfig(codec="bitmask")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CommConfig(qbits=8)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "jamba-1.5-large-398b",
+                                  "xlstm_1p3b", "pixtral_12b",
+                                  "whisper_medium", "granite_moe_1b_a400m"])
+def test_unported_architectures_raise(arch):
+    from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
+        get_config(arch, reduced=True)
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_config("gemma3_27b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_model(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--steps", "1"])
 
 
 def test_tree_order_is_sorted_depth_first():
