@@ -14,15 +14,19 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    (the Eq. (5) merge exact); time the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (a yardstick the
    port never uses), as medians of CUDA-event pairs with a cold L2.
-   The flash-attention kernel is held the same way (3e-5 fp32, 2e-2
-   bf16) over the CPU tests' sweep (causal, window 24, non-causal), odd
-   lengths and head dims 16-256, and at the serving path's heads (B=1,
-   32/16 heads, hd 128, window 0 and 1024) over every row at S=8192 and
-   at the prefill's S=32768 (the plain version there in chunks of 1024
-   query rows), with bf16 inputs and again with fp32 ones; at both lengths
-   the kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick the port never calls; not for the band mask at 32768) are
-   timed in bf16;
+   The flash-attention kernels are held the same way (3e-5 fp32, 2e-2
+   bf16, and in bf16 every output row within max|want|/64) over the CPU
+   tests' sweep (causal, window 24, non-causal), odd lengths and head
+   dims 16-256, each call's route counter checked against the rule (bf16
+   at hd 64-256: the tensor-core kernel; fp32 and bf16 at hd 16-96: the
+   CUDA-core one), and at the serving path's heads (B=1, 32/16 heads,
+   hd 128, window 0 and 1024) over every row at S=8192 and at the
+   prefill's S=32768 (the plain version there in chunks of 1024 query
+   rows), with bf16 inputs and again with fp32 ones; at both lengths the
+   kernel, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick the port never calls: causal through its flash backend, the
+   window through its memory-efficient backend with an additive band
+   mask) are timed in bf16;
 4. one engine step on the card against the same step on the CPU (the
    plain versions), for a FedDD round, a full FedDD round and FedAvg;
 5. the FedDD path: the quickstart configuration (synthetic MNIST
@@ -34,7 +38,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
    prefills of one 32768-token request (``lm.prefill``: every layer
-   launches flash attention once), 32 greedy decode steps at batch 4 with
+   launches flash attention once, on the tensor-core route), 32 greedy
+   decode steps at batch 4 with
    a 40-slot cache (no kernel launches), each with the counts set to 0
    just before and read just after; the kernel route of an 8192-token
    prefill against the plain-attention route; and decode from an empty
@@ -44,7 +49,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: FedDD for the three FedDD kernels, the prefill
 for flash attention; flash attention's times at the prefill's shape,
-causal, named by its ``shape`` and ``window`` keys); the last line is
+causal, named by its ``shape`` and ``window`` keys, and the launches by
+route under ``dispatch``); the last line is
 ``{"ok": true, "device": {...}}``.
 ``--out`` also writes every measurement as JSON.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -85,7 +91,7 @@ KERNEL_INFO = {
         source="src/repro_torch/csrc/masked_merge.cu",
         replaces="src/repro/kernels/masked_merge/masked_merge.py:31"),
     "flash_attention": dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
+        source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:87"),
 }
 FEDDD_KERNELS = ("importance", "sparse_agg", "masked_merge")
@@ -100,6 +106,7 @@ SLICE_FLASH = (1, 8192, 32, 16, 128)      # the serving path's heads, S=8192
 SLICE_WINDOWS = (0, 1024)                 # global and local gemma3 layers
 PREFILL_SEQ = 32768                       # prefill_32k's sequence
 PLAIN_ROWS = 1024                         # query rows per plain-version chunk
+ROW_TOL = 1 / 64                          # bf16: per row, of its max |want|
 LONG_TIMED = 5                            # event pairs for the long calls
 
 SERVE_ARCH = "gemma3_27b"
@@ -309,39 +316,57 @@ def flash_bytes_flops(b, sq, skv, h, hkv, hd, causal, window, es):
 
 def flash_checks(card: Card, flush, records: list, dev="cuda",
                  timer=time_ms) -> dict:
-    """Phase 3, flash attention: the kernel against its plain version over
-    the sweep, and over every row at the slice's shape and the prefill's
-    (bf16 and fp32 inputs); times at both.  Returns max_abs_err and the
-    record of the line: the prefill's shape, causal."""
+    """Phase 3, flash attention: the kernels against their plain version
+    over the sweep, and over every row at the slice's shape and the
+    prefill's (bf16 and fp32 inputs); times at both.  Returns max_abs_err
+    and the record of the line: the prefill's shape, causal."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import (
-        band_mask, gqa_attention_ref, gqa_attention_ref_chunked)
+        gqa_attention_ref, gqa_attention_ref_chunked, worst_row_error)
 
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     max_err = 0.0
+    worst_row = 0.0
 
     def qkv(b, s, h, hkv, hd, dtype):
         return [torch.randn((b, s, n, hd), generator=gen, device=dev
                             ).to(dtype) for n in (h, hkv, hkv)]
 
     def check(q, k, v, causal, window, plain=gqa_attention_ref):
-        nonlocal max_err
+        nonlocal max_err, worst_row
         before = launch_counts()["flash_attention"]
+        routes = ops.route_counts()
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = plain(q, k, v, causal=causal, window=window)
-        if dev.type == "cuda" and (launch_counts()["flash_attention"]
-                                   != before + 1):
-            raise AssertionError("flash_attention did not count its launch")
+        if dev.type == "cuda":
+            if launch_counts()["flash_attention"] != before + 1:
+                raise AssertionError("flash_attention did not count its "
+                                     "launch")
+            which = ("sm90" if q.dtype == torch.bfloat16
+                     and q.shape[-1] in (64, 128, 192, 256) else "fma")
+            after = ops.route_counts()
+            if after[which] != routes[which] + 1:
+                raise AssertionError(f"flash_attention {tuple(q.shape)} "
+                                     f"{q.dtype} did not take the {which} "
+                                     f"route: {routes} -> {after}")
         tol = 3e-5 if q.dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
         err = (got.float() - want.float()).abs().max().item()
         max_err = max(max_err, err)
-        return err
+        row = None
+        if q.dtype == torch.bfloat16:
+            row = worst_row_error(got, want)
+            worst_row = max(worst_row, row)
+            if not row <= ROW_TOL:
+                raise AssertionError(
+                    f"flash_attention {tuple(q.shape)} causal={causal} "
+                    f"window={window}: a row differs by {row:.4g} of its "
+                    f"max |want| (limit {ROW_TOL:.4g})")
+        return err, row
 
     def chunked(q, k, v, *, causal, window):
         return gqa_attention_ref_chunked(q, k, v, causal=causal,
@@ -354,7 +379,8 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
                 check(q, k, v, causal, window)
         print(f"  flash_attention sweep {str(dtype).split('.')[-1]}: "
               f"{len(FLASH_SWEEP) * len(FLASH_MODES)} cases agree, max err "
-              f"so far {max_err:.3g}", flush=True)
+              f"so far {max_err:.3g}, worst bf16 row {worst_row:.3g} of its "
+              f"scale; routes {ops.route_counts()}", flush=True)
 
     b, _, h, hkv, hd = SLICE_FLASH
     line_rec = None
@@ -367,33 +393,24 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
         q32, k32, v32 = (t.float() for t in (qs, ks, vs))
         qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))
         for window in SLICE_WINDOWS:
-            err = check(qs, ks, vs, True, window, plain_fn)
-            err32 = check(q32, k32, v32, True, window, plain_fn)
+            (err, row), (err32, _) = (
+                check(qs, ks, vs, True, window, plain_fn),
+                check(q32, k32, v32, True, window, plain_fn))
             kern = lambda: ops.flash_attention(qs, ks, vs, causal=True,  # noqa
                                                window=window)
             plain = lambda: plain_fn(qs, ks, vs, causal=True,            # noqa
                                      window=window)
-            # SDPA: causal through its flash backend; a band mask sends it
-            # to the math backend, whose S^2 scores fit only at 8192
-            lib, mask = None, None
-            if not window:
-                lib = lambda: F.scaled_dot_product_attention(            # noqa
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
-            elif s == SLICE_FLASH[1]:
-                mask = band_mask(s, s, True, window, dev)
-                lib = lambda: F.scaled_dot_product_attention(            # noqa
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib, lib_note = sdpa_yardstick(qt, kt, vt, window, flush, timer)
             nbytes, flops, pairs = flash_bytes_flops(b, s, s, h, hkv, hd,
                                                      True, window, 2)
             bound_ms, bound_by = card.bound(nbytes, flops, card.bf16_flops)
             rec = dict(kernel="flash_attention", shape=[b, s, h, hkv, hd],
                        window=window, dtype="bfloat16", max_abs_err=err,
-                       max_abs_err_fp32=err32,
+                       max_abs_err_fp32=err32, worst_row=row,
                        plain=plain_fn.__name__,
                        ms=timer(kern, flush, LONG_TIMED),
                        plain_ms=timer(plain, flush, LONG_TIMED),
-                       library_ms=(None if lib is None
-                                   else timer(lib, flush, LONG_TIMED)),
+                       library_ms=lib, library=lib_note,
                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                        flops=flops, pairs=pairs)
             records.append(rec)
@@ -403,13 +420,50 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
                        else f"{rec['library_ms']:.3f}")
             print(f"  flash_attention {(b, s, h, hkv, hd)} window "
                   f"{window:4d}: every row agrees, max err bf16 {err:.3g} "
-                  f"fp32 {err32:.3g}; bf16 kernel {rec['ms']:.3f} ms  plain "
-                  f"{rec['plain_ms']:.3f} ms  sdpa {lib_col} ms  bound "
-                  f"{bound_ms:.3f} ms ({bound_by}; "
+                  f"(worst row {row:.3g} of its scale) fp32 {err32:.3g}; "
+                  f"bf16 kernel {rec['ms']:.3f} ms  plain "
+                  f"{rec['plain_ms']:.3f} ms  sdpa {lib_col} ms ({lib_note})"
+                  f"  bound {bound_ms:.3f} ms ({bound_by}; "
                   f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s)", flush=True)
-            del plain, lib, mask
+            del plain
         del q32, k32, v32
-    return {"max_abs_err": max_err, "main": line_rec}
+    return {"max_abs_err": max_err, "worst_row": worst_row, "main": line_rec}
+
+
+def sdpa_yardstick(qt, kt, vt, window, flush, timer):
+    """Time ``scaled_dot_product_attention`` on the flash kernel's inputs
+    ((B, H, S, hd) views), the function the port never calls: causal through
+    its flash backend with ``enable_gqa``; a window through its
+    memory-efficient backend with an additive bf16 band mask (2.1 GB at
+    32768) and k/v expanded to the query heads before the timed call.
+    Returns (ms or None, what was timed or why nothing was)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.ref import band_mask
+
+    if not window:
+        return timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), flush,
+            LONG_TIMED), "flash backend, is_causal, enable_gqa"
+    s, g = qt.shape[2], qt.shape[1] // kt.shape[1]
+    mask = torch.zeros((s, s), dtype=qt.dtype, device=qt.device)
+    mask.masked_fill_(~band_mask(s, s, True, window, qt.device),
+                      float("-inf"))
+    ke, ve = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qt, ke, ve, attn_mask=mask)
+    try:
+        call()
+    except RuntimeError as e:   # the yardstick only: the port never calls it
+        note = f"refused by the memory-efficient backend: {e}".splitlines()[0]
+        print(f"  sdpa yardstick at window {window}: {note}", flush=True)
+        return None, note
+    ms = timer(call, flush, LONG_TIMED)
+    del mask, ke, ve
+    return ms, "memory-efficient backend, additive band mask, k/v expanded"
 
 
 def engine_check(dev="cuda") -> None:
@@ -527,6 +581,7 @@ def serving_phase(dev="cuda") -> dict:
     import dataclasses
     import torch
     from repro_torch import kernels, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import serve
     from repro_torch.models import attention, lm
 
@@ -565,10 +620,15 @@ def serving_phase(dev="cuda") -> dict:
             torch.isfinite(last).all()):
         raise AssertionError(f"prefill logits {tuple(last.shape)} not "
                              f"finite")
+    prefill_routes = flash_ops.route_counts()
+    print(f"  prefill flash launches by route: {prefill_routes}", flush=True)
     want = {k: 0 for k in kernels.KERNELS}
     want["flash_attention"] = cfg.num_layers * PREFILL_CALLS
     if prefill_counts != want:
         raise AssertionError(f"prefill launches {prefill_counts} != {want}")
+    if prefill_routes != {"sm90": want["flash_attention"], "fma": 0}:
+        raise AssertionError(f"prefill flash launches by route "
+                             f"{prefill_routes}: not all on sm90")
     del last, tokens
 
     # ---- the kernel route against the plain-attention route, in-model
@@ -653,7 +713,8 @@ def serving_phase(dev="cuda") -> dict:
     return dict(config=dict(arch=SERVE_ARCH, layers=cfg.num_layers,
                             n_params=n_params, n_super=plan.n_super),
                 init_s=init_s, prefill_seq=PREFILL_SEQ, prefill_s=prefill_s,
-                prefill_launches=prefill_counts, route_seq=ROUTE_SEQ,
+                prefill_launches=prefill_counts,
+                prefill_routes=prefill_routes, route_seq=ROUTE_SEQ,
                 route_err=route_err, route_same_top1=route_top1,
                 decode_batch=DECODE_BATCH, decode_cache=DECODE_CACHE,
                 decode_steps=DECODE_STEPS, decode_ms_per_token=decode_ms,
@@ -689,7 +750,8 @@ def main(argv=None) -> int:
         path, secs, log = kernels.build()
         print(f"build: {secs:.2f} s -> {path.name}", flush=True)
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
+            if ("registers" in ln or "spill" in ln
+                    or "Compiling entry function" in ln):
                 print(f"  {ln.strip()}")
 
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -723,6 +785,9 @@ def main(argv=None) -> int:
             shape=rec["shape"], dtype=rec["dtype"]))
         if "window" in rec:
             line_kernels[-1]["window"] = rec["window"]
+        if name == "flash_attention":
+            line_kernels[-1]["dispatch"] = dict(
+                route="sm90", launches=serve_out["prefill_routes"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

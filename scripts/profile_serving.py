@@ -26,9 +26,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 # kernel-name fragments -> group, first match wins
-GROUPS = (("flash_attention", ("flash_kernel",)),
+GROUPS = (("flash_attention", ("flash_kernel", "flash_sm90_kernel")),
           ("gemm", ("gemm", "gemv", "xmma", "cutlass", "sm90_", "Kernel2",
-                    "splitK")),
+                    "splitK", "nvjet")),
           ("softmax/reduce", ("softmax", "reduce", "Reduce")),
           ("copy/cast", ("copy", "Copy", "cast", "memcpy", "Memcpy",
                          "memset", "Memset", "fill", "Fill")),

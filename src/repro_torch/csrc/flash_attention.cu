@@ -1,8 +1,12 @@
-// Causal / sliding-window GQA flash attention on Hopper.
+// Causal / sliding-window GQA flash attention on Hopper, on the CUDA cores:
+// the exact-fp32 route.
 //
 // Replaces the Pallas TPU kernel flash_attention (body _flash_kernel) in
 // src/repro/kernels/flash_attention/flash_attention.py, and the transpose
-// copies its wrapper makes around the call.
+// copies its wrapper makes around the call, for fp32 inputs at every head
+// dim and for bf16 inputs at head dims 16, 32, 48 and 96.  bf16 at head dims
+// 64-256 (every full-width config's) goes to flash_attention_sm90.cu, the
+// tensor-core kernel; kernels/flash_attention/ops.py routes.
 //
 //   out[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, kvh] * scale) v[b, j, kvh]
 //
@@ -15,7 +19,7 @@
 // Bound: operations.  4 * hd flops per unmasked (query, key) pair against
 // (Sq + 2 Skv) * H * hd inputs: at S = 32768, hd = 128 that is thousands of
 // flops per byte.
-// Design (simple and right first; wgmma, TMA and bf16 P.V are later work):
+// Design (fp32 products, so exact to fp32 rounding; no tensor cores):
 // - one CTA of 256 threads per (batch * head, 64-query tile); a loop over
 //   64-key tiles takes the place of the TPU grid's sequential KV axis, with
 //   m, l and the 64 x hd accumulator in registers across it;
@@ -252,20 +256,28 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
     case 32: return launch<T, 32>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
     case 48: return launch<T, 48>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
-    case 64: return launch<T, 64>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
     case 96: return launch<T, 96>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
-    case 128: return launch<T, 128>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
-    case 192: return launch<T, 192>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
-    case 256: return launch<T, 256>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  // bf16 at the head dims below takes the tensor-core kernel
+  if constexpr (sizeof(T) == 4) {
+    switch (hd) {
+      case 64: return launch<T, 64>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
+      case 128: return launch<T, 128>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
+      case 192: return launch<T, 192>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
+      case 256: return launch<T, 256>(q, k, v, out, b, sq, skv, h, hkv, st, causal, window, s);
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q: (B, Sq, H, hd), k/v: (B, Skv, Hkv, hd), any strides over (B, S, H) and
 // unit stride over hd, given in elements; out: (B, Sq, H, hd) contiguous.
-// hd in {16, 32, 48, 64, 96, 128, 192, 256}; H divisible by Hkv.
+// hd in {16, 32, 48, 64, 96, 128, 192, 256} for fp32, {16, 32, 48, 96} for
+// bf16; H divisible by Hkv.
 extern "C" int feddd_flash_attention(
     const void* q, const void* k, const void* v, void* out, int64_t b,
     int64_t sq, int64_t skv, int64_t h, int64_t hkv, int64_t hd, int64_t qsb,

@@ -27,12 +27,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("importance.cu", "sparse_agg.cu", "masked_merge.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention")
 _launches: Dict[str, int] = collections.Counter()
+_routes: Dict[Tuple[str, str], int] = collections.Counter()
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
@@ -48,6 +49,9 @@ _SIGNATURES = {
     # causal, window, dtype, stream
     "feddd_flash_attention": (_P, _P, _P, _P) + (_I64,) * 15 + (_I32, _I64,
                                                                 _I32, _P),
+    # the same without the dtype (bf16 only)
+    "feddd_flash_attention_sm90": (_P, _P, _P, _P) + (_I64,) * 15 + (
+        _I32, _I64, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,22 +113,32 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, symbol: str, *args) -> None:
+def launch(kernel: str, symbol: str, *args, route: Optional[str] = None
+           ) -> None:
     """Call ``symbol`` on PyTorch's current stream; raise on a launch
-    error, count the launch otherwise."""
+    error, count the launch otherwise (and under ``route``, for a kernel
+    that has several)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(load(), symbol)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     _launches[kernel] += 1
+    if route is not None:
+        _routes[kernel, route] += 1
 
 
 def launch_counts() -> Dict[str, int]:
     return {k: _launches[k] for k in KERNELS}
 
 
+def route_launches(kernel: str, routes) -> Dict[str, int]:
+    """Launches of ``kernel`` by route since ``reset_launch_counts``."""
+    return {r: _routes[kernel, r] for r in routes}
+
+
 def reset_launch_counts() -> None:
     _launches.clear()
+    _routes.clear()
 
 
 # --------------------------------------------------------- wrapper helpers

@@ -1,6 +1,19 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``)."""
+"""Wrapper of the flash-attention kernels: two CUDA routes, one function.
+
+* ``sm90`` (``csrc/flash_attention_sm90.cu``): wgmma on the tensor cores,
+  TMA loads; bf16 inputs at head dims 64, 128, 192 and 256 — every
+  full-width config that reaches the kernel.
+* ``fma`` (``csrc/flash_attention.cu``): fp32 FMA on the CUDA cores; fp32
+  inputs at every head dim (exact to fp32 rounding), and bf16 at head dims
+  16, 32, 48 and 96.
+
+The choice is static, on dtype and head dim (``route``); a bf16 input the
+``sm90`` route cannot read raises, it is never sent to the other route.
+"""
 
 from __future__ import annotations
+
+from typing import Dict, Iterable
 
 import torch
 
@@ -8,6 +21,46 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
 
 HEAD_DIMS = (16, 32, 48, 64, 96, 128, 192, 256)
+SM90_HEAD_DIMS = (64, 128, 192, 256)
+ROUTES = ("sm90", "fma")
+
+
+def route(dtype: torch.dtype, hd: int, strides: Iterable[int],
+          ptr_align: int) -> str:
+    """The CUDA route of a call: ``"sm90"`` for bf16 at a head dim in
+    ``SM90_HEAD_DIMS``, ``"fma"`` otherwise.
+
+    ``strides``: the (B, S, H) strides of q, k and v in elements, over the
+    dims of size > 1; ``ptr_align``: the largest power of two, up to 16,
+    dividing every base pointer, in bytes.  The ``sm90`` route reads through
+    the TMA, which needs those strides to be positive multiples of 8
+    elements (16 bytes) and the pointers 16-byte aligned; a bf16 call that
+    breaks either raises ``ValueError``.
+    """
+    if dtype != torch.bfloat16 or hd not in SM90_HEAD_DIMS:
+        return "fma"
+    bad = [s for s in strides if s <= 0 or s % 8]
+    if bad or ptr_align < 16:
+        raise ValueError(
+            f"the bf16 tensor-core route reads q/k/v through the TMA: their "
+            f"(B, S, H) strides must be positive multiples of 8 elements "
+            f"(got {bad}) and their data 16-byte aligned (got {ptr_align}); "
+            f"make the inputs contiguous")
+    return "sm90"
+
+
+def route_counts() -> Dict[str, int]:
+    """Launches by route since ``kernels.reset_launch_counts``."""
+    return _lib.route_launches("flash_attention", ROUTES)
+
+
+def _ptr_align(*tensors: torch.Tensor) -> int:
+    align = 16
+    for t in tensors:
+        ptr = t.data_ptr()
+        if ptr:
+            align = min(align, ptr & -ptr)
+    return align
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -48,9 +101,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return gqa_attention_ref(q, k, v, causal=causal, window=window)
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h} exceeds the grid's 65535")
+    strides = [t.stride(i) for t in (q, k, v) for i in range(3)
+               if t.shape[i] > 1]
+    which = route(q.dtype, hd, strides, _ptr_align(q, k, v))
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
-    _lib.launch("flash_attention", "feddd_flash_attention", q.data_ptr(),
-                k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, h,
-                hkv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                int(bool(causal)), int(window), _lib.DTYPE_CODES[q.dtype])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, h, hkv, hd, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(bool(causal)), int(window))
+    if which == "sm90":
+        _lib.launch("flash_attention", "feddd_flash_attention_sm90", *args,
+                    route="sm90")
+    else:
+        _lib.launch("flash_attention", "feddd_flash_attention", *args,
+                    _lib.DTYPE_CODES[q.dtype], route="fma")
     return out

@@ -80,3 +80,15 @@ def gqa_attention_ref_chunked(q: torch.Tensor, k: torch.Tensor,
             q[:, r0:r1], k[:, :kv_end], v[:, :kv_end], causal=causal,
             window=window, q_offset=r0)
     return out
+
+
+def worst_row_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over output rows (b, i, h) of max_d |got - want| / max_d |want|.
+
+    The per-row check of the bf16 kernel, besides the elementwise 2e-2: a
+    row that lost or gained a tile of keys moves by a large part of its own
+    scale (~sqrt(tile / keys)), its bf16 rounding by a few ulps (~1/256).
+    Rows whose ``want`` is all zero count their absolute error."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    scale = want.float().abs().amax(-1)
+    return float((diff / torch.where(scale > 0, scale, 1.0)).max())

@@ -84,11 +84,21 @@ def test_quickstart_rounds_on_card(cuda_device):
     assert all(leaf.is_cuda for leaf in tree.leaves(fedavg.global_params))
 
 
+# (B, S, H, Hkv, hd), causal, window.  bf16 at hd 64-256 takes the sm90
+# (tensor-core) route, fp32 and bf16 at hd 16-96 the fma route; every sm90
+# head dim has a causal, a windowed and a non-causal case, S mostly not a
+# multiple of the 128-query tile.
 FLASH_CASES = [((2, 64, 4, 2, 32), True, 24), ((1, 130, 4, 2, 48), True, 0),
                ((1, 100, 8, 8, 16), False, 0), ((2, 333, 8, 2, 64), True, 0),
                ((1, 517, 4, 1, 128), True, 100),
                ((1, 200, 2, 2, 256), False, 37),
-               ((1, 333, 8, 2, 192), True, 64)]
+               ((1, 333, 8, 2, 192), True, 64),
+               ((3, 77, 6, 3, 96), True, 0),
+               ((1, 700, 2, 1, 64), True, 130), ((2, 200, 4, 2, 64), False, 0),
+               ((1, 300, 4, 2, 128), True, 0), ((2, 129, 2, 1, 128), False, 0),
+               ((1, 1100, 4, 2, 128), True, 256),
+               ((1, 100, 2, 1, 192), False, 0), ((1, 260, 4, 4, 192), False, 0),
+               ((1, 257, 4, 2, 256), True, 0), ((1, 390, 2, 1, 256), True, 70)]
 
 
 @pytest.mark.parametrize("shape,causal,window", FLASH_CASES)
@@ -96,21 +106,63 @@ FLASH_CASES = [((2, 64, 4, 2, 32), True, 24), ((1, 130, 4, 2, 48), True, 0),
 def test_flash_kernel_on_card_matches_plain(shape, causal, window, dtype,
                                             cuda_device):
     """The flash kernel against its plain version on the same CUDA
-    tensors (3e-5 fp32, 2e-2 bf16, as on the CPU), at odd lengths and
-    head dims 16-256; one launch per call."""
+    tensors (3e-5 fp32, 2e-2 bf16, as on the CPU; bf16 also every row
+    within max|want|/64), at odd lengths and head dims 16-256; one launch
+    per call, on the route ``route`` names."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (gqa_attention_ref,
+                                                         worst_row_error)
     b, s, h, hkv, hd = shape
     gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
     q, k, v = (torch.randn((b, s, n, hd), generator=gen, device=cuda_device
                            ).to(dtype) for n in (h, hkv, hkv))
+    want_route = ("sm90" if dtype == torch.bfloat16
+                  and hd in flash_ops.SM90_HEAD_DIMS else "fma")
     before = kernels.launch_counts()["flash_attention"]
+    routes = flash_ops.route_counts()
     got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
     want = gqa_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 3e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        assert worst_row_error(got, want) <= 1 / 64
     assert kernels.launch_counts()["flash_attention"] == before + 1
+    after = flash_ops.route_counts()
+    assert {r: after[r] - routes[r] for r in after} == {
+        r: int(r == want_route) for r in flash_ops.ROUTES}
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_sm90_reads_strided_inputs(hd, cuda_device):
+    """The tensor-core route reads q/k/v views in place through their
+    (B, S, H) strides: a (B, H, S, hd)-ordered q and a slice of a fused kv
+    give the contiguous inputs' result bit for bit."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    gen = torch.Generator(device=cuda_device).manual_seed(hd)
+    q = torch.randn((2, 4, 300, hd), generator=gen, device=cuda_device
+                    ).to(torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((2, 300, 4, hd), generator=gen, device=cuda_device
+                     ).to(torch.bfloat16)
+    k, v = kv[:, :, :2], kv[:, :, 2:]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=90)
+    want = flash_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), causal=True, window=90)
+    assert torch.equal(got, want)
+
+
+def test_flash_sm90_raises_on_unaligned_stride(cuda_device):
+    """A bf16 input the TMA cannot read (an H stride of 66 elements) raises;
+    it is not sent to the CUDA-core route."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    base = torch.randn((1, 64, 4, 66), device=cuda_device
+                       ).to(torch.bfloat16)
+    q = base[..., :64]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="TMA"):
+        flash_ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+    assert kernels.launch_counts()["flash_attention"] == 0
 
 
 def test_reduced_gemma3_prefill_and_decode_on_card(cuda_device, monkeypatch):

@@ -44,7 +44,8 @@ from repro_torch.convert import lm_params_from_jax, to_torch
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import (
-    band_mask, gqa_attention_ref_chunked, valid_pairs)
+    band_mask, gqa_attention_ref, gqa_attention_ref_chunked, valid_pairs,
+    worst_row_error)
 from repro_torch.launch import serve
 from repro_torch.models import attention, blocks, layers, lm, mlp
 from repro_torch.models.config import BlockSpec
@@ -118,6 +119,56 @@ def test_flash_wrapper_rejects(bad):
     kw = {"window": -1} if bad == "window" else {}
     with pytest.raises((ValueError, TypeError)):
         flash_ops.flash_attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 192, 256])
+def test_flash_route_bf16_head_dims_take_the_tensor_cores(hd):
+    strides = [hd, 4 * hd, 4 * 300 * hd]          # contiguous (B, S, H) of q
+    assert flash_ops.route(torch.bfloat16, hd, strides, 16) == "sm90"
+
+
+@pytest.mark.parametrize("dtype,hd",
+                         [(torch.float32, hd) for hd in flash_ops.HEAD_DIMS]
+                         + [(torch.bfloat16, hd) for hd in (16, 32, 48, 96)])
+def test_flash_route_fp32_and_small_bf16_take_the_cuda_cores(dtype, hd):
+    """The fma route reads through plain pointers: odd strides and
+    alignments are fine there."""
+    assert flash_ops.route(dtype, hd, [hd, 3, 7], 2) == "fma"
+
+
+@pytest.mark.parametrize("strides,align", [([128, 12], 16), ([128, 0], 16),
+                                           ([-8, 128], 16), ([128, 64], 8)])
+def test_flash_route_sm90_raises_on_what_the_tma_cannot_read(strides, align):
+    with pytest.raises(ValueError, match="TMA"):
+        flash_ops.route(torch.bfloat16, 128, strides, align)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_cpu_tensors_take_the_plain_version(hd):
+    """bf16 CPU tensors at a tensor-core head dim, even through views the
+    TMA could not read, run the plain version and launch nothing."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv((1, 40, 4, 2, hd + 2), hd))
+    q, k, v = q[..., 1:hd + 1], k[..., :hd], v[..., :hd]   # H stride hd + 2
+    before = launch_counts()["flash_attention"], flash_ops.route_counts()
+    got = flash_ops.flash_attention(q, k, v, causal=True, window=16)
+    want = gqa_attention_ref(q, k, v, causal=True, window=16)
+    assert torch.equal(got, want)
+    assert (launch_counts()["flash_attention"],
+            flash_ops.route_counts()) == before
+
+
+def test_worst_row_error_catches_one_tile_of_keys():
+    """The per-row bound (max|want| / 64) passes bf16 rounding of the plain
+    version and fails a band one 128-key tile too wide."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((1, 640, 4, 2, 64), 7))
+    want = gqa_attention_ref(q, k, v, causal=True, window=256)
+    rounded = want.to(torch.bfloat16)
+    assert worst_row_error(rounded, want) <= 1 / 256
+    wide = gqa_attention_ref(q, k, v, causal=True, window=256 + 128)
+    assert worst_row_error(wide, want) > 1 / 64
+    zero = torch.zeros_like(want)
+    assert worst_row_error(zero + 1e-3, zero) == pytest.approx(1e-3)
 
 
 @pytest.mark.parametrize("sq,skv,causal,window",
