@@ -11,9 +11,15 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 3. hold each kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the MLP's leaves (N=10), at ragged edges and at large
    leaves (a VGG conv and CNN2's fc), with the tolerances of the CPU tests
-   (the Eq. (5) merge exact); time the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call (a yardstick the
-   port never uses), as medians of CUDA-event pairs with a cold L2.
+   (the Eq. (5) merge exact); ``sparse_agg``'s mean mode (Eq. (4)
+   finished in the kernel, as the engine calls it) against its plain
+   version (the partials' tolerances; one bf16 ulp for a bf16 output) and
+   bit for bit against ``finish_masked_mean`` over the partials mode, with
+   and without a previous global, one channel uploaded by no client; time
+   the kernel, the plain version and, where one PyTorch call computes the
+   same function, that call (a yardstick the port never uses), as medians
+   of CUDA-event pairs with a cold L2, and at each shape an ``eq4_leaf``
+   row: the mean mode against the partials plus the eager finish.
    The flash-attention kernels are held the same way (3e-5 fp32, 2e-2
    bf16, and in bf16 every output row within max|want|/64) over the CPU
    tests' sweep (causal, window 24, non-causal), odd lengths and head
@@ -33,7 +39,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    6000/1500, 10 clients, the paper's MLP, A_server=0.6, h=5, lr 0.1) for
    5 FedDD rounds and then 3 FedAvg rounds on cuda, with every kernel's
    launch count set to 0 just before and read just after: the three FedDD
-   kernels launch, flash attention does not;
+   kernels launch (``sparse_agg`` in its mean mode only), flash attention
+   does not;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -48,9 +55,11 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: FedDD for the three FedDD kernels, the prefill
-for flash attention; flash attention's times at the prefill's shape,
-causal, named by its ``shape`` and ``window`` keys, and the launches by
-route under ``dispatch``); the last line is
+for flash attention; ``sparse_agg``'s times are its mean mode's, named by
+its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
+beside them; flash attention's times at the prefill's shape, causal,
+named by its ``shape`` and ``window`` keys, and the launches by route
+under ``dispatch``); the last line is
 ``{"ok": true, "device": {...}}``.
 ``--out`` also writes every measurement as JSON.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -95,6 +104,11 @@ KERNEL_INFO = {
         replaces="src/repro/kernels/flash_attention/flash_attention.py:87"),
 }
 FEDDD_KERNELS = ("importance", "sparse_agg", "masked_merge")
+# the mean mode against its plain version, by (values, output) dtype: the
+# partials' tolerances, and one bf16 ulp (2**-7) for a bf16 output, which
+# an fp32 quotient an ulp away from the plain one can round to
+MEAN_RTOL = {("float32", "float32"): 3e-5, ("bfloat16", "float32"): 5e-3,
+             ("bfloat16", "bfloat16"): 2.0 ** -7}
 
 # flash attention: the CPU tests' sweep (B, S, H, Hkv, hd), odd lengths and
 # the head dims of the LM configs, each in causal / window / bidirectional
@@ -177,7 +191,9 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
     from repro_torch.kernels.masked_merge import ops as merge_ops
     from repro_torch.kernels.masked_merge.ref import masked_merge_ref
     from repro_torch.kernels.sparse_agg import ops as agg_ops
-    from repro_torch.kernels.sparse_agg.ref import masked_weighted_sum_ref
+    from repro_torch.kernels.sparse_agg.ref import (finish_masked_mean,
+                                                    masked_weighted_mean_ref,
+                                                    masked_weighted_sum_ref)
 
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -253,6 +269,58 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
                          elems * es + n * c * es + n * 4 + 2 * r * c * 4,
                          5 * elems)
             records.append(rec)
+            partials_rec = rec
+
+            # ---- sparse_agg mean mode (Eq. (4) finished in the kernel): the
+            # plain version, and bit for bit finish_masked_mean over the
+            # partials mode; channel 0 of `fill` is uploaded by no client
+            gprev = randn(*leaf).to(dtype)
+            fill = chan.clone()
+            fill[..., 0] = 0
+            for mask, mc in ((fill, c), (dense, 1)):
+                num, den = agg_ops.masked_weighted_sum(vals, mask, wts)
+                for g in (None, gprev):
+                    for out_dt in dict.fromkeys((dtype, torch.float32)):
+                        got = agg_ops.masked_weighted_mean(vals, mask, wts, g,
+                                                           out_dt)
+                        want = masked_weighted_mean_ref(
+                            vals.view(n, a, c, b), mask.view(n, mc), wts,
+                            None if g is None else g.view(a, c, b),
+                            out_dt).view(leaf)
+                        torch.testing.assert_close(
+                            got.float(), want.float(),
+                            rtol=MEAN_RTOL[_name(dtype), _name(out_dt)],
+                            atol=1e-4)
+                        if not torch.equal(got, finish_masked_mean(
+                                num, den, g, out_dt)):
+                            raise AssertionError(
+                                f"sparse_agg mean mode differs from "
+                                f"finish_masked_mean over its partials at "
+                                f"{(n,) + leaf} {dtype} -> {out_dt}")
+                        if g is not None and mc == c and not torch.equal(
+                                got[..., 0], g[..., 0].to(out_dt)):
+                            raise AssertionError("sparse_agg mean mode did "
+                                                 "not keep gprev where no "
+                                                 "client uploaded")
+                        max_err["sparse_agg"] = max(
+                            max_err["sparse_agg"],
+                            (got.float() - want.float()).abs().max().item())
+            den = masked_weighted_sum_ref(vals.view(n, a, c, b), m2, wts)[1]
+            filled = int((den <= 1e-12).sum())     # gprev elements read
+            kern = lambda: agg_ops.masked_weighted_mean(  # noqa: E731
+                vals, chan, wts, gprev, dtype)
+            plain = lambda: masked_weighted_mean_ref(     # noqa: E731
+                vals.view(n, a, c, b), m2, wts, gprev.view(a, c, b), dtype)
+            unfused = lambda: finish_masked_mean(         # noqa: E731
+                *agg_ops.masked_weighted_sum(vals, chan, wts), gprev, dtype)
+            rec = _timed(card, flush, timer, "eq4_leaf", n, leaf, dtype,
+                         kern, plain, None,
+                         elems * es + n * c * es + n * 4 + r * c * es
+                         + filled * es, 5 * elems + r * c,
+                         extra={"unfused": unfused})
+            rec.update(mode="mean", partials_ms=partials_rec["ms"],
+                       partials_bound_ms=partials_rec["bound_ms"])
+            records.append(rec)
             if is_main:
                 main["sparse_agg"] = rec
 
@@ -288,20 +356,30 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
     return {"max_abs_err": max_err, "main": main}
 
 
+def _name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def _timed(card, flush, timer, name, n, leaf, dtype, kern, plain, lib,
-           nbytes, flops) -> dict:
+           nbytes, flops, extra=None) -> dict:
+    """Time the kernel, its plain version, the library call (or None) and
+    each of ``extra`` (stored as ``<name>_ms``) -> the record."""
     bound_ms, bound_by = card.bound(nbytes, flops)
-    rec = dict(kernel=name, shape=[n, *leaf], dtype=str(dtype).split(".")[-1],
+    rec = dict(kernel=name, shape=[n, *leaf], dtype=_name(dtype),
                ms=timer(kern, flush), plain_ms=timer(plain, flush),
                library_ms=None if lib is None else timer(lib, flush),
                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
                flops=flops)
+    more = ""
+    for key, fn in (extra or {}).items():
+        rec[f"{key}_ms"] = timer(fn, flush)
+        more += f"  {key} {rec[f'{key}_ms'] * 1e3:.1f} us"
     lib_col = ("-" if rec["library_ms"] is None
                else f"{rec['library_ms'] * 1e3:.1f}")
     print(f"  {name:12s} {str(tuple(rec['shape'])):22s} {rec['dtype']:8s} "
           f"kernel {rec['ms'] * 1e3:8.1f} us  plain "
           f"{rec['plain_ms'] * 1e3:8.1f} us  library {lib_col:>8s} us  "
-          f"bound {bound_ms * 1e3:7.2f} us ({bound_by})", flush=True)
+          f"bound {bound_ms * 1e3:7.2f} us ({bound_by}){more}", flush=True)
     return rec
 
 
@@ -511,6 +589,7 @@ def main_path(dev="cuda") -> dict:
     import torch
     from repro_torch import kernels, tree
     from repro_torch.core.baselines import round_times
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
     from repro_torch.quickstart import run
 
     def show(scheme, r):
@@ -526,7 +605,9 @@ def main_path(dev="cuda") -> dict:
                              on_round=show)
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    print(f"  FedDD path: {wall:.2f} s, launches {counts}", flush=True)
+    modes = agg_ops.mode_counts()
+    print(f"  FedDD path: {wall:.2f} s, launches {counts}, sparse_agg by "
+          f"mode {modes}", flush=True)
 
     for res in (feddd, fedavg):
         for rec in res.history:
@@ -542,6 +623,9 @@ def main_path(dev="cuda") -> dict:
                                  "FedDD path")
     if counts["flash_attention"] != 0:
         raise AssertionError("flash_attention launched on the FedDD path")
+    if modes != {"partials": 0, "mean": counts["sparse_agg"]}:
+        raise AssertionError(f"Eq. (4) did not run in the kernel's mean "
+                             f"mode alone: {modes}")
     want_t1 = float(np.max(round_times(tel, np.zeros(tel.num_clients))))
     if feddd.history[0].sim_time != want_t1:
         raise AssertionError(f"round 1 sim_time {feddd.history[0].sim_time} "
@@ -554,7 +638,7 @@ def main_path(dev="cuda") -> dict:
     if acc < 0.85:
         raise AssertionError(f"accuracy after round 5 is {acc} < 0.85")
     return dict(
-        launches=counts, wall_s=wall,
+        launches=counts, sparse_agg_modes=modes, wall_s=wall,
         rounds=[dict(scheme=s, round=r.round, acc=r.metrics["accuracy"],
                      loss=r.mean_loss, sim_time=r.sim_time,
                      uploaded_fraction=r.uploaded_fraction,
@@ -788,6 +872,12 @@ def main(argv=None) -> int:
         if name == "flash_attention":
             line_kernels[-1]["dispatch"] = dict(
                 route="sm90", launches=serve_out["prefill_routes"])
+        if name == "sparse_agg":
+            line_kernels[-1].update(
+                mode=rec["mode"], modes=path_out["sparse_agg_modes"],
+                partials_ms=rec["partials_ms"],
+                partials_bound_ms=rec["partials_bound_ms"],
+                unfused_eq4_ms=rec["unfused_ms"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -4,10 +4,12 @@ Step 4 (server):      W^t     = sum_n m_n * What_n ⊙ M_n  /  sum_n m_n * M_n
 Step 7 (client, t mod h != 0): W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n)
 Step 7 (client, t mod h == 0): W_n^{t+1} = W^t
 
-Positions received from NO client keep the previous global value.  The
-Eq. (4) partials run through the ``sparse_agg`` kernel and Eq. (5) through
-the ``masked_merge`` kernel, for every leaf; masks stay channel-shaped
-(N, 1, ..., C, ..., 1) and are never broadcast to the parameters' shape.
+Positions received from NO client keep the previous global value.
+Eq. (4) runs through the ``sparse_agg`` kernel in its mean mode (the
+division and the previous-global fill inside the kernel) and Eq. (5)
+through the ``masked_merge`` kernel, one launch each per leaf; masks stay
+channel-shaped (N, 1, ..., C, ..., 1) and are never broadcast to the
+parameters' shape.
 
 Only the weighted mean is ported; the Byzantine-robust variants wait for
 ROADMAP.md queue A item 12.
@@ -15,15 +17,17 @@ ROADMAP.md queue A item 12.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 
 from repro_torch import tree
 from repro_torch.kernels.masked_merge import ops as merge_ops
 from repro_torch.kernels.sparse_agg import ops as agg_ops
-
-EPS = 1e-12
+# finish_masked_mean lives beside the kernel's plain version (the mean
+# mode's reference) and is re-exported here with its EPS
+from repro_torch.kernels.sparse_agg.ref import (  # noqa: F401
+    EPS, finish_masked_mean)
 
 
 def leaf_masked_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
@@ -31,19 +35,11 @@ def leaf_masked_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
     """Eq. (4) numerator/denominator of one client-stacked leaf.
 
     (N, *leaf) values, channel-shaped mask, (N,) fp32 weights ->
-    (num, den), each (*leaf) fp32.
+    (num, den), each (*leaf) fp32; :func:`finish_masked_mean` turns them
+    into the mean (kept apart for a client-sharded engine, which reduces
+    the partials across shards first).
     """
     return agg_ops.masked_weighted_sum(stack_w, stack_m, w)
-
-
-def finish_masked_mean(num: torch.Tensor, den: torch.Tensor,
-                       gprev: Optional[torch.Tensor],
-                       dtype: torch.dtype) -> torch.Tensor:
-    """Eq. (4) division + previous-global fill over reduced (num, den)."""
-    agg = num / torch.clamp(den, min=EPS)
-    if gprev is not None:
-        agg = torch.where(den > EPS, agg, gprev.float())
-    return agg.to(dtype)
 
 
 def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
@@ -67,10 +63,8 @@ def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
                         device=leaves[0].device)
     if w.shape != (n,):
         raise ValueError("weights count mismatch")
-    out = []
-    for sw, sm, gprev in zip(leaves, mleaves, gleaves):
-        num, den = leaf_masked_partials(sw, sm, w)
-        out.append(finish_masked_mean(num, den, gprev, sw.dtype))
+    out = [agg_ops.masked_weighted_mean(sw, sm, w, gprev, sw.dtype)
+           for sw, sm, gprev in zip(leaves, mleaves, gleaves)]
     return tree.unflatten(treedef, out)
 
 

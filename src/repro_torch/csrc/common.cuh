@@ -35,6 +35,36 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// V consecutive elements of one row, moved as one 4-, 8-, 16- or 32-byte
+// access (the wrappers check that V divides the row and that every
+// pointer is aligned to V elements).
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec(const T* __restrict__ p) {
+  return *reinterpret_cast<const Vec<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p,
+                                         float (&out)[V]) {
+  const Vec<T, V> x = load_vec<T, V>(p);
+#pragma unroll
+  for (int j = 0; j < V; ++j) out[j] = to_f32(x.v[j]);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_f32(T* __restrict__ p,
+                                          const float (&in)[V]) {
+  Vec<T, V> x;
+#pragma unroll
+  for (int j = 0; j < V; ++j) x.v[j] = from_f32<T>(in[j]);
+  *reinterpret_cast<Vec<T, V>*>(p) = x;
+}
+
 inline unsigned int blocks_for(int64_t work, int threads) {
   return static_cast<unsigned int>((work + threads - 1) / threads);
 }

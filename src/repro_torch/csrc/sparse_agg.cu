@@ -1,81 +1,207 @@
-// FedDD Eq. (4) masked weighted aggregation partials on Hopper.
+// FedDD Eq. (4) masked weighted aggregation on Hopper.
 //
 // Replaces the Pallas TPU kernel masked_weighted_sum_2d (body _agg_kernel)
-// in src/repro/kernels/sparse_agg/sparse_agg.py, and the broadcast of the
+// in src/repro/kernels/sparse_agg/sparse_agg.py, the broadcast of the
 // channel mask to the full (N, C, F) stack that its wrapper
-// (src/repro/kernels/sparse_agg/ops.py) builds.
+// (src/repro/kernels/sparse_agg/ops.py) builds, and, in its mean mode, the
+// division and previous-global fill of finish_masked_mean
+// (src/repro/core/aggregation.py).
 //
-//   num[e] = sum_n (W[n, e] * M[n, ch(e)]) * w_n
+//   num[e] = sum_n W[n, e] * (M[n, ch(e)] * w_n)
 //   den[e] = sum_n  M[n, ch(e)] * w_n
+//   mean mode: out[e] = den[e] > eps ? num[e] / max(den[e], eps) : gprev[e]
+//              (num / max(den, eps) where gprev is null), in out's dtype
 //
 // fp32 sums over the client axis for fp32 and bf16 values; the mask has
 // the values' dtype and is channel-shaped, (N, C_m) with C_m == C, or
-// C_m == 1 for the all-ones masks of full uploads (read with stride 0).
+// C_m == 1 for the all-ones masks of full uploads.
 //
 // Bound: bytes.  One read of the (N, A, C, B) values, the (N, C_m) mask
-// and N weights, two fp32 writes of the leaf; two flops per value.
-// Design: one thread per output element, looping over the N clients, so
-// the client reduction needs no second pass and no atomics and its order
-// is fixed (deterministic).  A warp reads 32 consecutive elements of one
-// client's leaf (coalesced); the mask and weights are a few KB, read
-// through L1.  The broadcast (N, A, C, B) mask of the TPU wrapper is never
-// built: that saves a full leaf-sized read per client.
+// and N weights; two fp32 leaf writes (partials) or one leaf write in the
+// output dtype (mean mode); two flops per value.
+// Design: a thread owns V <= 4 consecutive elements of the leaf (one
+// 16-byte fp32 or 8-byte bf16 access at V = 4; V divides the contiguous C
+// where B == 1, else B) and walks the clients 16 at a time (8 in bf16): it
+// issues their value loads, their V mask values (one channel where B > 1)
+// and their weights back to back, predicated past N, with no dependence
+// between them, and only then accumulates them in client order.  At the
+// FedDD shapes (N = 10, fp32) that is one round trip to memory per thread.  The mask and the
+// weights are a few KB, read through L1.  (Staging M * w in shared memory
+// once per block, as the TPU kernel's blocking suggests, measured slower
+// on the H100: the block barrier serialises the staging round trip with
+// the value loads.)  The client reduction stays in one thread in a fixed
+// order: deterministic, no atomics, no second pass.  The mean mode runs the
+// same accumulation and finishes in registers with a true IEEE division,
+// so num and den never reach device memory, and it equals
+// finish_masked_mean over the partials mode's output bit for bit.  The
+// broadcast (N, A, C, B) mask of the TPU wrapper is never built.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;   // per block
+constexpr float kEps = 1e-12f;
+
+enum Mode { kPartials = 0, kMean = 1 };
+
+template <typename T, typename TO, int V, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    sparse_agg_kernel(const T* __restrict__ vals, const T* __restrict__ mask,
+                      const float* __restrict__ weights,
+                      const TO* __restrict__ gprev, void* __restrict__ out,
+                      float* __restrict__ den_out, int64_t n, int64_t size,
+                      int64_t c, int64_t b, int64_t mask_c) {
+  // clients in flight per thread: 16 in fp32, 8 in bf16 (16 bf16 clients
+  // measured slower on the H100)
+  constexpr int kUnroll = sizeof(T) == 4 ? 16 : 8;
+  const int64_t e =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
+  if (e >= size) return;
+  // the mask column of the thread's first element; with a channel-last
+  // mask its V elements have V consecutive channels, else one
+  const bool mask_vec = b == 1 && mask_c != 1;
+  const int64_t ch = mask_c == 1 ? 0 : (b == 1 ? e % c : (e / b) % c);
+
+  float num[V], den[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) num[j] = den[j] = 0.f;
+  for (int64_t k0 = 0; k0 < n; k0 += kUnroll) {
+    feddd::Vec<T, V> x[kUnroll], m[kUnroll];
+    float w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < n) {
+        const int64_t k = k0 + u;
+        x[u] = feddd::load_vec<T, V>(vals + k * size + e);
+        if (mask_vec)
+          m[u] = feddd::load_vec<T, V>(mask + k * mask_c + ch);
+        else
+          m[u].v[0] = mask[k * mask_c + ch];
+        w[u] = weights[k];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < n) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const T mj = mask_vec ? m[u].v[j] : m[u].v[0];
+          const float mw = feddd::to_f32(mj) * w[u];
+          num[j] = fmaf(feddd::to_f32(x[u].v[j]), mw, num[j]);
+          den[j] += mw;
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kPartials) {
+    feddd::store_f32<float, V>(static_cast<float*>(out) + e, num);
+    feddd::store_f32<float, V>(den_out + e, den);
+  } else {
+    float q[V];
+    bool fill = false;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      // clamp(den, min=eps) keeps a NaN, as torch.clamp does
+      q[j] = __fdiv_rn(num[j], den[j] < kEps ? kEps : den[j]);
+      fill |= !(den[j] > kEps);
+    }
+    if (gprev != nullptr && fill) {   // a position no client uploaded
+      float g[V];
+      feddd::load_f32<TO, V>(gprev + e, g);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (!(den[j] > kEps)) q[j] = g[j];
+    }
+    feddd::store_f32<TO, V>(static_cast<TO*>(out) + e, q);
+  }
+}
+
+template <typename T, typename TO, int V, int MODE>
+cudaError_t launch(const void* vals, const void* mask, const float* weights,
+                   const void* gprev, void* out, float* den, int64_t n,
+                   int64_t a, int64_t c, int64_t b, int64_t mask_c,
+                   cudaStream_t s) {
+  const int64_t size = a * c * b;
+  const int64_t blocks = (size / V + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  sparse_agg_kernel<T, TO, V, MODE>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
+          static_cast<const T*>(vals), static_cast<const T*>(mask), weights,
+          static_cast<const TO*>(gprev), out, den, n, size, c, b, mask_c);
+  return cudaSuccess;
+}
+
+template <typename T, typename TO, int MODE>
+cudaError_t launch_vec(int vec, const void* vals, const void* mask,
+                       const float* weights, const void* gprev, void* out,
+                       float* den, int64_t n, int64_t a, int64_t c, int64_t b,
+                       int64_t mask_c, cudaStream_t s) {
+  switch (vec) {
+    case 1:
+      return launch<T, TO, 1, MODE>(vals, mask, weights, gprev, out, den, n,
+                                    a, c, b, mask_c, s);
+    case 2:
+      return launch<T, TO, 2, MODE>(vals, mask, weights, gprev, out, den, n,
+                                    a, c, b, mask_c, s);
+    case 4:
+      return launch<T, TO, 4, MODE>(vals, mask, weights, gprev, out, den, n,
+                                    a, c, b, mask_c, s);
+  }
+  return cudaErrorInvalidValue;
+}
 
 template <typename T>
-__global__ void sparse_agg_kernel(const T* __restrict__ vals,
-                                  const T* __restrict__ mask,
-                                  const float* __restrict__ weights,
-                                  float* __restrict__ num,
-                                  float* __restrict__ den, int64_t n,
-                                  int64_t size, int64_t c, int64_t b,
-                                  int64_t mask_c) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= size) return;
-  const int64_t ch = mask_c == 1 ? 0 : (b == 1 ? e % c : (e / b) % c);
-  float s_num = 0.f;
-  float s_den = 0.f;
-  for (int64_t k = 0; k < n; ++k) {
-    const float m = feddd::to_f32(mask[k * mask_c + ch]);
-    const float w = weights[k];
-    s_num += feddd::to_f32(vals[k * size + e]) * m * w;
-    s_den += m * w;
-  }
-  num[e] = s_num;
-  den[e] = s_den;
+cudaError_t launch_mode(int mode, int out_dtype, int vec, const void* vals,
+                        const void* mask, const float* weights,
+                        const void* gprev, void* out, float* den, int64_t n,
+                        int64_t a, int64_t c, int64_t b, int64_t mask_c,
+                        cudaStream_t s) {
+  if (mode == kPartials)
+    return launch_vec<T, float, kPartials>(vec, vals, mask, weights, nullptr,
+                                           out, den, n, a, c, b, mask_c, s);
+  if (mode != kMean) return cudaErrorInvalidValue;
+  if (out_dtype == feddd::kFloat32)
+    return launch_vec<T, float, kMean>(vec, vals, mask, weights, gprev, out,
+                                       nullptr, n, a, c, b, mask_c, s);
+  if (out_dtype == feddd::kBFloat16)
+    return launch_vec<T, __nv_bfloat16, kMean>(vec, vals, mask, weights,
+                                               gprev, out, nullptr, n, a, c,
+                                               b, mask_c, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// vals: (N, A, C, B) contiguous; mask: (N, mask_c) with mask_c in {C, 1},
-// same dtype; weights: (N,) fp32; num, den: (A, C, B) fp32.
+// vals: (N, A, C, B) contiguous, dtype code `dtype`; mask: (N, mask_c) with
+// mask_c in {C, 1}, same dtype; weights: (N,) fp32.  `vec` elements per
+// access, 1, 2 or 4 (divides C where B == 1, else B; the pointers aligned
+// to it).
+// mode 0 (partials): out = num and den, (A, C, B) fp32; gprev unused.
+// mode 1 (mean): out (A, C, B) in `out_dtype`; gprev (A, C, B) in
+// `out_dtype` or null; den unused.
 extern "C" int feddd_sparse_agg(const void* vals, const void* mask,
-                                const void* weights, void* num, void* den,
-                                int64_t n, int64_t a, int64_t c, int64_t b,
-                                int64_t mask_c, int dtype, void* stream) {
-  const int64_t size = a * c * b;
-  if (n <= 0 || size <= 0 || (mask_c != c && mask_c != 1))
+                                const void* weights, const void* gprev,
+                                void* out, void* den, int64_t n, int64_t a,
+                                int64_t c, int64_t b, int64_t mask_c,
+                                int vec, int mode, int dtype, int out_dtype,
+                                void* stream) {
+  const int64_t inner = b == 1 ? c : b;
+  if (n <= 0 || a * c * b <= 0 || (mask_c != c && mask_c != 1) || vec < 1 ||
+      inner % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(feddd::blocks_for(size, kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* w = static_cast<const float*>(weights);
-  float* nu = static_cast<float*>(num);
-  float* de = static_cast<float*>(den);
+  float* d = static_cast<float*>(den);
+  cudaError_t err;
   if (dtype == feddd::kFloat32) {
-    sparse_agg_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(vals), static_cast<const float*>(mask), w,
-        nu, de, n, size, c, b, mask_c);
+    err = launch_mode<float>(mode, out_dtype, vec, vals, mask, w, gprev, out,
+                             d, n, a, c, b, mask_c, s);
   } else if (dtype == feddd::kBFloat16) {
-    sparse_agg_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vals),
-        static_cast<const __nv_bfloat16*>(mask), w, nu, de, n, size, c, b,
-        mask_c);
+    err = launch_mode<__nv_bfloat16>(mode, out_dtype, vec, vals, mask, w,
+                                     gprev, out, d, n, a, c, b, mask_c, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
   importance    fused |dW (W+dW)/W|, per-channel reduction, sqrt and
                 coverage division, Eq. (20)/(21)              (Step 2)
   sparse_agg    masked weighted (num, den) over stacked clients,
-                Eq. (4)                                       (Step 4)
+                Eq. (4), or in its mean mode the finished
+                Eq. (4) with the previous-global fill        (Step 4)
   masked_merge  Eq. (5) client update, a select of global and
                 local by channel                              (Step 7)
   flash_attention  causal / sliding-window GQA attention with an

@@ -37,11 +37,12 @@ _routes: Dict[Tuple[str, str], int] = collections.Counter()
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
-    # w_old, w_new, coverage, out, n, a, c, b, dtype, stream
-    "feddd_importance": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
-    # vals, mask, weights, num, den, n, a, c, b, mask_c, dtype, stream
-    "feddd_sparse_agg": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+    # w_old, w_new, coverage, out, n, a, c, b, vec, splits, dtype, stream
+    "feddd_importance": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
                          _I32, _P),
+    # vals, mask, weights, gprev, out, den, n, a, c, b, mask_c, vec, mode,
+    # dtype, out_dtype, stream
+    "feddd_sparse_agg": (_P,) * 6 + (_I64,) * 5 + (_I32,) * 4 + (_P,),
     # g, l, mask, out, n, a, c, b, mask_c, dtype, stream
     "feddd_masked_merge": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                            _I32, _P),
@@ -166,6 +167,19 @@ def check_dtype(name: str, t: torch.Tensor, allowed) -> None:
     if t.dtype not in allowed:
         raise TypeError(f"{name} has dtype {t.dtype}; expected one of "
                         f"{tuple(allowed)}")
+
+
+def vector_width(inner: int, *tensors: torch.Tensor, most: int = 8) -> int:
+    """Elements per access for a kernel that reads or writes rows of
+    ``inner`` contiguous elements of each of ``tensors``: the largest power
+    of two up to ``most`` that is at most 16 bytes of the first tensor's
+    dtype, divides ``inner``, and keeps every tensor's first element
+    aligned to it."""
+    v = min(most, 16 // tensors[0].element_size())
+    while v > 1 and (inner % v or any(
+            t.data_ptr() % (v * t.element_size()) for t in tensors)):
+        v //= 2
+    return v
 
 
 def split_at(shape, axis: int) -> Tuple[int, int, int]:

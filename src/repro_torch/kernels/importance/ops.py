@@ -1,13 +1,61 @@
-"""Wrapper of the importance kernel (``csrc/importance.cu``)."""
+"""Wrapper of the importance kernel (``csrc/importance.cu``) and its work
+plan: how many blocks split each (client, channel tile)'s fan-in rows."""
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.importance.ref import channel_importance_ref
+
+TILE = 32            # channels per block (csrc/importance.cu kTile)
+THREADS = 256        # threads per block (kThreads)
+MAX_SPLITS = 8       # blocks per cluster, the portable limit (kMaxSplits)
+UNROLL = 4           # rows a thread loads at once (kUnroll)
+BLOCKS_PER_SM = 2    # the split aims at 2-4 blocks per SM
+
+
+class WorkPlan(NamedTuple):
+    tile: int        # channels per block
+    vec: int         # channels per load
+    splits: int      # blocks (one cluster) per (client, tile)
+    blocks: int      # the grid's size
+
+
+def work_plan(n: int, a: int, c: int, b: int, sms: int,
+              vec: int = 1) -> WorkPlan:
+    """The grid for an (N, A, C, B) leaf on a card with ``sms`` SMs.
+
+    ``N * ceil(C / TILE)`` blocks cover the leaf.  When that fills the
+    card (at least one block per SM) each block reduces all A * B fan-in
+    rows.  Otherwise the rows are split across S blocks, so the grid
+    reaches BLOCKS_PER_SM blocks per SM, with S at most MAX_SPLITS and no
+    more splits than leave each of a block's row slices a full step of
+    UNROLL rows (a cluster launch costs more than a step of loads).
+    """
+    base = n * math.ceil(c / TILE)
+    slices = THREADS // (TILE // vec)
+    splits = 1
+    if base < sms:
+        splits = min(MAX_SPLITS, math.ceil(BLOCKS_PER_SM * sms / base),
+                     math.ceil(a * b / (slices * UNROLL)))
+    return WorkPlan(TILE, vec, splits, base * splits)
+
+
+def split_rows(rows: int, splits: int) -> List[Tuple[int, int]]:
+    """The fan-in rows [begin, end) of each split, as the kernel takes
+    them: contiguous, in rank order, each row exactly once."""
+    return [(rows * s // splits, rows * (s + 1) // splits)
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
@@ -41,9 +89,12 @@ def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
     if dev == "cpu":
         return channel_importance_ref(w_old.view(n, a, c, b),
                                       w_new.view(n, a, c, b), coverage)
+    vec = _lib.vector_width(c, w_old, w_new) if b == 1 else 1
+    plan = work_plan(n, a, c, b, sm_count(w_old.device.index or 0), vec)
     out = torch.empty((n, c), dtype=torch.float32, device=w_old.device)
     _lib.launch("importance", "feddd_importance", w_old.data_ptr(),
                 w_new.data_ptr(),
                 None if coverage is None else coverage.data_ptr(),
-                out.data_ptr(), n, a, c, b, _lib.DTYPE_CODES[w_old.dtype])
+                out.data_ptr(), n, a, c, b, plan.vec, plan.splits,
+                _lib.DTYPE_CODES[w_old.dtype])
     return out

@@ -2,15 +2,18 @@
 
 num[a,c,b] = sum_n (W[n,a,c,b] * M[n,c]) * w_n
 den[a,c,b] = sum_n  M[n,c] * w_n
+mean       = where(den > eps, num / max(den, eps), gprev)   (mean mode)
 
 The mask is channel-shaped, (N, C_m) with C_m == C or 1 (all-ones masks).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+EPS = 1e-12
 
 
 def masked_weighted_sum_ref(stack_w: torch.Tensor, stack_m: torch.Tensor,
@@ -26,3 +29,23 @@ def masked_weighted_sum_ref(stack_w: torch.Tensor, stack_m: torch.Tensor,
     num = (stack_w.float() * m * wts).sum(0)
     den = (m * wts).expand(stack_w.shape).sum(0)
     return num, den
+
+
+def finish_masked_mean(num: torch.Tensor, den: torch.Tensor,
+                       gprev: Optional[torch.Tensor],
+                       dtype: torch.dtype) -> torch.Tensor:
+    """Eq. (4) division + previous-global fill over reduced (num, den)."""
+    agg = num / torch.clamp(den, min=EPS)
+    if gprev is not None:
+        agg = torch.where(den > EPS, agg, gprev.float())
+    return agg.to(dtype)
+
+
+def masked_weighted_mean_ref(stack_w: torch.Tensor, stack_m: torch.Tensor,
+                             weights: torch.Tensor,
+                             gprev: Optional[torch.Tensor],
+                             dtype: torch.dtype) -> torch.Tensor:
+    """The mean mode: ``finish_masked_mean`` over the partials, (A, C, B)
+    in ``dtype`` (gprev, where given, shaped like the partials)."""
+    num, den = masked_weighted_sum_ref(stack_w, stack_m, weights)
+    return finish_masked_mean(num, den, gprev, dtype)

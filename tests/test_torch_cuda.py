@@ -200,3 +200,181 @@ def test_reduced_gemma3_prefill_and_decode_on_card(cuda_device, monkeypatch):
     dec = torch.stack(outs, 1)
     assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())
     assert all(c.k.is_cuda for c in tree.leaves(state.stack))
+
+
+# (N, leaf, channel axis) of the importance kernel: fc0, (7, 257, 513) and
+# the channel-first (B > 1, scalar loads) leaf split the fan-in across a
+# cluster (S > 1); the VGG conv and (8, 64, 640) fill the card whole, and
+# the MLP's smaller leaves have too few rows to split (S = 1).
+IMPORTANCE_CASES = [(10, (784, 100), -1), (10, (100, 64), -1),
+                    (10, (64, 10), -1), (7, (257, 513), -1),
+                    (16, (3, 3, 512, 512), -1), (8, (64, 640), -1),
+                    (5, (40, 1000), 0)]
+
+
+@pytest.mark.parametrize("n,leaf,axis", IMPORTANCE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_importance_splits_match_plain_and_repeat_bitwise(n, leaf, axis,
+                                                          dtype,
+                                                          cuda_device):
+    """The importance kernel at S = 1 and S > 1 against its plain version
+    (rtol 5e-5, atol 1e-5), with and without coverage; a second launch on
+    the same inputs gives the same bits; one count per call."""
+    from repro_torch.kernels import _lib
+    gen = torch.Generator(device=cuda_device).manual_seed(n + len(leaf))
+    wo = torch.randn((n, *leaf), generator=gen, device=cuda_device)
+    wn = (wo + 0.1 * torch.randn((n, *leaf), generator=gen,
+                                 device=cuda_device)).to(dtype)
+    wo = wo.to(dtype)
+    a, c, b = _lib.split_at(leaf, axis % len(leaf))
+    vec = _lib.vector_width(c, wo, wn) if b == 1 else 1
+    plan = imp_ops.work_plan(n, a, c, b, imp_ops.sm_count(0), vec)
+    if n * -(-c // plan.tile) >= imp_ops.sm_count(0):
+        assert plan.splits == 1
+    if (n, leaf) == (10, (784, 100)):
+        assert plan.splits > 1
+    cov = torch.rand((c,), generator=gen, device=cuda_device) + 0.5
+    for coverage in (None, cov):
+        before = kernels.launch_counts()["importance"]
+        got = imp_ops.channel_importance_batched(wo, wn, channel_axis=axis,
+                                                 coverage=coverage)
+        again = imp_ops.channel_importance_batched(wo, wn, channel_axis=axis,
+                                                   coverage=coverage)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["importance"] == before + 2
+        want = channel_importance_ref(wo.view(n, a, c, b),
+                                      wn.view(n, a, c, b), coverage)
+        torch.testing.assert_close(got, want, rtol=5e-5, atol=1e-5)
+        assert torch.equal(got, again)
+
+
+def _agg_case(gen, dev, n, leaf, dtype, dense):
+    vals = torch.randn((n, *leaf), generator=gen, device=dev).to(dtype)
+    if dense:
+        mask = torch.ones((n,) + (1,) * len(leaf), dtype=dtype, device=dev)
+    else:
+        mask = (torch.rand((n,) + (1,) * (len(leaf) - 1) + leaf[-1:],
+                           generator=gen, device=dev) > 0.5).to(dtype)
+        mask[..., 0] = 0        # a channel no client uploaded
+    w = torch.rand((n,), generator=gen, device=dev) + 0.5
+    w[1] = 0.0                  # a client left out of Eq. (4)
+    gprev = torch.randn(leaf, generator=gen, device=dev).to(dtype)
+    return vals, mask, w, gprev
+
+
+@pytest.mark.parametrize("n,leaf", [(10, (784, 100)), (10, (100,)),
+                                    (10, (64, 10)), (7, (257, 513)),
+                                    (20, (3, 3, 8, 24)), (3, (33,))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dense", [False, True], ids=["channel", "ones"])
+def test_sparse_agg_mean_mode_is_finish_over_partials_bitwise(
+        n, leaf, dtype, dense, cuda_device):
+    """On the same CUDA tensors the mean mode equals
+    ``finish_masked_mean`` over the partials mode bit for bit, with and
+    without a previous global, in the values' dtype and in fp32; both
+    modes repeat bitwise; each call counts one launch under its mode."""
+    from repro_torch.core.aggregation import finish_masked_mean
+    gen = torch.Generator(device=cuda_device).manual_seed(n * 7 + len(leaf))
+    vals, mask, w, gprev = _agg_case(gen, cuda_device, n, leaf, dtype, dense)
+    kernels.reset_launch_counts()
+    num, den = agg_ops.masked_weighted_sum(vals, mask, w)
+    num2, den2 = agg_ops.masked_weighted_sum(vals, mask, w)
+    assert torch.equal(num, num2) and torch.equal(den, den2)
+    calls = 2
+    for out_dtype in (dtype, torch.float32):
+        for g in (None, gprev):
+            got = agg_ops.masked_weighted_mean(vals, mask, w, g, out_dtype)
+            again = agg_ops.masked_weighted_mean(vals, mask, w, g, out_dtype)
+            calls += 2
+            want = finish_masked_mean(num, den, g, out_dtype)
+            assert got.dtype == out_dtype
+            assert torch.equal(got, want)
+            assert torch.equal(got, again)
+            if g is not None and not dense:
+                assert torch.equal(got[..., 0], g[..., 0].to(out_dtype))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sparse_agg"] == calls
+    assert agg_ops.mode_counts() == {"partials": 2, "mean": calls - 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_agg_mean_mode_matches_plain(dtype, cuda_device):
+    """The mean mode against its plain version at the FedDD fc0 leaf:
+    fp32 at the partials' tolerance (rtol 3e-5, atol 1e-4); bf16 within
+    one bf16 ulp (rtol 2**-7), and in fp32 output at 5e-3."""
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+    n, leaf = 10, (784, 100)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    vals, mask, w, gprev = _agg_case(gen, cuda_device, n, leaf, dtype, False)
+    for out_dtype in (dtype, torch.float32):
+        got = agg_ops.masked_weighted_mean(vals, mask, w, gprev, out_dtype)
+        want = masked_weighted_mean_ref(vals.view(n, 784, 100, 1),
+                                        mask.view(n, 100), w,
+                                        gprev.view(784, 100, 1), out_dtype)
+        if dtype == torch.float32:
+            rtol = 3e-5
+        else:
+            rtol = 2.0 ** -7 if out_dtype == torch.bfloat16 else 5e-3
+        torch.testing.assert_close(got.float(), want.view(leaf).float(),
+                                   rtol=rtol, atol=1e-4)
+
+
+def test_aggregate_sparse_stacked_launches_one_kernel_per_leaf(cuda_device):
+    """Eq. (4) over the MLP's six leaves: six sparse_agg launches in the
+    mean mode and no other kernel on the card (no eager finish)."""
+    from repro_torch.core import aggregation
+    from repro_torch.fl import MLP_SPEC, init_cnn_spec
+    gp = init_cnn_spec(MLP_SPEC, seed=1, device=cuda_device)
+    n = 10
+    stacked = tree.tree_map(lambda x: x[None].repeat(
+        (n,) + (1,) * x.ndim).contiguous(), gp)
+    masks = tree.tree_map(lambda x: torch.ones(
+        (n,) + (1,) * (x.ndim - 2) + x.shape[-1:], device=cuda_device),
+        stacked)
+    w = torch.ones((n,), device=cuda_device)
+    aggregation.aggregate_sparse_stacked(stacked, masks, w, prev_global=gp)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        aggregation.aggregate_sparse_stacked(stacked, masks, w,
+                                             prev_global=gp)
+        torch.cuda.synchronize()
+    leaves = len(tree.leaves(gp))
+    assert kernels.launch_counts()["sparse_agg"] == leaves
+    assert agg_ops.mode_counts() == {"partials": 0, "mean": leaves}
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("sparse_agg" in nm for nm in names), names
+
+
+@pytest.mark.parametrize("n,leaf,mask_shape", [
+    (4, (8, 16), (8, 1)), (5, (6, 3, 10), (6, 1, 1)), (17, (12, 7), (12, 1))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_agg_channel_first_matches_plain(n, leaf, mask_shape, dtype,
+                                                cuda_device):
+    """A mask along a leading channel axis (B > 1: one mask value per row
+    of B contiguous elements, read as vectors where V divides B) in both
+    modes against the plain versions; N = 17 takes two passes of the
+    client loop."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    vals = torch.randn((n, *leaf), generator=gen, device=cuda_device
+                       ).to(dtype)
+    mask = (torch.rand((n, *mask_shape), generator=gen, device=cuda_device)
+            > 0.5).to(dtype)
+    w = torch.rand((n,), generator=gen, device=cuda_device) + 0.5
+    gprev = torch.randn(leaf, generator=gen, device=cuda_device).to(dtype)
+    (a, c, b), mc = _lib.mask_view(leaf, mask_shape)
+    assert b > 1 and mc == c
+    num, den = agg_ops.masked_weighted_sum(vals, mask, w)
+    wnum, wden = masked_weighted_sum_ref(vals.view(n, a, c, b),
+                                         mask.view(n, c), w)
+    rtol = 5e-3 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(num, wnum.view(leaf), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(den, wden.view(leaf), rtol=3e-5, atol=1e-5)
+    got = agg_ops.masked_weighted_mean(vals, mask, w, gprev, torch.float32)
+    want = masked_weighted_mean_ref(vals.view(n, a, c, b), mask.view(n, c),
+                                    w, gprev.view(a, c, b), torch.float32)
+    torch.testing.assert_close(got, want.view(leaf), rtol=rtol, atol=1e-4)
