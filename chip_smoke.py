@@ -20,6 +20,9 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    same function, that call (a yardstick the port never uses), as medians
    of CUDA-event pairs with a cold L2, and at each shape an ``eq4_leaf``
    row: the mean mode against the partials plus the eager finish.
+   Eq. (5) also as the engine calls it: the MLP's six leaves in one call
+   of the grouped merge, which must launch once and equal the plain
+   version leaf by leaf, timed beside the six single-leaf launches.
    The flash-attention kernels are held the same way (3e-5 fp32, 2e-2
    bf16, and in bf16 every output row within max|want|/64) over the CPU
    tests' sweep (causal, window 24, non-causal), odd lengths and head
@@ -39,7 +42,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    6000/1500, 10 clients, the paper's MLP, A_server=0.6, h=5, lr 0.1) for
    5 FedDD rounds and then 3 FedAvg rounds on cuda, with every kernel's
    launch count set to 0 just before and read just after: the three FedDD
-   kernels launch (``sparse_agg`` in its mean mode only), flash attention
+   kernels launch (``sparse_agg`` in its mean mode only, ``masked_merge``
+   once per partial FedDD round for all six leaves), flash attention
    does not;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
@@ -57,7 +61,9 @@ The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: FedDD for the three FedDD kernels, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
-beside them; flash attention's times at the prefill's shape, causal,
+beside them; ``masked_merge``'s at fc0, with the grouped launch of the
+six leaves (``mode: "grouped"``) and the six single-leaf launches beside
+them; flash attention's times at the prefill's shape, causal,
 named by its ``shape`` and ``window`` keys, and the launches by route
 under ``dispatch``); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -353,7 +359,80 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
             records.append(rec)
             if is_main:
                 main["masked_merge"] = rec
+        rec = merge_group_check(card, flush, dtype, dev, gen, timer)
+        records.append(rec)
+        if dtype == torch.float32:
+            main["masked_merge_group"] = rec
     return {"max_abs_err": max_err, "main": main}
+
+
+def merge_group_check(card: Card, flush, dtype, dev, gen, timer) -> dict:
+    """Phase 3, Eq. (5) as the engine calls it: the MLP's six leaves
+    (N = MLP_N, channel-last binary masks) in one call, which must launch
+    the kernel once and equal the plain version leaf by leaf; timed beside
+    the six single-leaf launches (each alone, and back to back) and the
+    plain version over the six."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.masked_merge.ref import masked_merge_ref
+
+    es = torch.finfo(dtype).bits // 8
+    gs, ls, ms = [], [], []
+    nbytes = 0
+    for leaf in MLP_LEAVES:
+        c = leaf[-1]
+        gs.append(torch.randn(leaf, generator=gen, device=dev).to(dtype))
+        ls.append(torch.randn((MLP_N, *leaf), generator=gen, device=dev
+                              ).to(dtype))
+        ms.append((torch.rand((MLP_N,) + (1,) * (len(leaf) - 1) + (c,),
+                              generator=gen, device=dev) > 0.5).to(dtype))
+        size = gs[-1].numel()
+        nbytes += 2 * MLP_N * size * es + size * es + MLP_N * c * es
+
+    def plain():
+        return [masked_merge_ref(g.view(-1, g.shape[-1], 1),
+                                 l.view(MLP_N, -1, l.shape[-1], 1),
+                                 m.view(MLP_N, -1)).view(l.shape)
+                for g, l, m in zip(gs, ls, ms)]
+
+    before = launch_counts()["masked_merge"]
+    got = merge_ops.masked_merge_many(gs, ls, ms)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        if launch_counts()["masked_merge"] != before + 1:
+            raise AssertionError("the grouped merge of the MLP's six leaves "
+                                 "did not launch exactly once")
+    for leaf, out, want in zip(MLP_LEAVES, got, plain()):
+        if not torch.equal(out, want):
+            raise AssertionError(f"grouped masked_merge differs from its "
+                                 f"plain version at leaf {leaf} {dtype}")
+    singles = [(lambda g=g, l=l, m=m: merge_ops.masked_merge(g, l, m))
+               for g, l, m in zip(gs, ls, ms)]
+
+    def burst():
+        for fn in singles:
+            fn()
+
+    bound_ms, bound_by = card.bound(nbytes, 4 * sum(
+        l.numel() for l in ls))
+    rec = dict(kernel="masked_merge_group", shape=[MLP_N],
+               leaves=len(MLP_LEAVES), dtype=_name(dtype),
+               ms=timer(lambda: merge_ops.masked_merge_many(gs, ls, ms),
+                        flush),
+               per_leaf_ms=[timer(fn, flush) for fn in singles],
+               per_leaf_burst_ms=timer(burst, flush),
+               plain_ms=timer(plain, flush), library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    rec["per_leaf_sum_ms"] = sum(rec["per_leaf_ms"])
+    print(f"  masked_merge grouped, the MLP's {len(MLP_LEAVES)} leaves "
+          f"{_name(dtype):8s}: one launch, equal to the plain version; "
+          f"grouped {rec['ms'] * 1e3:.1f} us, six launches "
+          f"{rec['per_leaf_sum_ms'] * 1e3:.1f} us timed one by one "
+          f"({rec['per_leaf_burst_ms'] * 1e3:.1f} us back to back), plain "
+          f"{rec['plain_ms'] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
+          f"({bound_by})", flush=True)
+    return rec
 
 
 def _name(dtype) -> str:
@@ -589,8 +668,9 @@ def main_path(dev="cuda") -> dict:
     import torch
     from repro_torch import kernels, tree
     from repro_torch.core.baselines import round_times
+    from repro_torch.kernels.masked_merge import ops as merge_ops
     from repro_torch.kernels.sparse_agg import ops as agg_ops
-    from repro_torch.quickstart import run
+    from repro_torch.quickstart import FEDDD_H, run
 
     def show(scheme, r):
         print(f"  {scheme:6s} round {r.round}  acc="
@@ -606,8 +686,10 @@ def main_path(dev="cuda") -> dict:
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
     modes = agg_ops.mode_counts()
+    merged = merge_ops.leaf_counts()
     print(f"  FedDD path: {wall:.2f} s, launches {counts}, sparse_agg by "
-          f"mode {modes}", flush=True)
+          f"mode {modes}, masked_merge launches by leaves merged {merged}",
+          flush=True)
 
     for res in (feddd, fedavg):
         for rec in res.history:
@@ -626,6 +708,13 @@ def main_path(dev="cuda") -> dict:
     if modes != {"partials": 0, "mean": counts["sparse_agg"]}:
         raise AssertionError(f"Eq. (4) did not run in the kernel's mean "
                              f"mode alone: {modes}")
+    partial = sum(r.round % FEDDD_H != 0 for r in feddd.history)
+    leaves = len(tree.leaves(feddd.global_params))
+    if counts["masked_merge"] != partial or merged != {leaves: partial}:
+        raise AssertionError(f"Eq. (5) did not launch once per partial "
+                             f"FedDD round ({partial}) for all {leaves} "
+                             f"leaves: {counts['masked_merge']} launches, "
+                             f"{merged}")
     want_t1 = float(np.max(round_times(tel, np.zeros(tel.num_clients))))
     if feddd.history[0].sim_time != want_t1:
         raise AssertionError(f"round 1 sim_time {feddd.history[0].sim_time} "
@@ -638,7 +727,8 @@ def main_path(dev="cuda") -> dict:
     if acc < 0.85:
         raise AssertionError(f"accuracy after round 5 is {acc} < 0.85")
     return dict(
-        launches=counts, sparse_agg_modes=modes, wall_s=wall,
+        launches=counts, sparse_agg_modes=modes, merge_leaf_counts=merged,
+        partial_rounds=partial, wall_s=wall,
         rounds=[dict(scheme=s, round=r.round, acc=r.metrics["accuracy"],
                      loss=r.mean_loss, sim_time=r.sim_time,
                      uploaded_fraction=r.uploaded_fraction,
@@ -878,6 +968,15 @@ def main(argv=None) -> int:
                 partials_ms=rec["partials_ms"],
                 partials_bound_ms=rec["partials_bound_ms"],
                 unfused_eq4_ms=rec["unfused_ms"])
+        if name == "masked_merge":
+            group = checks["main"]["masked_merge_group"]
+            line_kernels[-1].update(
+                mode="grouped", leaves=group["leaves"],
+                leaf_counts=path_out["merge_leaf_counts"],
+                grouped_ms=group["ms"], grouped_bound_ms=group["bound_ms"],
+                grouped_plain_ms=group["plain_ms"],
+                per_leaf_sum_ms=group["per_leaf_sum_ms"],
+                per_leaf_burst_ms=group["per_leaf_burst_ms"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(

@@ -11,6 +11,11 @@ checkout's).
   ``chip_smoke.LARGE`` (the VGG conv and CNN2's fc) in fp32 and bf16;
 - Eq. (4) of fc0 ``(10, 784, 100)`` both ways: the partials plus the
   eager ``finish_masked_mean``, and the mean mode (one launch);
+- ``masked_merge_where`` at every row: ``torch.where`` on the same
+  operands, the yardstick of one PyTorch call (the port never calls it);
+- Eq. (5) of the MLP's six leaves (fp32, N = 10) both ways: six
+  single-leaf launches (each timed alone and summed, and back to back)
+  and, where the package has it, the grouped launch of all six;
 - one ``BatchedRoundEngine.step`` (a partial round: importance, masks,
   Eq. (4), Eq. (5)) over the quickstart's 10-client MLP fleet, inputs
   fixed by seed: ``step_span_ms`` is the median time between CUDA events
@@ -97,6 +102,7 @@ def main(argv=None) -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     has_mean = hasattr(agg_ops, "masked_weighted_mean")
+    has_many = hasattr(merge_ops, "masked_merge_many")
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -120,6 +126,7 @@ def main(argv=None) -> int:
                                generator=gen, device="cuda") > 0.5).to(dt)
             wts = torch.rand((n,), generator=gen, device="cuda") + 0.5
             g = randn(*leaf).to(dt)
+            take_g = mask.bool()
             row = dict(
                 shape=[n, *leaf], dtype=smoke._name(dt),
                 importance=ms(lambda: imp_ops.channel_importance_batched(
@@ -129,17 +136,35 @@ def main(argv=None) -> int:
                 sparse_agg_mean=ms(lambda: agg_ops.masked_weighted_mean(
                     wn, mask, wts, g, dt)) if has_mean else None,
                 masked_merge=ms(lambda: merge_ops.masked_merge(g, wn,
-                                                               mask)))
+                                                               mask)),
+                masked_merge_where=ms(lambda: torch.where(take_g, g[None],
+                                                          wn)))
             if (n, leaf) == smoke.MAIN_SHAPE:
                 eq4 = dict(shape=[n, *leaf], unfused=ms(
                     lambda: aggregation.finish_masked_mean(
                         *agg_ops.masked_weighted_sum(wn, mask, wts), g,
                         dt)), mean=row["sparse_agg_mean"])
             rows.append(row)
-        return rows, eq4
+        gs = [randn(*leaf) for leaf in smoke.MLP_LEAVES]
+        ls = [randn(N, *leaf) for leaf in smoke.MLP_LEAVES]
+        mks = [(torch.rand((N,) + (1,) * (len(leaf) - 1) + leaf[-1:],
+                           generator=gen, device="cuda") > 0.5).float()
+               for leaf in smoke.MLP_LEAVES]
+        singles = [(lambda g=g, l=l, m=m: merge_ops.masked_merge(g, l, m))
+                   for g, l, m in zip(gs, ls, mks)]
+
+        def burst():
+            for fn in singles:
+                fn()
+        eq5 = dict(leaves=len(gs),
+                   per_leaf_sum=sum(ms(fn) for fn in singles),
+                   per_leaf_burst=ms(burst),
+                   grouped=ms(lambda: merge_ops.masked_merge_many(
+                       gs, ls, mks)) if has_many else None)
+        return rows, eq4, eq5
 
     sweep()                  # brings the card to its clocks; not kept
-    kern_rows, eq4 = sweep()
+    kern_rows, eq4, eq5 = sweep()
     for row in kern_rows:
         print(json.dumps(row), file=sys.stderr, flush=True)
 
@@ -163,7 +188,8 @@ def main(argv=None) -> int:
         old, new, gp, rates, weights, full_round=False))
     launches = kernels.launch_counts()
     steps = 3 + 2 * STEP_REPS
-    res = dict(card=card, src=str(src), build_s=build_s, kernels=kern_rows, eq4_fc0=eq4,
+    res = dict(card=card, src=str(src), build_s=build_s, kernels=kern_rows,
+               eq4_fc0=eq4, eq5_mlp=eq5,
                engine_step=dict(clients=N, step_ms=step_ms,
                                 step_span_ms=span_ms, device_ops=ops,
                                 launches_per_step={

@@ -6,10 +6,10 @@ Step 7 (client, t mod h == 0): W_n^{t+1} = W^t
 
 Positions received from NO client keep the previous global value.
 Eq. (4) runs through the ``sparse_agg`` kernel in its mean mode (the
-division and the previous-global fill inside the kernel) and Eq. (5)
-through the ``masked_merge`` kernel, one launch each per leaf; masks stay
-channel-shaped (N, 1, ..., C, ..., 1) and are never broadcast to the
-parameters' shape.
+division and the previous-global fill inside the kernel), one launch per
+leaf, and Eq. (5) through the ``masked_merge`` kernel, one launch for all
+the leaves of the tree; masks stay channel-shaped (N, 1, ..., C, ..., 1)
+and are never broadcast to the parameters' shape.
 
 Only the weighted mean is ported; the Byzantine-robust variants wait for
 ROADMAP.md queue A item 12.
@@ -72,10 +72,15 @@ def client_update_sparse(global_params, stacked_local, stacked_masks):
     """Eq. (5) for every client: W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n).
 
     ``global_params`` is un-stacked; ``stacked_local`` and the
-    channel-shaped ``stacked_masks`` carry the client axis.
+    channel-shaped ``stacked_masks`` carry the client axis.  The leaves
+    go to the kernel as one group (one launch per dtype on the card).
     """
-    return tree.tree_map(merge_ops.masked_merge, global_params,
-                         stacked_local, stacked_masks)
+    gl, gdef = tree.flatten(global_params)
+    ll, ldef = tree.flatten(stacked_local)
+    ml, mdef = tree.flatten(stacked_masks)
+    if not gdef == ldef == mdef:
+        raise ValueError("tree structure mismatch")
+    return tree.unflatten(ldef, merge_ops.masked_merge_many(gl, ll, ml))
 
 
 def client_update_full(global_params, local_params):

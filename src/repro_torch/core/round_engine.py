@@ -7,8 +7,8 @@ runs the server side of a round over the whole fleet:
     mask building        — a stable descending sort per client row and a
                            ``rank < keep`` compare
     masked aggregation   — Eq. (4), sparse_agg kernel, one launch per leaf
-    client update        — Eq. (5), masked_merge kernel, one launch per
-                           leaf (or Eq. (6) on full rounds)
+    client update        — Eq. (5), masked_merge kernel, one launch for
+                           every leaf (or Eq. (6) on full rounds)
 
 The per-round device-to-host traffic is the (N,) density vector.
 

@@ -12,6 +12,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace feddd {
 
@@ -63,6 +64,59 @@ __device__ __forceinline__ void store_f32(T* __restrict__ p,
 #pragma unroll
   for (int j = 0; j < V; ++j) x.v[j] = from_f32<T>(in[j]);
   *reinterpret_cast<Vec<T, V>*>(p) = x;
+}
+
+// The same accesses with a cache policy: `cs` streams (evict-first loads
+// and stores, for data touched once), `ldg` reads through the read-only
+// path (for data other threads read again).  Vec<T, V> moves as the
+// integer type of its size.
+template <int BYTES>
+struct Bits;
+template <>
+struct Bits<2> {
+  using type = unsigned short;
+};
+template <>
+struct Bits<4> {
+  using type = unsigned int;
+};
+template <>
+struct Bits<8> {
+  using type = uint2;
+};
+template <>
+struct Bits<16> {
+  using type = uint4;
+};
+
+template <typename T, int V>
+using BitsOf = typename Bits<sizeof(T) * V>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> from_bits(BitsOf<T, V> r) {
+  Vec<T, V> x;
+  memcpy(&x, &r, sizeof(x));
+  return x;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec_cs(const T* p) {
+  return from_bits<T, V>(__ldcs(reinterpret_cast<const BitsOf<T, V>*>(p)));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec_ldg(const T* p) {
+  return from_bits<T, V>(__ldg(reinterpret_cast<const BitsOf<T, V>*>(p)));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_f32_cs(T* p, const float (&in)[V]) {
+  Vec<T, V> x;
+#pragma unroll
+  for (int j = 0; j < V; ++j) x.v[j] = from_f32<T>(in[j]);
+  BitsOf<T, V> r;
+  memcpy(&r, &x, sizeof(r));
+  __stcs(reinterpret_cast<BitsOf<T, V>*>(p), r);
 }
 
 inline unsigned int blocks_for(int64_t work, int threads) {

@@ -5,8 +5,8 @@
   sparse_agg    masked weighted (num, den) over stacked clients,
                 Eq. (4), or in its mean mode the finished
                 Eq. (4) with the previous-global fill        (Step 4)
-  masked_merge  Eq. (5) client update, a select of global and
-                local by channel                              (Step 7)
+  masked_merge  Eq. (5) client update, a blend of global and
+                local by channel, every leaf in one launch    (Step 7)
   flash_attention  causal / sliding-window GQA attention with an
                 online softmax, for the LM stack's long-sequence prefill
 

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention")
 _launches: Dict[str, int] = collections.Counter()
-_routes: Dict[Tuple[str, str], int] = collections.Counter()
+_routes: Dict[Tuple[str, object], int] = collections.Counter()
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
@@ -43,9 +43,9 @@ _SIGNATURES = {
     # vals, mask, weights, gprev, out, den, n, a, c, b, mask_c, vec, mode,
     # dtype, out_dtype, stream
     "feddd_sparse_agg": (_P,) * 6 + (_I64,) * 5 + (_I32,) * 4 + (_P,),
-    # g, l, mask, out, n, a, c, b, mask_c, dtype, stream
-    "feddd_masked_merge": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                           _I32, _P),
+    # table (leaves x 18 int64, kernels/masked_merge/ops.plan), leaves,
+    # dtype, stream
+    "feddd_masked_merge_group": (ctypes.POINTER(_I64), _I32, _I32, _P),
     # q, k, v, out, b, sq, skv, h, hkv, hd, 9 strides (q, k, v: b, s, h),
     # causal, window, dtype, stream
     "feddd_flash_attention": (_P, _P, _P, _P) + (_I64,) * 15 + (_I32, _I64,
@@ -114,11 +114,10 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, symbol: str, *args, route: Optional[str] = None
-           ) -> None:
+def launch(kernel: str, symbol: str, *args, route=None) -> None:
     """Call ``symbol`` on PyTorch's current stream; raise on a launch
-    error, count the launch otherwise (and under ``route``, for a kernel
-    that has several)."""
+    error, count the launch otherwise (and under ``route``: the route or
+    mode of a kernel that has several, or what a launch covered)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(load(), symbol)(*args, stream)
     if err != 0:
@@ -132,8 +131,11 @@ def launch_counts() -> Dict[str, int]:
     return {k: _launches[k] for k in KERNELS}
 
 
-def route_launches(kernel: str, routes) -> Dict[str, int]:
-    """Launches of ``kernel`` by route since ``reset_launch_counts``."""
+def route_launches(kernel: str, routes=None) -> Dict:
+    """Launches of ``kernel`` by route since ``reset_launch_counts``: of
+    each of ``routes``, or of every route it has taken (sorted)."""
+    if routes is None:
+        routes = sorted(r for k, r in _routes if k == kernel)
     return {r: _routes[kernel, r] for r in routes}
 
 
@@ -175,9 +177,17 @@ def vector_width(inner: int, *tensors: torch.Tensor, most: int = 8) -> int:
     of two up to ``most`` that is at most 16 bytes of the first tensor's
     dtype, divides ``inner``, and keeps every tensor's first element
     aligned to it."""
-    v = min(most, 16 // tensors[0].element_size())
-    while v > 1 and (inner % v or any(
-            t.data_ptr() % (v * t.element_size()) for t in tensors)):
+    return vector_width_of(inner, tensors[0].element_size(),
+                           [(t.data_ptr(), t.element_size())
+                            for t in tensors], most)
+
+
+def vector_width_of(inner: int, element_size: int, addrs, most: int = 8
+                    ) -> int:
+    """:func:`vector_width` from numbers: ``addrs`` holds an (address,
+    element size) pair per tensor."""
+    v = min(most, 16 // element_size)
+    while v > 1 and (inner % v or any(p % (v * es) for p, es in addrs)):
         v //= 2
     return v
 

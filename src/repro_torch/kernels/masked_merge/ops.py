@@ -1,39 +1,182 @@
-"""Wrapper of the masked merge kernel (``csrc/masked_merge.cu``)."""
+"""Wrapper of the masked merge kernel (``csrc/masked_merge.cu``): Eq. (5)
+for a group of client-stacked leaves, one launch per dtype and per
+``MAX_LEAVES`` leaves (:func:`plan`)."""
 
 from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.masked_merge.ref import masked_merge_ref
 
+THREADS = 128                 # vectors of G per tile: kThreads
+CLIENTS = 4                   # most clients per tile: kClients
+MAX_LEAVES = 32               # leaf descriptors per launch: kMaxLeaves
+MAX_ELEMENTS = 1 << 31        # a client leaf holds fewer (32-bit indices)
+FIELDS = 18                   # int64 per leaf in the launch table
+
+
+class LeafSpec(NamedTuple):
+    """What the launch plan needs of one leaf."""
+
+    dtype: torch.dtype
+    n: int                    # clients
+    acb: Tuple[int, int, int]  # (A, C, B) around the channel axis
+    mask_c: int               # C, or 1 for an all-ones mask shape
+    addrs: Tuple[int, ...]    # addresses of G, L and the output
+    mask_addr: int
+
+
+class LeafPlan(NamedTuple):
+    index: int                # position in the group
+    vec: int                  # V, elements per access
+    chunk: int                # clients per tile
+    tile_begin: int           # first tile: sum of the earlier leaves' tiles
+    tiles: int                # ceil(size / V / THREADS) * ceil(N / chunk)
+
+
+class Launch(NamedTuple):
+    dtype: torch.dtype
+    leaves: Tuple[LeafPlan, ...]
+    tiles: int                # the grid
+
+
+def divmod_constants(d: int) -> Tuple[int, int]:
+    """(mul, shr) with x // d == (x * mul) >> (32 + shr) for 0 <= x < 2**31
+    (CUTLASS's FastDivmod; the kernel takes x itself for d == 1)."""
+    if not 1 <= d < MAX_ELEMENTS:
+        raise ValueError(f"divisor {d} out of range")
+    if d == 1:
+        return 0, 0
+    p = 31 + (d - 1).bit_length()          # 31 + ceil(log2 d)
+    return -(-(1 << p) // d), p - 32
+
+
+def leaf_plan(spec: LeafSpec, index: int = 0, tile_begin: int = 0
+              ) -> LeafPlan:
+    """Vector width, client chunks and tiles of one leaf.
+
+    V is the largest width up to 16 bytes that divides C where the channel
+    axis is last (B == 1), else B, and keeps G, L, the output and (B == 1)
+    the mask aligned: a vector's lanes then have consecutive channels of
+    one mask row, read as one vector, or share one channel.  The N clients
+    split into the fewest equal chunks of at most ``CLIENTS``."""
+    a, c, b = spec.acb
+    size = a * c * b
+    if size >= MAX_ELEMENTS:
+        raise ValueError(f"a client leaf of {size} elements: the merge "
+                         f"kernel takes fewer than {MAX_ELEMENTS}")
+    es = torch.empty((), dtype=spec.dtype).element_size()
+    addrs = list(spec.addrs)
+    if spec.mask_c != 1 and b == 1:
+        addrs.append(spec.mask_addr)
+    vec = _lib.vector_width_of(b if b > 1 else c, es,
+                               [(p, es) for p in addrs])
+    chunks = -(-spec.n // CLIENTS)
+    chunk = -(-spec.n // chunks)
+    return LeafPlan(index, vec, chunk, tile_begin,
+                    -(-(size // vec) // THREADS) * chunks)
+
+
+def plan(specs: Sequence[LeafSpec]) -> List[Launch]:
+    """The launches that merge ``specs``: the leaves of each dtype (in the
+    order the dtypes first appear), in order, ``MAX_LEAVES`` at a time.
+    Empty leaves take no tiles and no launch."""
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, s in enumerate(specs):
+        a, c, b = s.acb
+        if s.n * a * c * b:
+            by_dtype.setdefault(s.dtype, []).append(i)
+    launches = []
+    for dtype, idx in by_dtype.items():
+        for lo in range(0, len(idx), MAX_LEAVES):
+            leaves, begin = [], 0
+            for i in idx[lo:lo + MAX_LEAVES]:
+                leaves.append(leaf_plan(specs[i], i, begin))
+                begin += leaves[-1].tiles
+            launches.append(Launch(dtype, tuple(leaves), begin))
+    return launches
+
+
+def leaf_counts() -> Dict[int, int]:
+    """Launches by the number of leaves each merged, since
+    ``kernels.reset_launch_counts``."""
+    return _lib.route_launches("masked_merge")
+
+
+def _leaf_view(global_w: torch.Tensor, local_w: torch.Tensor,
+               mask: torch.Tensor):
+    """Check one leaf's operands -> ((A, C, B), mask_c)."""
+    n = local_w.shape[0]
+    if tuple(global_w.shape) != tuple(local_w.shape[1:]) or \
+            mask.shape[0] != n:
+        raise ValueError(f"global {tuple(global_w.shape)}, local "
+                         f"{tuple(local_w.shape)} and mask "
+                         f"{tuple(mask.shape)} do not fit")
+    acb, mask_c = _lib.mask_view(local_w.shape[1:], mask.shape[1:])
+    _lib.check_dtype("local_w", local_w, _lib.DTYPE_CODES)
+    _lib.check_dtype("global_w", global_w, (local_w.dtype,))
+    _lib.check_dtype("mask", mask, (local_w.dtype,))
+    _lib.check_contiguous(global_w=global_w, local_w=local_w, mask=mask)
+    return acb, mask_c
+
+
+def masked_merge_many(global_ws: Sequence[torch.Tensor],
+                      local_ws: Sequence[torch.Tensor],
+                      masks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Eq. (5) for a group of client-stacked leaves.
+
+    For each i: global_ws[i] (*leaf); local_ws[i] (N, *leaf); masks[i]
+    channel-shaped (N, 1, ..., C, ..., 1) or (N, 1, ..., 1), all in one
+    dtype, all leaves on one device.  Returns the (N, *leaf) merges in
+    local_ws' dtypes.  On the card one launch merges up to MAX_LEAVES
+    leaves of one dtype.
+    """
+    global_ws, local_ws, masks = list(global_ws), list(local_ws), list(masks)
+    if not len(global_ws) == len(local_ws) == len(masks):
+        raise ValueError(f"{len(global_ws)} globals, {len(local_ws)} locals "
+                         f"and {len(masks)} masks")
+    if not local_ws:
+        return []
+    views = [_leaf_view(g, l, m)
+             for g, l, m in zip(global_ws, local_ws, masks)]
+    dev = _lib.kernel_device(*global_ws, *local_ws, *masks)
+    if dev == "cpu":
+        return [masked_merge_ref(g.view(acb), l.view((l.shape[0],) + acb),
+                                 m.view(m.shape[0], mask_c)).view(l.shape)
+                for g, l, m, (acb, mask_c) in zip(global_ws, local_ws,
+                                                  masks, views)]
+    outs = [torch.empty_like(l) for l in local_ws]
+    specs = [LeafSpec(l.dtype, l.shape[0], acb, mask_c,
+                      (g.data_ptr(), l.data_ptr(), o.data_ptr()),
+                      m.data_ptr())
+             for g, l, m, o, (acb, mask_c) in zip(global_ws, local_ws, masks,
+                                                  outs, views)]
+    for launch in plan(specs):
+        table = (ctypes.c_int64 * (FIELDS * len(launch.leaves)))()
+        for row, lp in enumerate(launch.leaves):
+            s = specs[lp.index]
+            a, c, b = s.acb
+            table[row * FIELDS:(row + 1) * FIELDS] = [
+                s.addrs[0], s.addrs[1], s.mask_addr, s.addrs[2], s.n, a, c,
+                b, s.mask_c, lp.vec, lp.tile_begin, lp.chunk,
+                *divmod_constants(c), *divmod_constants(b),
+                *divmod_constants(-(-s.n // lp.chunk))]
+        _lib.launch("masked_merge", "feddd_masked_merge_group", table,
+                    len(launch.leaves), _lib.DTYPE_CODES[launch.dtype],
+                    route=len(launch.leaves))
+    return outs
+
 
 def masked_merge(global_w: torch.Tensor, local_w: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-    """Eq. (5) for one client-stacked leaf.
+    """Eq. (5) for one client-stacked leaf: a group of one.
 
     global_w: (*leaf); local_w: (N, *leaf); mask: channel-shaped
     (N, 1, ..., C, ..., 1) or (N, 1, ..., 1), all in one dtype.
     Returns (N, *leaf) in local_w's dtype.
     """
-    n = local_w.shape[0]
-    leaf = local_w.shape[1:]
-    if tuple(global_w.shape) != tuple(leaf) or mask.shape[0] != n:
-        raise ValueError(f"global {tuple(global_w.shape)}, local "
-                         f"{tuple(local_w.shape)} and mask "
-                         f"{tuple(mask.shape)} do not fit")
-    (a, c, b), mask_c = _lib.mask_view(leaf, mask.shape[1:])
-    _lib.check_dtype("local_w", local_w, _lib.DTYPE_CODES)
-    _lib.check_dtype("global_w", global_w, (local_w.dtype,))
-    _lib.check_dtype("mask", mask, (local_w.dtype,))
-    dev = _lib.kernel_device(global_w, local_w, mask)
-    _lib.check_contiguous(global_w=global_w, local_w=local_w, mask=mask)
-    if dev == "cpu":
-        return masked_merge_ref(global_w.view(a, c, b),
-                                local_w.view(n, a, c, b),
-                                mask.view(n, mask_c)).view(local_w.shape)
-    out = torch.empty_like(local_w)
-    _lib.launch("masked_merge", "feddd_masked_merge", global_w.data_ptr(),
-                local_w.data_ptr(), mask.data_ptr(), out.data_ptr(), n, a, c,
-                b, mask_c, _lib.DTYPE_CODES[local_w.dtype])
-    return out
+    return masked_merge_many([global_w], [local_w], [mask])[0]

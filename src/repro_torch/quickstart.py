@@ -21,6 +21,8 @@ from repro_torch.fl import (MLP_SPEC, init_cnn_spec, make_eval_fn,
                             make_local_train_fn, model_bytes,
                             sample_system_telemetry)
 
+FEDDD_H = 5     # full-broadcast period h of the FedDD run (Table 4)
+
 
 def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
         clients: int = 10, a_server: float = 0.6,
@@ -41,7 +43,7 @@ def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
     ef = make_eval_fn(MLP_SPEC, test, flatten=True, device=device)
     results = []
     for scheme, n_rounds, kw in (
-            ("feddd", rounds, dict(a_server=a_server, h=5)),
+            ("feddd", rounds, dict(a_server=a_server, h=FEDDD_H)),
             ("fedavg", fedavg_rounds or rounds, {})):
         res = run_scheme(scheme, params, tel, ltf, ef, rounds=n_rounds,
                          device=device, **kw)

@@ -72,14 +72,18 @@ def test_kernel_on_card_matches_plain(kernel, dtype, cuda_device):
 
 def test_quickstart_rounds_on_card(cuda_device):
     """Two FedDD rounds and one FedAvg round of the quickstart on the card
-    go through all three FedDD kernels (and not flash attention) and keep
-    the model there."""
-    from repro_torch.quickstart import run
+    go through all three FedDD kernels (and not flash attention), Eq. (5)
+    in one launch per partial FedDD round for all six leaves, and keep the
+    model there."""
+    from repro_torch.quickstart import FEDDD_H, run
     kernels.reset_launch_counts()
     feddd, fedavg, _ = run(2, fedavg_rounds=1, device=cuda_device)
     counts = kernels.launch_counts()
     assert counts.pop("flash_attention") == 0
     assert all(v > 0 for v in counts.values())
+    partial = sum(r.round % FEDDD_H != 0 for r in feddd.history)
+    assert counts["masked_merge"] == partial == 2
+    assert mm_ops.leaf_counts() == {6: partial}
     assert all(np.isfinite(r.mean_loss) for r in feddd.history)
     assert all(leaf.is_cuda for leaf in tree.leaves(fedavg.global_params))
 
@@ -378,3 +382,135 @@ def test_sparse_agg_channel_first_matches_plain(n, leaf, mask_shape, dtype,
     want = masked_weighted_mean_ref(vals.view(n, a, c, b), mask.view(n, c),
                                     w, gprev.view(a, c, b), torch.float32)
     torch.testing.assert_close(got, want.view(leaf), rtol=rtol, atol=1e-4)
+
+
+MLP_LEAVES = [(100,), (784, 100), (64,), (100, 64), (10,), (64, 10)]
+# the channel counts of the divisor sweep: 1 (an all-ones mask shape),
+# below and above a vector, primes, the MLP's, and past 4096
+SWEEP_C = [1, 3, 7, 10, 100, 257, 513, 4097]
+
+
+def _merge_leaf(gen, dev, n, leaf, dtype, axis=-1, kind="binary"):
+    """(G, L, mask) of one leaf on the card: a binary, fractional or
+    all-ones channel mask along ``axis``."""
+    g = torch.randn(leaf, generator=gen, device=dev).to(dtype)
+    loc = torch.randn((n, *leaf), generator=gen, device=dev).to(dtype)
+    ax = axis % len(leaf)
+    if kind == "ones":
+        mshape = (n,) + (1,) * len(leaf)
+    else:
+        mshape = (n,) + tuple(s if i == ax else 1 for i, s in enumerate(leaf))
+    m = torch.rand(mshape, generator=gen, device=dev)
+    m = (m > 0.5 if kind == "binary" else
+         torch.ones_like(m) if kind == "ones" else m).to(dtype)
+    return g, loc, m
+
+
+def _merge_plain(g, loc, m):
+    from repro_torch.kernels import _lib
+    n = loc.shape[0]
+    acb, mask_c = _lib.mask_view(loc.shape[1:], m.shape[1:])
+    return masked_merge_ref(g.reshape(acb), loc.reshape((n,) + acb),
+                            m.reshape(n, mask_c)).view(loc.shape)
+
+
+def _merge_group_exact(gs, ls, ms, launches):
+    """One group call: each leaf equals the plain version bit for bit
+    (NaN where it has NaN), with ``launches`` launches counted."""
+    before = kernels.launch_counts()["masked_merge"]
+    got = mm_ops.masked_merge_many(gs, ls, ms)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["masked_merge"] == before + launches
+    for out, g, loc, m in zip(got, gs, ls, ms):
+        want = _merge_plain(g, loc, m)
+        assert out.dtype == loc.dtype and out.shape == loc.shape
+        torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_merge_group_on_card_matches_plain_at_the_mlp(dtype,
+                                                             cuda_device):
+    """The MLP's six leaves (N = 10, channel-last masks): one launch that
+    merged six leaves, every leaf ``torch.equal`` to the plain version and
+    a select of G and L."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    cases = [_merge_leaf(gen, cuda_device, 10, leaf, dtype)
+             for leaf in MLP_LEAVES]
+    gs, ls, ms = (list(t) for t in zip(*cases))
+    kernels.reset_launch_counts()
+    got = _merge_group_exact(gs, ls, ms, 1)
+    assert mm_ops.leaf_counts() == {6: 1}
+    for out, g, loc, m in zip(got, gs, ls, ms):
+        assert torch.equal(out, torch.where(m.bool(), g[None], loc))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_merge_group_divisor_sweep(dtype, cuda_device):
+    """C over SWEEP_C, each channel-last (B = 1) with binary and fractional
+    masks, channel-first (B > 1) and all-ones: 32 leaves in one launch,
+    each exact against the plain version.  The (8, C) leaves take vector
+    widths 1 to 16 bytes by C, and 9 clients in three chunks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    cases = []
+    for c in SWEEP_C:
+        cases += [_merge_leaf(gen, cuda_device, 9, (8, c), dtype),
+                  _merge_leaf(gen, cuda_device, 3, (2, c), dtype,
+                              kind="fraction"),
+                  _merge_leaf(gen, cuda_device, 4, (c, 6), dtype, axis=0),
+                  _merge_leaf(gen, cuda_device, 2, (c, 3), dtype,
+                              kind="ones")]
+    assert len(cases) == mm_ops.MAX_LEAVES
+    _merge_group_exact(*(list(t) for t in zip(*cases)), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_merge_misaligned_views_stay_exact(dtype, cuda_device):
+    """G and L, or the mask, as views one element into their storage: the
+    vector width falls to 1 (the plan says so) and the merge stays
+    exact."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    n, leaf = 10, (784, 100)
+    g, loc, m = _merge_leaf(gen, cuda_device, n, leaf, dtype)
+    gbuf = torch.empty(g.numel() + 1, dtype=dtype, device=cuda_device)
+    lbuf = torch.empty(loc.numel() + 1, dtype=dtype, device=cuda_device)
+    mbuf = torch.empty(m.numel() + 1, dtype=dtype, device=cuda_device)
+    g1 = gbuf[1:].view(leaf).copy_(g)
+    l1 = lbuf[1:].view(loc.shape).copy_(loc)
+    m1 = mbuf[1:].view(m.shape).copy_(m)
+    spec = mm_ops.LeafSpec(dtype, n, (784, 100, 1), 100,
+                           (g1.data_ptr(), l1.data_ptr(), 0), m.data_ptr())
+    assert mm_ops.leaf_plan(spec).vec == 1
+    spec = spec._replace(addrs=(g.data_ptr(), loc.data_ptr(), 0),
+                         mask_addr=m1.data_ptr())
+    assert mm_ops.leaf_plan(spec).vec == 1
+    want = _merge_plain(g, loc, m)
+    for args in ((g1, l1, m), (g, loc, m1), (g1, l1, m1)):
+        assert torch.equal(mm_ops.masked_merge(*args), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_merge_fractional_mask_and_nan_stay_exact(dtype, cuda_device):
+    """A fractional mask gives the plain version's bits (no FMA
+    contraction), and a NaN or inf in L where the mask is 1 gives NaN, as
+    the plain version does (the blend is no select)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    g, loc, m = _merge_leaf(gen, cuda_device, 10, (784, 100), dtype,
+                            kind="fraction")
+    m[0, 0, 5] = 1.0
+    loc[0, 3, 5], loc[0, 4, 5] = float("nan"), float("inf")
+    (out,) = _merge_group_exact([g], [loc], [m], 1)
+    assert torch.isnan(out[0, 3:5, 5]).all()
+
+
+def test_masked_merge_33_leaves_take_two_launches(cuda_device):
+    """33 leaves of one dtype: two launches, of 32 and 1 leaves; a bf16
+    leaf among fp32 ones takes a launch of its own."""
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    cases = [_merge_leaf(gen, cuda_device, 3, (5 + i, 12), torch.float32)
+             for i in range(33)]
+    kernels.reset_launch_counts()
+    _merge_group_exact(*(list(t) for t in zip(*cases)), 2)
+    assert mm_ops.leaf_counts() == {1: 1, 32: 1}
+    cases[7] = _merge_leaf(gen, cuda_device, 3, (9, 12), torch.bfloat16)
+    _merge_group_exact(*(list(t) for t in zip(*cases[:4] + cases[6:9])), 2)

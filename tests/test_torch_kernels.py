@@ -9,6 +9,7 @@ packages.  Tolerances are those of tests/test_kernels.py: importance rtol
 1e-4, den rtol 3e-5 / atol 1e-5, Eq. (5) exact.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -192,6 +193,307 @@ def test_masked_merge_stacked_matches_client_update(n, leaf, dt):
     want = jax_agg.client_update_sparse(as_jax(g, jdt), as_jax(loc, jdt),
                                         as_jax(m, jdt))
     np.testing.assert_array_equal(np32(got), np32(want))
+
+
+MLP_TREE = {"fc0": {"b": (100,), "w": (784, 100)},
+            "fc1": {"b": (64,), "w": (100, 64)},
+            "fc2": {"b": (10,), "w": (64, 10)}}
+
+
+def _mlp_merge_inputs(n, seed):
+    """Seeded numpy (global, stacked local, channel-last mask) pytrees of
+    the paper's MLP, the masks shaped as the engine builds them."""
+    from repro_torch import tree
+    rng = np.random.default_rng(seed)
+    g = tree.tree_map(lambda s: rng.normal(size=s).astype(np.float32),
+                      MLP_TREE)
+    loc = tree.tree_map(
+        lambda s: rng.normal(size=(n,) + s).astype(np.float32), MLP_TREE)
+    mask = tree.tree_map(
+        lambda s: (rng.uniform(size=(n,) + (1,) * (len(s) - 1) + s[-1:])
+                   > 0.4).astype(np.float32), MLP_TREE)
+    return g, loc, mask
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=_ids)
+def test_masked_merge_group_over_mlp_matches_client_update(dt):
+    """The group entry over the MLP pytree (one call, the six leaves in
+    JAX order) and the port's ``client_update_sparse`` built on it, against
+    the JAX engine's Eq. (5) (``aggregation.client_update_sparse``),
+    exactly."""
+    import jax
+    from repro_torch import tree
+    from repro_torch.core import aggregation
+    _, jdt, tdt = dt
+    g, loc, mask = _mlp_merge_inputs(10, 5)
+    tg, tl, tm = (tree.tree_map(lambda x: as_torch(x, tdt), t)
+                  for t in (g, loc, mask))
+    jg, jl, jm = (jax.tree_util.tree_map(lambda x: as_jax(x, jdt), t)
+                  for t in (g, loc, mask))
+    want = jax.tree_util.tree_leaves(jax_agg.client_update_sparse(jg, jl, jm))
+    many = mm_ops.masked_merge_many(tree.leaves(tg), tree.leaves(tl),
+                                    tree.leaves(tm))
+    via_tree = tree.leaves(aggregation.client_update_sparse(tg, tl, tm))
+    assert len(many) == len(via_tree) == len(want) == 6
+    for got_many, got_tree, w in zip(many, via_tree, want):
+        assert got_many.dtype == tdt
+        np.testing.assert_array_equal(np32(got_many), np32(w))
+        np.testing.assert_array_equal(np32(got_tree), np32(w))
+
+
+# (N, leaf, channel axis, mask kind): channel-first leaves (B > 1), an
+# all-ones mask (C_m = 1), sizes 10, 33 and 257 x 513, fractional masks
+RAGGED_GROUP = [(3, (257, 513), -1, "binary"), (4, (33,), -1, "binary"),
+                (5, (10,), -1, "ones"), (3, (6, 7, 5), 0, "binary"),
+                (2, (9, 4), 0, "fraction"), (3, (64, 10), -1, "fraction"),
+                (2, (3, 3, 4, 8), -1, "ones")]
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=_ids)
+def test_masked_merge_group_ragged_matches_pallas(dt):
+    """One group call over a ragged set of leaves against JAX's Pallas
+    kernel in interpret mode (``masked_merge`` per client, as
+    test_masked_merge_matches_pallas runs it) and the JAX engine's jnp
+    Eq. (5) and the kernel's jnp oracle (``ref.py``, fp32 arithmetic).
+    Binary and all-ones masks: all three exactly.  Fractional masks: the
+    oracle exactly, the jnp Eq. (5) exactly in fp32 (in bf16 it computes
+    in bf16 arithmetic, the kernels in fp32), and the Pallas kernel in
+    interpret mode within one fp32 ulp of the larger product and one of
+    the result (and one bf16 ulp of the result in bf16), because XLA on the
+    CPU contracts its ``g * m + l * (1 - m)`` into a fused multiply-add
+    where the port and the oracle round each product.  L holds a NaN and
+    an inf at a channel the global replaces: the blend keeps NaN * 0 = NaN,
+    as the reference does, and is no select."""
+    _, jdt, tdt = dt
+    rng = np.random.default_rng(15)
+    gs, ls, ms, rows = [], [], [], []
+    for n, leaf, ax, kind in RAGGED_GROUP:
+        ax = ax % len(leaf)
+        c = leaf[ax]
+        g = rng.normal(size=leaf).astype(np.float32)
+        loc = rng.normal(size=(n,) + leaf).astype(np.float32)
+        if kind == "ones":
+            row = np.ones((n, c), np.float32)
+            mshape = (n,) + (1,) * len(leaf)
+            ms.append(np.ones(mshape, np.float32))
+        else:
+            row = (rng.uniform(size=(n, c)) > 0.5 if kind == "binary"
+                   else rng.uniform(size=(n, c))).astype(np.float32)
+            ms.append(row.reshape((n,) + tuple(c if i == ax else 1
+                                               for i in range(len(leaf)))))
+        gs.append(g)
+        ls.append(loc)
+        rows.append(row)
+    # a NaN and an inf in L where the first leaf's first client takes G
+    ch = int(np.flatnonzero(rows[0][0] > 0)[0])
+    ls[0][0, 3, ch], ls[0][0, 4, ch] = np.nan, np.inf
+    got = mm_ops.masked_merge_many([as_torch(x, tdt) for x in gs],
+                                   [as_torch(x, tdt) for x in ls],
+                                   [as_torch(x, tdt) for x in ms])
+    assert np.isnan(np32(got[0])[0, 3:5, ch]).all()
+    for (n, leaf, ax, kind), out, g, loc, m, row in zip(
+            RAGGED_GROUP, got, gs, ls, ms, rows):
+        assert out.dtype == tdt and tuple(out.shape) == (n,) + leaf
+        ax = ax % len(leaf)
+        jg = as_jax(g, jdt)
+        if kind != "fraction" or tdt == torch.float32:
+            jnp_eq5 = jax_agg.client_update_sparse(jg, as_jax(loc, jdt),
+                                                   as_jax(m, jdt))
+            np.testing.assert_array_equal(np32(out), np32(jnp_eq5))
+        for k in range(n):
+            jl, jrow = as_jax(loc[k], jdt), as_jax(row[k], jdt)
+            c = leaf[ax]
+            oracle = jax_mm_ref(jnp.moveaxis(jg, ax, 0).reshape(c, -1),
+                                jnp.moveaxis(jl, ax, 0).reshape(c, -1),
+                                jrow)
+            oracle = jnp.moveaxis(oracle.reshape(
+                (c,) + tuple(np.delete(leaf, ax))), 0, ax)
+            np.testing.assert_array_equal(np32(out[k]), np32(oracle))
+            want = jax_mm_ops.masked_merge(jg, jl, jrow, channel_axis=ax)
+            if kind == "fraction":
+                # the fused product skips one rounding: one fp32 ulp of
+                # the larger term and one of the result (the sum then rounds
+                # the other way), plus one bf16 ulp of the result in bf16
+                mk = np.moveaxis(np32(jrow).reshape(
+                    (c,) + (1,) * (len(leaf) - 1)), 0, ax)
+                terms = np.maximum(np.abs(np32(jg) * mk),
+                                   np.abs(np32(jl) * (1 - mk)))
+                tol = 2.0 ** -23 * (terms + np.abs(np32(want)))
+                if tdt == torch.bfloat16:
+                    tol = tol + 2.0 ** -7 * np.abs(np32(want))
+                assert np.all(np.abs(np32(out[k]) - np32(want)) <= tol)
+            else:
+                np.testing.assert_array_equal(np32(out[k]), np32(want))
+
+
+ALIGNED = (1 << 20, 2 << 20, 3 << 20)     # addresses of G, L, out
+
+
+def _spec(leaf, n=10, dtype=torch.float32, axis=-1, ones=False,
+          addrs=ALIGNED, mask_addr=4 << 20):
+    from repro_torch.kernels import _lib
+    mshape = (tuple(1 for _ in leaf) if ones else
+              tuple(s if i == axis % len(leaf) else 1
+                    for i, s in enumerate(leaf)))
+    acb, mask_c = _lib.mask_view(leaf, mshape)
+    return mm_ops.LeafSpec(dtype, n, acb, mask_c, addrs, mask_addr)
+
+
+def test_masked_merge_plan_of_the_mlp_is_one_launch():
+    """The MLP's six leaves (JAX order) in one launch: vector width 4 where
+    C allows it (fc0 fp32: 4), 2 for fc2 (C = 10); N = 10 clients in three
+    chunks of at most 4; tiles of THREADS vectors times the chunks, their
+    prefix sums in order."""
+    from repro_torch import tree
+    leaves = tree.leaves(MLP_TREE)
+    assert [tuple(s) for s in leaves] == [(100,), (784, 100), (64,),
+                                          (100, 64), (10,), (64, 10)]
+    (launch,) = mm_ops.plan([_spec(s) for s in leaves])
+    assert launch.dtype == torch.float32
+    assert [lp.index for lp in launch.leaves] == list(range(6))
+    assert [lp.vec for lp in launch.leaves] == [4, 4, 4, 4, 2, 2]
+    assert [lp.chunk for lp in launch.leaves] == [4] * 6
+    sizes = [int(np.prod(s)) for s in leaves]
+    tiles = [-(-(size // lp.vec) // mm_ops.THREADS) * 3
+             for size, lp in zip(sizes, launch.leaves)]
+    assert [lp.tiles for lp in launch.leaves] == tiles == [3, 462, 3, 39,
+                                                           3, 9]
+    assert [lp.tile_begin for lp in launch.leaves] == list(
+        np.cumsum([0] + tiles[:-1]))
+    assert launch.tiles == sum(tiles) == 519
+
+
+def test_masked_merge_plan_splits_past_max_leaves_and_by_dtype():
+    """33 leaves of one dtype give two launches (32 + 1), each with its own
+    tile prefix sums; a second dtype takes launches of its own, in the
+    order the dtypes first appear; an empty leaf takes none."""
+    specs = [_spec((7 + i, 12)) for i in range(33)]
+    first, second = mm_ops.plan(specs)
+    assert len(first.leaves) == mm_ops.MAX_LEAVES == 32
+    assert [lp.index for lp in second.leaves] == [32]
+    for launch in (first, second):
+        begin = 0
+        for lp in launch.leaves:
+            assert lp.tile_begin == begin
+            begin += lp.tiles
+        assert launch.tiles == begin
+    mixed = [_spec((64, 10)), _spec((8, 16), dtype=torch.bfloat16),
+             _spec((5,), n=0), _spec((3, 3)),
+             _spec((4, 4), dtype=torch.bfloat16)]
+    f32, b16 = mm_ops.plan(mixed)
+    assert (f32.dtype, [lp.index for lp in f32.leaves]) == (torch.float32,
+                                                            [0, 3])
+    assert (b16.dtype, [lp.index for lp in b16.leaves]) == (torch.bfloat16,
+                                                            [1, 4])
+
+
+@pytest.mark.parametrize("spec,vec,chunk", [
+    (_spec((784, 100)), 4, 4),
+    (_spec((784, 100), dtype=torch.bfloat16), 4, 4),
+    (_spec((10,)), 2, 4),
+    (_spec((64, 10)), 2, 4),
+    (_spec((8, 7), dtype=torch.bfloat16), 1, 4),
+    (_spec((33,)), 1, 4),
+    (_spec((784, 100), mask_addr=(4 << 20) + 4), 1, 4),
+    (_spec((784, 100), mask_addr=(4 << 20) + 8), 2, 4),
+    (_spec((784, 100), addrs=(1 << 20, (2 << 20) + 4, 3 << 20)), 1, 4),
+    (_spec((784, 100), ones=True), 4, 4),
+    (_spec((784, 100), ones=True, mask_addr=(4 << 20) + 4), 4, 4),
+    (_spec((6, 7, 5), axis=0), 1, 4),
+    (_spec((9, 4), axis=0, n=18), 4, 4),
+    (_spec((9, 4), axis=0, n=6), 4, 3),
+    (_spec((3, 3, 512, 512), n=16, dtype=torch.bfloat16), 8, 4),
+    (_spec((1024, 500), n=16, dtype=torch.bfloat16), 4, 4),
+    (_spec((1024, 500), n=1), 4, 1),
+])
+def test_masked_merge_leaf_plan_vector_width_and_chunks(spec, vec, chunk):
+    """V is the largest width up to 16 bytes that divides C (channel axis
+    last) or B (channel axis before others) and keeps G, L, the output and,
+    channel last, the mask aligned (an all-ones mask is one value a client
+    and never limits it); the clients go in the fewest equal chunks of at
+    most CLIENTS."""
+    lp = mm_ops.leaf_plan(spec)
+    assert (lp.vec, lp.chunk) == (vec, chunk)
+    a, c, b = spec.acb
+    assert (b if b > 1 else c) % lp.vec == 0
+    assert lp.chunk <= mm_ops.CLIENTS
+    chunks = -(-spec.n // lp.chunk)
+    assert lp.tiles == -(-(a * c * b // lp.vec) // mm_ops.THREADS) * chunks
+
+
+def test_masked_merge_plan_rejects_a_leaf_of_2_31_elements():
+    """32-bit indices: a client leaf of 2**31 elements or more is refused
+    (2**31 - 1 is taken)."""
+    with pytest.raises(ValueError, match="fewer than"):
+        mm_ops.plan([_spec((1 << 16, 1 << 15))])
+    with pytest.raises(ValueError, match="fewer than"):
+        mm_ops.plan([_spec((8,)), _spec((1 << 31,), n=1)])
+    (launch,) = mm_ops.plan([_spec(((1 << 31) - 1,), n=1)])
+    assert launch.leaves[0].vec == 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 10, 64, 100, 257, 513, 4097,
+                               (1 << 20) + 1, (1 << 30) + 3, (1 << 31) - 1])
+def test_masked_merge_divmod_constants_divide_every_31_bit_index(d):
+    """The kernel's channel divmod: (x * mul) >> (32 + shr) == x // d for
+    x < 2**31, at the edges and at seeded random x."""
+    mul, shr = mm_ops.divmod_constants(d)
+    assert 0 <= mul < 1 << 32 and 0 <= shr <= 31
+    rng = np.random.default_rng(d % 1000)
+    xs = [0, 1, d - 1, d, d + 1, 2 * d - 1, (1 << 31) - 1, (1 << 31) - 2]
+    xs += [int(x) for x in rng.integers(0, 1 << 31, 200)]
+    for x in xs:
+        if 0 <= x < 1 << 31:
+            assert (x if d == 1 else (x * mul) >> 32 >> shr) == x // d
+
+
+@pytest.mark.parametrize("case", ["tree", "dtype", "contiguity", "device",
+                                  "devices"])
+def test_masked_merge_group_rejects_what_the_kernel_does_not_take(case):
+    """The group entry checks every leaf as the single-leaf entry does, and
+    that the group lies on one device."""
+    from repro_torch.core import aggregation
+    x, m = torch.ones(2, 4, 3), torch.ones(2, 1, 3)
+    good = ([x[0], x[0, 0]], [x, x[:, 0].contiguous()], [m, m[:, 0]])
+    assert len(mm_ops.masked_merge_many(*good)) == 2
+    g, l, ms = (list(t) for t in good)
+    if case == "tree":
+        with pytest.raises(ValueError, match="masks"):
+            mm_ops.masked_merge_many(g, l, ms[:1])
+        with pytest.raises(ValueError, match="do not fit"):
+            mm_ops.masked_merge_many([g[1], g[0]], l, ms)
+        with pytest.raises(ValueError, match="structure"):
+            aggregation.client_update_sparse({"w": g[0]}, {"v": l[0]},
+                                             {"w": ms[0]})
+    elif case == "dtype":
+        with pytest.raises(TypeError):
+            mm_ops.masked_merge_many(g, l, [ms[0], ms[1].bfloat16()])
+        with pytest.raises(TypeError):
+            mm_ops.masked_merge_many([g[0], g[1].double()],
+                                     [l[0], l[1].double()],
+                                     [ms[0], ms[1].double()])
+    elif case == "contiguity":
+        bad = torch.ones(2, 3, 4).transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            mm_ops.masked_merge_many(g, [l[0], bad[:, 0]], ms)
+        with pytest.raises(ValueError, match="contiguous"):
+            mm_ops.masked_merge_many([g[0], bad[0, 0]], l, ms)
+    elif case == "device":
+        with pytest.raises(ValueError, match="no kernel for device"):
+            mm_ops.masked_merge_many(
+                *([t.to("meta") for t in ts] for ts in (g, l, ms)))
+    else:
+        with pytest.raises(ValueError, match="different devices"):
+            mm_ops.masked_merge_many(g, [l[0], l[1].to("meta")], ms)
+
+
+def test_masked_merge_group_on_cpu_counts_no_launch():
+    """CPU tensors take the plain version leaf by leaf: no launch and no
+    leaf count moves."""
+    before, leaves = launch_counts(), mm_ops.leaf_counts()
+    x = torch.ones(2, 4, 3)
+    mm_ops.masked_merge_many([x[0], x[0]], [x, x], [torch.ones(2, 1, 3)] * 2)
+    assert launch_counts() == before and mm_ops.leaf_counts() == leaves
 
 
 def test_cpu_tensors_never_count_as_launches():
