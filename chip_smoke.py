@@ -7,7 +7,11 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 
 1. the card: its name and power limit, as ``nvidia-smi`` reports them;
 2. build the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc call,
-   sm_90a) and print the build seconds;
+   sm_90a) and print the build seconds; then the PRNG: the threefry twin
+   on the card against Random123's vectors and against constants of
+   ``jax.random`` (keys, split, fold_in, bits, uniforms at the
+   quickstart's (10, 784, 100), permutations of 600 and 10**4; normal
+   within NORMAL_ULPS);
 3. hold each kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the MLP's leaves (N=10), at ragged edges and at large
    leaves (a VGG conv and CNN2's fc), with the tolerances of the CPU tests
@@ -22,7 +26,9 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    row: the mean mode against the partials plus the eager finish.
    Eq. (5) also as the engine calls it: the MLP's six leaves in one call
    of the grouped merge, which must launch once and equal the plain
-   version leaf by leaf, timed beside the six single-leaf launches.
+   version leaf by leaf, timed beside the six single-leaf launches; and
+   one bf16 client leaf of 2**31 + 65536 elements (several descriptors,
+   one launch) equal to ``torch.where`` and the plain version.
    The flash-attention kernels are held the same way (3e-5 fp32, 2e-2
    bf16, and in bf16 every output row within max|want|/64) over the CPU
    tests' sweep (causal, window 24, non-causal), odd lengths and head
@@ -37,14 +43,20 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    window through its memory-efficient backend with an additive band
    mask) are timed in bf16;
 4. one engine step on the card against the same step on the CPU (the
-   plain versions), for a FedDD round, a full FedDD round and FedAvg;
+   plain versions), for a FedDD round, a full FedDD round and FedAvg; and
+   one with a round key, CommConfig(auto, 8) and random masks (densities,
+   masks, wire overhead and int8-decoded uploads equal);
 5. the FedDD path: the quickstart configuration (synthetic MNIST
    6000/1500, 10 clients, the paper's MLP, A_server=0.6, h=5, lr 0.1) for
    5 FedDD rounds and then 3 FedAvg rounds on cuda, with every kernel's
    launch count set to 0 just before and read just after: the three FedDD
    kernels launch (``sparse_agg`` in its mean mode only, ``masked_merge``
    once per partial FedDD round for all six leaves), flash attention
-   does not;
+   does not; then this slice's path, the same configuration in
+   CommConfig(auto, 8) for 5 FedDD rounds (wire bytes under the raw
+   bytes from round 2, accuracy >= 0.85 after round 5), and once more
+   with random masks (no importance launch), each with the counts set
+   to 0 just before and read just after;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -58,7 +70,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    (asserted in fp32, reported in bf16).
 
 The line before the last is a JSON object with one entry per kernel (the
-launches of its own path: FedDD for the three FedDD kernels, the prefill
+launches of its own path: the auto/8 FedDD run for the three FedDD
+kernels, with the default-comm and random runs' beside them, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
 beside them; ``masked_merge``'s at fc0, with the grouped launch of the
@@ -92,6 +105,13 @@ RAGGED = [(7, (257, 513)), (3, (3, 3)), (5, (1000, 7)), (2, (33,))]
 # the full-width VGG conv of the Table 3 fleet, and CNN2's first fc
 LARGE = [(16, (3, 3, 512, 512)), (16, (1024, 500))]
 MAIN_SHAPE = (MLP_N, (784, 100))     # fc0.w, the main path's largest leaf
+# one bf16 client leaf past 2**31 elements: the merge takes it in several
+# descriptors (ops.split_leaf); the plain version checks it in row chunks
+BIG_MERGE = (32769, 65536)
+BIG_MERGE_ROWS = 2048
+COMM = dict(codec="auto", qbits=8)   # the slice's wire format
+COMM_ROUNDS = 5
+COMM_MIN_ACC = 0.85     # after round 5; the port's CPU run reaches 0.917
 SLEEP_CYCLES = 40_000_000            # ~20 ms of device time ahead of a burst
 TIMED_LAUNCHES = 30
 
@@ -137,6 +157,241 @@ ROUTE_SEQ = 8192                          # kernel vs plain-attention route
 CONSIST_BATCH, CONSIST_T = 2, 64
 CONSIST_TOL_FP32 = 1e-4                   # of the largest |logit|
 ROUTE_TOL = 5e-2                          # bf16, of the largest |logit|
+
+
+# ---- the PRNG phase: known answers the card's threefry must reproduce.
+# Random123's threefry2x32-20 vectors ((key), (counter), (output)); the
+# rest is PRNG_RECIPE's output under jax.random (tests/test_torch_prng.py
+# recomputes it with jax and holds these constants to it).
+THREEFRY_KAT = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0))]
+PRNG_SEEDS = (0, 1, 2 ** 31 - 1, 2 ** 32 - 1)
+PRNG_FOLDS = (0, 7, 10_003, 20_009)
+NORMAL_ULPS = 8          # normal: XLA's log1p and multiply-adds vs torch's
+# float32 bits of jax.random.normal(PRNGKey(0), (16,))
+NORMAL_BITS = (1070576317, 1073847792, -1092747241, -1113521630, 1043616044,
+               -1082598697, -1090676788, 1056775985, 1059721932, -1082966550,
+               1074494829, -1074118048, 1052219029, 1042388236, 1067677571,
+               1069635305)
+PRNG_VECTORS = {'seed0': {'key': [0, 0],
+                          'split2': [1797259609, 2579123966, 928981903, 3453687069],
+                          'split3': [1797259609, 2579123966, 928981903, 3453687069,
+                                     4146024105, 2718843009],
+                          'fold': [[1797259609, 2579123966], [2716826189, 292468403],
+                                   [1412222969, 2821336035], [3891080679, 1795844587]],
+                          'bits': [4070199207, 4202968722, 1427181096, 2012915765,
+                                   2447653815, 710830403, 1332275837, 2961296638,
+                                   3207338339, 734502358, 4232062733, 108588429,
+                                   2748958889, 2416739154, 3862094091],
+                          'uniform': [1064475214, 1064993846, 1051337244, 1055913296,
+                                      1058137146, 1042905504, 1050595796],
+                          'perm': [[0], [0, 1], [0, 1, 4, 3, 2],
+                                   [0, 1, 19, 31, 8, 12, 16, 5, 24, 6, 20, 18, 4, 13, 30,
+                                    25, 28, 14, 3, 21, 32, 10, 17, 29, 2, 7, 15, 26, 23,
+                                    11, 22, 27, 9]]},
+                'seed1': {'key': [0, 1],
+                          'split2': [507451445, 1853169794, 1948878966, 4237131848],
+                          'split3': [507451445, 1853169794, 1948878966, 4237131848,
+                                     2441914641, 3819641963],
+                          'fold': [[507451445, 1853169794], [954670714, 4016809582],
+                                   [2261852804, 1758459451], [242816504, 2441224810]],
+                          'bits': [1883912375, 2292451390, 1915204986, 1882898417,
+                                   3854144420, 2400655036, 4225756532, 3616323604,
+                                   1656910982, 2748596072, 1028623903, 1730928758,
+                                   3487851715, 3367688912, 3491717864],
+                          'uniform': [1054905456, 1057530888, 1055149928, 1054897532,
+                                      1063631250, 1057953558, 1065082860],
+                          'perm': [[0], [0, 1], [3, 2, 0, 1, 4],
+                                   [19, 30, 7, 6, 23, 16, 21, 3, 26, 32, 2, 20, 0, 8, 22,
+                                    13, 29, 18, 24, 1, 5, 27, 10, 15, 17, 28, 9, 4, 12,
+                                    14, 31, 25, 11]]},
+                'seed2147483647': {'key': [0, 2147483647],
+                                   'split2': [3894554595, 3657610310, 2391852627,
+                                              3342111533],
+                                   'split3': [3894554595, 3657610310, 2391852627,
+                                              3342111533, 1746298583, 1015193934],
+                                   'fold': [[3894554595, 3657610310],
+                                            [2576940018, 2245239479],
+                                            [2045989122, 164528802],
+                                            [871037108, 2733670316]],
+                                   'bits': [840997797, 1235506558, 1419036569, 1650994062,
+                                            3053628459, 3320296850, 38724216, 474700101,
+                                            3745550650, 3820039427, 664327823, 2424924220,
+                                            3649996120, 1406378204, 853885788],
+                                   'uniform': [1044939368, 1049839784, 1051273612,
+                                               1053085780, 1060504236, 1061545908,
+                                               1007925376],
+                                   'perm': [[0], [1, 0], [4, 2, 3, 1, 0],
+                                            [29, 4, 6, 11, 14, 21, 15, 26, 20, 18, 22, 28,
+                                             17, 32, 30, 16, 9, 7, 2, 5, 23, 19, 3, 27, 1,
+                                             0, 13, 31, 12, 10, 25, 24, 8]]},
+                'seed4294967295': {'key': [0, 4294967295],
+                                   'split2': [2973345818, 897673333, 3461607691,
+                                              1112781462],
+                                   'split3': [2973345818, 897673333, 3461607691,
+                                              1112781462, 3122495753, 3444035234],
+                                   'fold': [[2973345818, 897673333],
+                                            [614485078, 1000807227],
+                                            [3737653371, 337070578],
+                                            [1286265749, 3436378525]],
+                                   'bits': [2226700399, 2348827549, 2002407339,
+                                            3973470413, 1347664280, 1591134625, 119674969,
+                                            520574829, 827288690, 1669566182, 2875948738,
+                                            2474516107, 4144159968, 4147057620,
+                                            371840038],
+                                   'uniform': [1057274048, 1057751106, 1055831196,
+                                               1064097368, 1050716016, 1052618128,
+                                               1021592320],
+                                   'perm': [[0], [0, 1], [2, 0, 1, 4, 3],
+                                            [20, 8, 12, 5, 15, 2, 30, 9, 11, 10, 14, 0,
+                                             19, 29, 16, 24, 32, 31, 1, 21, 17, 22, 7, 23,
+                                             13, 27, 4, 6, 28, 26, 3, 18, 25]]},
+                'quickstart': {'round_key': [928981903, 3453687069],
+                               'qkeys': [1477084122, 63226778, 1635551788, 1058746241,
+                                         1558139299, 10459743, 1984345098, 622127814,
+                                         2802637759, 238957769, 2943490008, 2035243433,
+                                         2749201110, 1719685005, 3328108551, 2587502283,
+                                         2499374099, 3235229803, 3548863884, 764595689],
+                               'uniform_10x784x100': [825354843404338,
+                                                      9942888416281150682, 1046248784,
+                                                      1056754104, 983458816, 1057904700,
+                                                      1017332352, 1012666368, 1051795848,
+                                                      1057387272],
+                               'scores_10x100': [1052958494066, 527043617627824],
+                               'perm_600': [179700, 53802459, 492, 285, 97, 136, 329, 434,
+                                            215, 396],
+                               'perm_10000': [49995000, 251170514090, 5553, 6802, 4799,
+                                              1475, 3976, 5410, 5782, 6247]}}
+
+
+def digest(values) -> list:
+    """[sum, index-weighted sum] of 32-bit words (uint64 wrap-around):
+    an exact fingerprint of a large draw, order included."""
+    import numpy as np
+    v = np.asarray(values).reshape(-1).astype(np.uint64)
+    w = np.arange(1, v.size + 1, dtype=np.uint64)
+    return [int(np.sum(v, dtype=np.uint64)),
+            int(np.sum(v * w, dtype=np.uint64))]
+
+
+def prng_recipe(api) -> dict:
+    """Keys, bits, uniforms and permutations at a few keys and at the
+    quickstart's shapes, through ``api`` (key, split, fold_in, bits,
+    uniform, permutation; stacked keys (K, 2) draw (K, *shape)), as
+    JSON-able ints: keys whole, large draws by :func:`digest` (float32
+    uniforms by their bits) and their first and last values."""
+    import numpy as np
+
+    def words(x):
+        return [int(v) for v in np.asarray(x).reshape(-1)]
+
+    def fbits(u):
+        return np.asarray(u, np.float32).view(np.uint32)
+
+    out = {}
+    for s in PRNG_SEEDS:
+        k = api.key(s)
+        out[f"seed{s}"] = dict(
+            key=words(k), split2=words(api.split(k, 2)),
+            split3=words(api.split(k, 3)),
+            fold=[words(api.fold_in(k, d)) for d in PRNG_FOLDS],
+            bits=words(api.bits(k[None], (3, 5))),
+            uniform=words(fbits(api.uniform(k[None], (7,)))),
+            perm=[words(api.permutation(k, n)) for n in (1, 2, 5, 33)])
+    rk = api.split(api.key(0), 2)[1]
+    ids = np.arange(10)
+    # the quickstart's round 1: int8 noise of fc0.w (leaf 1 in flatten
+    # order) for its 10 clients, 'random' scores of fc0.w, client 3's
+    # epoch-0 shuffle of 600 samples, and a 10**4 shuffle (two rounds)
+    qkeys = api.fold_in(api.fold_in(rk, 20_000 + ids), 1)
+    u = fbits(api.uniform(qkeys, (784, 100)))
+    mkeys = api.fold_in(api.fold_in(rk, 10_000 + ids), 1)
+    scores = fbits(api.uniform(mkeys, (100,)))
+    perm = api.permutation(api.fold_in(api.fold_in(rk, 3), 0), 600)
+    big = api.permutation(rk, 10_000)
+    out["quickstart"] = dict(
+        round_key=words(rk), qkeys=words(qkeys),
+        uniform_10x784x100=digest(u) + words(u.reshape(-1)[:4])
+        + words(u.reshape(-1)[-4:]),
+        scores_10x100=digest(scores),
+        perm_600=digest(perm) + words(perm[:8]),
+        perm_10000=digest(big) + words(big[:8]))
+    return out
+
+
+class PortPRNG:
+    """:func:`prng_recipe`'s api over ``repro_torch.prng``: keys on the
+    host, bulk draws on ``dev``, results back as numpy."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def key(self, seed):
+        from repro_torch import prng
+        return prng.PRNGKey(seed)
+
+    def split(self, key, num):
+        from repro_torch import prng
+        return prng.split(key, num)
+
+    def fold_in(self, key, data):
+        from repro_torch import prng
+        return prng.fold_in(key, data)
+
+    def bits(self, keys, shape):
+        from repro_torch import prng
+        return prng.random_bits(keys, shape, self.dev).cpu().numpy()
+
+    def uniform(self, keys, shape):
+        from repro_torch import prng
+        return prng.uniform(keys, shape, self.dev).cpu().numpy()
+
+    def permutation(self, key, n):
+        from repro_torch import prng
+        return prng.permutation(key, n, self.dev).cpu().numpy()
+
+
+def prng_phase(dev="cuda") -> dict:
+    """The PRNG phase: Random123's vectors through the hash on ``dev``,
+    then :func:`prng_recipe` through the port with its bulk draws on
+    ``dev``, equal to the constants; ``normal`` within NORMAL_ULPS of
+    jax's (its first values under PRNGKey(0), also constants)."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+
+    for key, ctr, want in THREEFRY_KAT:
+        got = prng.threefry2x32(np.asarray(key, np.uint32), ctr[0], ctr[1],
+                                device=dev)
+        got = tuple(int(t.item()) for t in got)
+        if got != want:
+            raise AssertionError(f"threefry2x32{key, ctr} on {dev}: "
+                                 f"{got} != {want}")
+    t0 = time.perf_counter()
+    got = prng_recipe(PortPRNG(dev))
+    secs = time.perf_counter() - t0
+    for name, want in PRNG_VECTORS.items():
+        if got[name] != want:
+            bad = [k for k in want if got[name][k] != want[k]]
+            raise AssertionError(f"PRNG vectors {name} {bad} differ on "
+                                 f"{dev}")
+    normal = prng.normal(prng.PRNGKey(0), (len(NORMAL_BITS),), dev)
+    bits = normal.cpu().numpy().view(np.int32).astype(np.int64)
+    ulps = int(np.abs(bits - np.asarray(NORMAL_BITS, np.int64)).max())
+    if ulps > NORMAL_ULPS:
+        raise AssertionError(f"normal on {dev} is {ulps} ulps from jax's")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    print(f"  PRNG on {dev}: {len(THREEFRY_KAT)} Random123 vectors, "
+          f"{len(PRNG_VECTORS)} recipe groups equal to jax.random (keys, "
+          f"split, fold_in, bits, uniform (10, 784, 100), permutations of "
+          f"600 and 10**4) in {secs:.2f} s; normal within {ulps} ulps",
+          flush=True)
+    return dict(kat=len(THREEFRY_KAT), groups=len(PRNG_VECTORS),
+                recipe_s=secs, normal_max_ulps=ulps)
 
 
 def card_line() -> str:
@@ -432,6 +687,67 @@ def merge_group_check(card: Card, flush, dtype, dev, gen, timer) -> dict:
           f"({rec['per_leaf_burst_ms'] * 1e3:.1f} us back to back), plain "
           f"{rec['plain_ms'] * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us "
           f"({bound_by})", flush=True)
+    return rec
+
+
+def big_merge_check(card: Card, flush, dev="cuda", timer=time_ms) -> dict:
+    """Phase 3, Eq. (5) past 32-bit indices: one bf16 client leaf of
+    BIG_MERGE (2,147,549,184 elements) in one launch of several
+    descriptors, equal to ``torch.where(M > 0, G, L)`` and to the plain
+    version (in chunks of BIG_MERGE_ROWS rows) exactly; timed beside
+    ``torch.where``.  Its 13 GB are freed before it returns."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.masked_merge.ref import masked_merge_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, c = BIG_MERGE
+    g = torch.randn(BIG_MERGE, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    loc = torch.randn((1,) + BIG_MERGE, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    m = (torch.rand((1, 1, c), generator=gen, device=dev) > 0.5).to(
+        torch.bfloat16)
+    before = launch_counts()["masked_merge"]
+    out = merge_ops.masked_merge(g, loc, m)
+    _sync(dev)
+    if torch.device(dev).type == "cuda" and \
+            launch_counts()["masked_merge"] != before + 1:
+        raise AssertionError("the 2**31-element merge did not launch once")
+    pieces = len(merge_ops.split_leaf((rows, c, 1)))
+    take = m > 0
+    if not torch.equal(out, torch.where(take, g[None], loc)):
+        raise AssertionError(f"masked_merge at {BIG_MERGE} bf16 differs "
+                             f"from torch.where")
+    for r0 in range(0, rows, BIG_MERGE_ROWS):
+        r1 = min(rows, r0 + BIG_MERGE_ROWS)
+        want = masked_merge_ref(g[r0:r1].reshape(-1, c, 1),
+                                loc[:, r0:r1].reshape(1, -1, c, 1),
+                                m.view(1, c))
+        if not torch.equal(out[:, r0:r1], want.view(1, r1 - r0, c)):
+            raise AssertionError(f"masked_merge at {BIG_MERGE} rows "
+                                 f"{r0}:{r1} differs from the plain version")
+    del out, want
+    elems = rows * c
+    nbytes = 3 * elems * 2 + c * 2
+    bound_ms, bound_by = card.bound(nbytes, 4 * elems)
+    rec = dict(kernel="masked_merge_2_31", shape=[1, rows, c],
+               dtype="bfloat16", descriptors=pieces,
+               ms=timer(lambda: merge_ops.masked_merge(g, loc, m), flush,
+                        LONG_TIMED),
+               plain_ms=None, plain="checked in row chunks, not timed",
+               library_ms=timer(lambda: torch.where(take, g[None], loc),
+                                flush, LONG_TIMED),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    print(f"  masked_merge {(1, rows, c)} bfloat16 ({elems} elements a "
+          f"client, {pieces} descriptors): one launch, equal to torch.where"
+          f" and to the plain version; kernel {rec['ms']:.3f} ms  "
+          f"torch.where {rec['library_ms']:.3f} ms  bound {bound_ms:.3f} ms"
+          f" ({bound_by})", flush=True)
+    del g, loc, m, take
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -737,6 +1053,156 @@ def main_path(dev="cuda") -> dict:
                 for r in res.history])
 
 
+def comm_engine_check(dev="cuda") -> dict:
+    """The comm engine check: one engine step with a round key,
+    CommConfig(auto, 8) and scheme 'random' on ``dev`` and on the CPU with
+    the same inputs: densities, masks, the wire overhead and the int8
+    decoded uploads equal, parameters within 1e-5.  The rates reach 0.97,
+    where the index codec wins some leaves, so the overhead compared
+    depends on the masks (asserted); each codec's overhead of the masks
+    is compared too."""
+    import numpy as np
+    import torch
+    from repro_torch import prng, tree
+    from repro_torch.comm import CommConfig, codecs, quantize
+    from repro_torch.core import selection
+    from repro_torch.core.round_engine import (BatchedRoundEngine,
+                                               stack_pytrees)
+    from repro_torch.fl import MLP_SPEC, init_cnn_spec
+
+    rng = np.random.default_rng(3)
+    gp = init_cnn_spec(MLP_SPEC, seed=2, device="cpu")
+    old = stack_pytrees([tree.tree_map(
+        lambda x: x + torch.from_numpy(
+            rng.normal(0, 0.05, x.shape).astype(np.float32)), gp)
+        for _ in range(MLP_N)])
+    new = tree.tree_map(lambda x: x + torch.from_numpy(
+        rng.normal(0, 0.02, x.shape).astype(np.float32)), old)
+    rates = np.concatenate([rng.uniform(0.0, 0.8, MLP_N - 3),
+                            [0.9, 0.95, 0.97]])
+    weights = rng.integers(100, 1000, MLP_N).astype(float)
+    rk = prng.split(prng.PRNGKey(7))[1]
+    sel = selection.SelectionConfig(scheme="random")
+    engine = BatchedRoundEngine(sel, CommConfig(**COMM))
+    on_dev = lambda t: tree.tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    want = engine.step(old, new, gp, rates, weights, rk, full_round=False)
+    got = engine.step(on_dev(old), on_dev(new), on_dev(gp), rates, weights,
+                      rk, full_round=False)
+    checks = [("densities", got.densities, want.densities),
+              ("wire_overhead", got.wire_overhead, want.wire_overhead)]
+    wm, _ = selection.build_masks_batched(old, new, rates, config=sel,
+                                          rng=rk)
+    gm, _ = selection.build_masks_batched(on_dev(old), on_dev(new), rates,
+                                          config=sel, rng=rk)
+    checks += [("masks", a, b) for a, b in zip(tree.leaves(gm),
+                                               tree.leaves(wm))]
+    per_codec = {}
+    for codec in ("bitmask", "index", "auto"):
+        cc = CommConfig(codec=codec, qbits=COMM["qbits"])
+        per_codec[codec] = codecs.mask_overhead_bytes_stacked(wm, new, cc)
+        checks.append((f"{codec} overhead", codecs.mask_overhead_bytes_stacked(
+            gm, on_dev(new), cc), per_codec[codec]))
+    if len(set(want.wire_overhead.tolist())) < 2 or torch.equal(
+            per_codec["auto"], per_codec["bitmask"]):
+        raise AssertionError("comm engine step: the wire overhead "
+                             f"{want.wire_overhead.tolist()} does not "
+                             "depend on the masks")
+    checks += [("int8 decoded", a, b) for a, b in zip(
+        tree.leaves(quantize.quantize_dequantize_stacked(on_dev(new), rk,
+                                                         COMM["qbits"])),
+        tree.leaves(quantize.quantize_dequantize_stacked(new, rk,
+                                                         COMM["qbits"])))]
+    for name, a, b in checks:
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"comm engine step: {name} on {dev} "
+                                 f"differ from the CPU's")
+    for part in ("global_params", "client_params"):
+        for g, w in zip(tree.leaves(getattr(got, part)),
+                        tree.leaves(getattr(want, part))):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    print(f"  comm engine step ({COMM['codec']}/{COMM['qbits']}, random "
+          f"masks): {dev} equals cpu (densities, masks, wire overhead "
+          f"{want.wire_overhead.tolist()}, index codec "
+          f"{per_codec['index'].tolist()}, int8 values; params within "
+          f"1e-5)", flush=True)
+    return dict(wire_overhead=want.wire_overhead.tolist(),
+                overhead_by_codec={c: v.tolist()
+                                   for c, v in per_codec.items()},
+                densities=want.densities.tolist())
+
+
+def comm_run(dev="cuda") -> dict:
+    """The slice's path: the quickstart configuration in CommConfig(auto,
+    8), COMM_ROUNDS FedDD rounds on ``dev`` with the counts set to 0 just
+    before and read just after (the three FedDD kernels launch; sparse_agg
+    in mean mode on the int8-decoded uploads; Eq. (5) once a partial
+    round), finite losses, wire bytes under the raw bytes from round 2 and
+    accuracy >= COMM_MIN_ACC after the last round; then the same with
+    scheme 'random', which launches sparse_agg and masked_merge and no
+    importance."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.comm import CommConfig
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.quickstart import FEDDD_H, run
+
+    out = {}
+    for selection in ("feddd", "random"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, _, _ = run(COMM_ROUNDS, fedavg_rounds=0,
+                        comm=CommConfig(**COMM), selection=selection,
+                        device=dev)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        modes = agg_ops.mode_counts()
+        merged = merge_ops.leaf_counts()
+        for r in res.history:
+            print(f"  {COMM['codec']}/{COMM['qbits']} {selection:6s} round "
+                  f"{r.round}  acc={r.metrics['accuracy']:.4f}  "
+                  f"loss={r.mean_loss:.5f}  uploaded={r.uploaded_bytes:.0f}"
+                  f" B  wire={r.wire_bytes:.0f} B  "
+                  f"host={r.host_wall_time:.4f}s", flush=True)
+            if not math.isfinite(r.mean_loss):
+                raise AssertionError(f"{selection} round {r.round}: loss "
+                                     f"{r.mean_loss}")
+            if r.round > 1 and not r.wire_bytes < r.uploaded_bytes:
+                raise AssertionError(f"{selection} round {r.round}: wire "
+                                     f"{r.wire_bytes} >= uploaded "
+                                     f"{r.uploaded_bytes}")
+            if r.survivors != r.participants:
+                raise AssertionError("survivors != participants")
+        partial = sum(r.round % FEDDD_H != 0 for r in res.history)
+        want_imp = 6 * COMM_ROUNDS if selection == "feddd" else 0
+        if (counts["importance"] != want_imp
+                or counts["sparse_agg"] != 6 * COMM_ROUNDS
+                or counts["masked_merge"] != partial
+                or counts["flash_attention"] != 0
+                or modes != {"partials": 0, "mean": 6 * COMM_ROUNDS}
+                or merged != {6: partial}):
+            raise AssertionError(f"{selection} launches {counts}, modes "
+                                 f"{modes}, merges {merged}")
+        acc = res.history[-1].metrics["accuracy"]
+        print(f"  {COMM['codec']}/{COMM['qbits']} {selection}: {wall:.2f} s,"
+              f" launches {counts}; accuracy after round {COMM_ROUNDS} "
+              f"{acc:.4f}", flush=True)
+        if selection == "feddd" and acc < COMM_MIN_ACC:
+            raise AssertionError(f"accuracy after round {COMM_ROUNDS} is "
+                                 f"{acc} < {COMM_MIN_ACC}")
+        out[selection] = dict(
+            launches=counts, sparse_agg_modes=modes, merge_leaf_counts=merged,
+            wall_s=wall, accuracy=acc,
+            steady_host_s=float(np.median([r.host_wall_time
+                                           for r in res.history[1:]])),
+            rounds=[dict(round=r.round, acc=r.metrics["accuracy"],
+                         loss=r.mean_loss, uploaded_bytes=r.uploaded_bytes,
+                         wire_bytes=r.wire_bytes,
+                         host_wall_time=r.host_wall_time)
+                    for r in res.history])
+    return out
+
+
 def _sync(dev) -> None:
     import torch
     if torch.device(dev).type == "cuda":
@@ -928,14 +1394,19 @@ def main(argv=None) -> int:
                     or "Compiling entry function" in ln):
                 print(f"  {ln.strip()}")
 
+        prng_out = prng_phase()
         flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
         records: list = []
         checks = kernel_checks(card, flush, records)
+        big = big_merge_check(card, flush)
+        records.append(big)
         flash = flash_checks(card, flush, records)
         del flush
         torch.cuda.empty_cache()
         engine_check()
+        comm_check = comm_engine_check()
         path_out = main_path()
+        comm_out = comm_run()
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -944,7 +1415,9 @@ def main(argv=None) -> int:
 
     checks["main"]["flash_attention"] = flash["main"]
     checks["max_abs_err"]["flash_attention"] = flash["max_abs_err"]
-    launches = dict(path_out["launches"])
+    # the FedDD kernels' launches on this slice's path: the quickstart in
+    # CommConfig(auto, 8) (the default-comm and random runs beside them)
+    launches = dict(comm_out["feddd"]["launches"])
     launches["flash_attention"] = serve_out["prefill_launches"][
         "flash_attention"]
     line_kernels = []
@@ -953,6 +1426,8 @@ def main(argv=None) -> int:
         line_kernels.append(dict(
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=launches[name],
+            path=("prefill" if name == "flash_attention" else
+                  f"quickstart {COMM['codec']}/{COMM['qbits']}"),
             max_abs_err=checks["max_abs_err"][name], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -964,15 +1439,25 @@ def main(argv=None) -> int:
                 route="sm90", launches=serve_out["prefill_routes"])
         if name == "sparse_agg":
             line_kernels[-1].update(
-                mode=rec["mode"], modes=path_out["sparse_agg_modes"],
+                mode=rec["mode"], modes=comm_out["feddd"]["sparse_agg_modes"],
+                modes_default_comm=path_out["sparse_agg_modes"],
                 partials_ms=rec["partials_ms"],
                 partials_bound_ms=rec["partials_bound_ms"],
                 unfused_eq4_ms=rec["unfused_ms"])
+        if name in FEDDD_KERNELS:
+            line_kernels[-1].update(
+                launches_default_comm=path_out["launches"][name],
+                launches_random=comm_out["random"]["launches"][name])
         if name == "masked_merge":
             group = checks["main"]["masked_merge_group"]
             line_kernels[-1].update(
+                big_leaf=dict(shape=big["shape"], dtype=big["dtype"],
+                              descriptors=big["descriptors"], ms=big["ms"],
+                              library_ms=big["library_ms"],
+                              bound_ms=big["bound_ms"]),
                 mode="grouped", leaves=group["leaves"],
-                leaf_counts=path_out["merge_leaf_counts"],
+                leaf_counts=comm_out["feddd"]["merge_leaf_counts"],
+                leaf_counts_default_comm=path_out["merge_leaf_counts"],
                 grouped_ms=group["ms"], grouped_bound_ms=group["bound_ms"],
                 grouped_plain_ms=group["plain_ms"],
                 per_leaf_sum_ms=group["per_leaf_sum_ms"],
@@ -980,8 +1465,14 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=line, build_s=secs, kernels=records, main_path=path_out,
+            card=line, build_s=secs, prng=prng_out, kernels=records,
+            comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             serving=serve_out, summary=line_kernels), indent=1))
+    steady = [r["host_wall_time"] for r in path_out["rounds"]
+              if r["scheme"] == "feddd" and r["round"] > 1]
+    print(f"host s per steady FedDD round: default comm "
+          f"{statistics.median(steady):.4f}, {COMM['codec']}/{COMM['qbits']}"
+          f" {comm_out['feddd']['steady_host_s']:.4f}", flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

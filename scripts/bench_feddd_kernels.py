@@ -21,7 +21,13 @@ checkout's).
   fixed by seed: ``step_span_ms`` is the median time between CUDA events
   around one step started on an idle card (host launch gaps included:
   the step synchronises once, for its density), ``step_ms`` the device
-  time of its kernels and copies per step from ``torch.profiler``.
+  time of its kernels and copies per step from ``torch.profiler``;
+- where the package has the wire formats, the same step with a round key
+  and ``CommConfig(auto, 8)`` (``engine_step_auto8``: int8 stochastic
+  rounding of the uploads the aggregation reads, threefry noise drawn on
+  the card, the measured mask overhead) and with random masks too
+  (``engine_step_auto8_random``): the device ops and time the PRNG and
+  the QDQ add to a step.
 
 Kernel times are ``chip_smoke.time_ms`` (median of CUDA-event pairs, cold
 L2), from a second sweep after a first that brings the card to its
@@ -183,18 +189,34 @@ def main(argv=None) -> int:
     old, new, gp = on_card(old), on_card(new), on_card(gp)
     rates, weights = rates.cuda(), weights.cuda()
     engine = BatchedRoundEngine()
-    kernels.reset_launch_counts()
-    span_ms, step_ms, ops = _step_times(lambda: engine.step(
-        old, new, gp, rates, weights, full_round=False))
-    launches = kernels.launch_counts()
     steps = 3 + 2 * STEP_REPS
+
+    def step_record(step):
+        kernels.reset_launch_counts()
+        span_ms, step_ms, ops = _step_times(step)
+        return dict(clients=N, step_ms=step_ms, step_span_ms=span_ms,
+                    device_ops=ops, launches_per_step={
+                        k: v / steps
+                        for k, v in kernels.launch_counts().items()})
+
     res = dict(card=card, src=str(src), build_s=build_s, kernels=kern_rows,
                eq4_fc0=eq4, eq5_mlp=eq5,
-               engine_step=dict(clients=N, step_ms=step_ms,
-                                step_span_ms=span_ms, device_ops=ops,
-                                launches_per_step={
-                                    k: v / steps for k, v in launches.items()
-                                }))
+               engine_step=step_record(lambda: engine.step(
+                   old, new, gp, rates, weights, full_round=False)))
+    try:                  # the wire formats (absent from older packages)
+        from repro_torch import prng
+        from repro_torch.comm import CommConfig
+        from repro_torch.core.selection import SelectionConfig
+        comm = CommConfig(codec="auto", qbits=8)
+    except (ImportError, NotImplementedError):
+        comm = None
+    if comm is not None:
+        rk = prng.split(prng.PRNGKey(0))[1]
+        for key, scheme in (("engine_step_auto8", "feddd"),
+                            ("engine_step_auto8_random", "random")):
+            eng = BatchedRoundEngine(SelectionConfig(scheme), comm)
+            res[key] = step_record(lambda: eng.step(
+                old, new, gp, rates, weights, rk, full_round=False))
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:

@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from repro_torch.comm.payload import analytic_uplink_vector
+
 ALLOCATORS = ("numpy",)
 
 
@@ -208,6 +210,68 @@ def solve_dropout_rates(
     return AllocationResult(d_star, makespan, obj, True)
 
 
+def solve_dropout_rates_overhead_aware(
+    tel: ClientTelemetry,
+    wire_specs,
+    *,
+    comm,
+    a_server: float,
+    d_max: float,
+    delta: float,
+    global_model_bytes: Optional[float] = None,
+    num_refinements: int = 4,
+) -> AllocationResult:
+    """Eq. (16)/(17) on EFFECTIVE on-wire bytes instead of the linear proxy.
+
+    On a real wire client n's upload is ``B_n(D) = values(D) * qbits/32 +
+    mask_overhead(D)`` (``comm.payload.analytic_wire_bytes``), nonlinear
+    in D.  Each refinement linearises around the current solution: the
+    per-client byte weight becomes ``U_eff,n = B_n(D_n) / (1 - D_n)`` and
+    ``a_server`` is rescaled so the budget binds on wire bytes,
+    ``sum_n B_n(D_n) = A_server * sum_n B_n(0)``; the Eq. (13)
+    regularizer's (U_n/U) term and the downlink leg are compensated so
+    only the uplink mass changes.  The JAX package's algorithm, in the
+    same float64 numpy.
+
+    Args:
+      wire_specs: one ``comm.payload.WireSpec`` per client.
+      comm: the ``comm.payload.CommConfig`` whose byte model to use.
+    """
+    n = tel.num_clients
+    result = solve_dropout_rates(tel, a_server=a_server, d_max=d_max,
+                                 delta=delta,
+                                 global_model_bytes=global_model_bytes)
+    wire_full = analytic_uplink_vector(wire_specs, np.zeros(n), comm)
+    total_full = float(np.sum(wire_full))
+    u_raw = tel.model_bytes.astype(np.float64)
+    for _ in range(num_refinements):
+        d = np.clip(result.dropout_rates, 0.0, d_max)
+        keep = np.maximum(1.0 - d, 1e-6)
+        u_eff = analytic_uplink_vector(wire_specs, d, comm) / keep
+        a_eff = float(np.clip(a_server * total_full / max(
+            float(np.sum(u_eff)), 1e-30), 0.0, 1.0))
+        ratio = u_eff / np.maximum(u_raw, 1e-30)
+        tel_eff = dataclasses.replace(
+            tel, model_bytes=np.asarray(u_eff, np.float64),
+            train_loss=tel.train_loss / np.maximum(ratio, 1e-30),
+            downlink_rate=tel.downlink_rate * ratio)
+        result = solve_dropout_rates(
+            tel_eff, a_server=a_eff, d_max=d_max, delta=delta,
+            global_model_bytes=global_model_bytes)
+    d = np.clip(result.dropout_rates, 0.0, d_max)
+    wire = analytic_uplink_vector(wire_specs, d, comm)
+    # the makespan the WIRE sees (uplink = codec bytes)
+    u_eff_dl = tel.model_bytes.astype(np.float64) * (1.0 - d)
+    makespan = float(np.max(tel.compute_latency + wire / tel.uplink_rate
+                            + u_eff_dl / tel.downlink_rate))
+    gmb = float(global_model_bytes if global_model_bytes is not None
+                else np.max(tel.model_bytes))
+    obj = makespan + delta * float(np.dot(regularizer(tel, gmb), d))
+    feasible = bool(abs(float(np.sum(wire)) - a_server * total_full)
+                    <= 5e-2 * max(total_full, 1.0))
+    return AllocationResult(d, makespan, obj, feasible)
+
+
 def solve_dropout_rates_with(
     allocator: str,
     tel: ClientTelemetry,
@@ -216,13 +280,20 @@ def solve_dropout_rates_with(
     d_max: float,
     delta: float,
     global_model_bytes: Optional[float] = None,
+    comm=None,
+    wire_specs=None,
 ) -> AllocationResult:
     """Allocator dispatch.  Only ``"numpy"`` is ported; the jit-able
-    solver's torch twin is ROADMAP.md queue A item 4."""
+    solver's torch twin is ROADMAP.md queue A item 4.  A ``comm`` with
+    ``overhead_aware_allocation`` routes to
+    :func:`solve_dropout_rates_overhead_aware` over ``wire_specs``."""
     if allocator != "numpy":
         raise NotImplementedError(
             f"allocator {allocator!r} is not ported yet (ROADMAP.md queue A "
             "item 4); use allocator='numpy'")
-    return solve_dropout_rates(
-        tel, a_server=a_server, d_max=d_max, delta=delta,
-        global_model_bytes=global_model_bytes)
+    kw = dict(a_server=a_server, d_max=d_max, delta=delta,
+              global_model_bytes=global_model_bytes)
+    if comm is not None and comm.overhead_aware_allocation:
+        return solve_dropout_rates_overhead_aware(tel, wire_specs, comm=comm,
+                                                  **kw)
+    return solve_dropout_rates(tel, **kw)

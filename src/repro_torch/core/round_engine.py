@@ -10,23 +10,30 @@ runs the server side of a round over the whole fleet:
     client update        — Eq. (5), masked_merge kernel, one launch for
                            every leaf (or Eq. (6) on full rounds)
 
-The per-round device-to-host traffic is the (N,) density vector.
+The per-round device-to-host traffic is the (N,) density vector, and
+with a non-default wire format the (N,) measured mask overhead.  With
+``qbits < 32`` the aggregation reads the quantize-dequantized uploads
+(threefry-keyed int8 stochastic rounding, :mod:`repro_torch.comm`), while
+Eq. (5) keeps each client's own full-precision values.
 
 The engine also serves the FedAvg baseline (``dense_masks``: all-ones
-masks, no scoring); non-participation is a 0 aggregation weight.  Wire
-codecs, fault injection (``stacked_upload`` / ``delivered``), robust
-aggregation and the scanned multi-round path of the JAX engine are not
-ported yet (ROADMAP.md queue A).
+masks, no scoring); non-participation is a 0 aggregation weight.  Fault
+injection (``stacked_upload`` / ``delivered``), robust aggregation and
+the scanned multi-round path of the JAX engine are not ported yet
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import codecs as wire_codecs
+from repro_torch.comm import quantize as wire_quant
+from repro_torch.comm.payload import CommConfig, WireSpec
 from repro_torch.core import aggregation, selection
 
 
@@ -36,6 +43,9 @@ class RoundOutputs(NamedTuple):
     client_params: object      # pytree, leaves (N, *leaf): W_n^{t+1}
     global_params: object      # pytree: W^t
     densities: torch.Tensor    # (N,) fraction of elements uploaded
+    wire_overhead: Optional[torch.Tensor] = None
+                               # (N,) int32 measured mask/scale bytes;
+                               # None with the default CommConfig
 
 
 def stack_pytrees(trees: Sequence) -> object:
@@ -65,36 +75,64 @@ def _dense_masks(stacked, n: int):
     return masks, torch.ones((n,), dtype=torch.float32, device=dev)
 
 
+def _wire_overhead(masks, stacked_new, comm: CommConfig, channel_axis: int,
+                   dense_masks: bool) -> Optional[torch.Tensor]:
+    """(N,) int32 measured mask/scale bytes, or None for the default comm.
+
+    FedDD masks encode their kept sets; dense all-ones masks collapse the
+    channel axis, so they charge the closed-form full-upload constant at
+    the true channel widths."""
+    if comm.is_default:
+        return None
+    first = tree.leaves(stacked_new)[0]
+    if dense_masks:
+        const = wire_codecs.full_upload_overhead_bytes(
+            WireSpec.from_stacked(stacked_new, channel_axis), comm)
+        return torch.full((first.shape[0],), const, dtype=torch.int32,
+                          device=first.device)
+    return wire_codecs.mask_overhead_bytes_stacked(masks, stacked_new, comm)
+
+
 def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
-                weights, *, sel_cfg: selection.SelectionConfig,
-                full_round: bool, dense_masks: bool = False
-                ) -> RoundOutputs:
-    """Steps 2-4 and 6-7 of Algorithm 1 over the stacked fleet."""
+                weights, rng, *, sel_cfg: selection.SelectionConfig,
+                full_round: bool, dense_masks: bool = False,
+                comm: CommConfig = CommConfig()) -> RoundOutputs:
+    """Steps 2-4 and 6-7 of Algorithm 1 over the stacked fleet; ``rng`` is
+    the round key (scheme 'random' masks, int8 stochastic rounding)."""
     if dense_masks:
         n = tree.leaves(stacked_new)[0].shape[0]
         masks, density = _dense_masks(stacked_new, n)
     else:
         masks, density = selection.build_masks_batched(
-            stacked_old, stacked_new, dropout_rates, config=sel_cfg)
+            stacked_old, stacked_new, dropout_rates, config=sel_cfg, rng=rng)
+    # the server aggregates what it decoded; Eq. (5) below keeps the
+    # clients' own full-precision values
+    stacked_agg = wire_quant.quantize_dequantize_stacked(stacked_new, rng,
+                                                         comm.qbits)
+    wire_oh = _wire_overhead(masks, stacked_new, comm, sel_cfg.channel_axis,
+                             dense_masks)
     new_global = aggregation.aggregate_sparse_stacked(
-        stacked_new, masks, weights, prev_global=global_params)
+        stacked_agg, masks, weights, prev_global=global_params)
     if full_round:
         new_clients = _adopt_global(new_global, stacked_new)
     else:
         new_clients = aggregation.client_update_sparse(
             new_global, stacked_new, masks)
-    return RoundOutputs(new_clients, new_global, density)
+    return RoundOutputs(new_clients, new_global, density, wire_oh)
 
 
 @dataclasses.dataclass
 class BatchedRoundEngine:
-    """One FedDD round over client-stacked parameters."""
+    """One FedDD round over client-stacked parameters; ``comm`` is the
+    wire format (non-default codecs add the measured overhead to the
+    outputs, ``qbits < 32`` quantizes the aggregation's input)."""
 
     selection_cfg: selection.SelectionConfig = dataclasses.field(
         default_factory=selection.SelectionConfig)
+    comm: CommConfig = dataclasses.field(default_factory=CommConfig)
 
     def step(self, stacked_old, stacked_new, global_params, dropout_rates,
-             weights, *, full_round: bool,
+             weights, rng=None, *, full_round: bool,
              dense_masks: bool = False) -> RoundOutputs:
         """Run one round's server side.
 
@@ -105,6 +143,8 @@ class BatchedRoundEngine:
           dropout_rates: (N,) D_n^t (cast to float32).
           weights: (N,) aggregation weights m_n; 0 leaves a client out of
             Eq. (4).
+          rng: the round key (:mod:`repro_torch.prng`); scheme 'random'
+            and ``comm.qbits == 8`` need it.
           full_round: t mod h == 0 — every client adopts the new global.
           dense_masks: all-ones masks / full uploads (FedAvg); skips the
             importance scoring.
@@ -113,6 +153,6 @@ class BatchedRoundEngine:
         return _round_step(
             stacked_old, stacked_new, global_params,
             torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev),
-            torch.as_tensor(weights, dtype=torch.float32, device=dev),
+            torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
             sel_cfg=self.selection_cfg, full_round=bool(full_round),
-            dense_masks=bool(dense_masks))
+            dense_masks=bool(dense_masks), comm=self.comm)

@@ -18,10 +18,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.core import importance as imp_mod
 
 SCHEMES = ("feddd", "max", "delta", "random", "ordered")
+MASK_KEY_OFFSET = 10_000     # client i's mask key: fold_in(rng, 10_000 + i)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,25 +74,46 @@ def _tensor_scores_batched(cfg: SelectionConfig, w_old: torch.Tensor,
     raise AssertionError(cfg.scheme)
 
 
+def _random_scores(cfg: SelectionConfig, flat_new, rng):
+    """'random selection' scores of every leaf of rank >= 1, {leaf index:
+    (N, C)}: client ``i``'s scores of leaf ``l`` are
+    ``uniform(fold_in(fold_in(rng, 10_000 + i), l), (C,))``, all drawn in
+    one pass on the leaves' device."""
+    n = flat_new[0].shape[0]
+    client_keys = prng.fold_in(rng, MASK_KEY_OFFSET + np.arange(n))
+    idx = [li for li, w in enumerate(flat_new) if w.ndim > 1]
+    if not idx:
+        return {}
+    keys = prng.fold_in(client_keys[:, None, :], np.asarray(idx))
+    shapes = [(flat_new[li].shape[cfg.channel_axis % (flat_new[li].ndim - 1)
+                                  + 1],) for li in idx]
+    return dict(zip(idx, prng.uniform_many(keys, shapes,
+                                           flat_new[0].device)))
+
+
 def build_masks_batched(stacked_old, stacked_new,
                         dropout_rates: torch.Tensor, *,
-                        config: SelectionConfig = SelectionConfig()):
+                        config: SelectionConfig = SelectionConfig(),
+                        rng=None):
     """All clients' masks in one pass over the stacked leaves.
 
     Args:
       stacked_old / stacked_new: pytrees whose leaves carry a leading
         client axis, (N, *leaf).
       dropout_rates: (N,) per-client dropout rates.
+      rng: the round key (:mod:`repro_torch.prng`), needed by scheme
+        'random': client ``i``'s scores of leaf ``l`` are
+        ``uniform(fold_in(fold_in(rng, 10_000 + i), l), (C,))``, the JAX
+        package's fold order (leaves counted in flatten order, 0-D ones
+        included).
 
     Returns ``(masks, density)``: a mask pytree with leaves shaped
     (N, 1, ..., C, ..., 1) in the parameters' dtype, and the (N,) float32
     fraction of parameter elements kept, accumulated in float32 leaf by
     leaf as the JAX package does.
     """
-    if config.scheme == "random":
-        raise NotImplementedError(
-            "scheme='random' needs the threefry twin of jax.random "
-            "(ROADMAP.md queue A item 8)")
+    if config.scheme == "random" and rng is None:
+        raise ValueError("scheme='random' requires rng")
     flat_old = tree.leaves(stacked_old)
     flat_new, treedef = tree.flatten(stacked_new)
     if len(flat_old) != len(flat_new):
@@ -100,10 +122,12 @@ def build_masks_batched(stacked_old, stacked_new,
     dev = flat_new[0].device
     rates = torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev)
 
+    random_scores = (_random_scores(config, flat_new, rng)
+                     if config.scheme == "random" else {})
     masks = []
     kept = torch.zeros((n,), dtype=torch.float32, device=dev)
     total = 0.0
-    for w_old, w_new in zip(flat_old, flat_new):
+    for li, (w_old, w_new) in enumerate(zip(flat_old, flat_new)):
         leaf_ndim = w_new.ndim - 1
         leaf_size = float(np.prod(w_new.shape[1:], dtype=np.float64))
         if leaf_ndim == 0:
@@ -113,14 +137,15 @@ def build_masks_batched(stacked_old, stacked_new,
             continue
         ax = config.channel_axis % leaf_ndim + 1
         nch = w_new.shape[ax]
-        scores = _tensor_scores_batched(config, w_old, w_new)
+        scores = (random_scores[li] if random_scores else
+                  _tensor_scores_batched(config, w_old, w_new))
         m1d = mask_from_scores(scores, keep_count(nch, rates), nch)
         shape = [n] + [1] * leaf_ndim
         shape[ax] = nch
         masks.append(m1d.reshape(shape).to(w_new.dtype))
         kept = kept + m1d.sum(dim=1) * (leaf_size / nch)
         total += leaf_size
-    # a tensor divisor: CUDA divides by a Python scalar through its
-    # reciprocal, one ulp away from the true quotient the JAX package takes
-    density = kept / torch.tensor(total, dtype=torch.float32, device=dev)
+    # the JAX package's jitted engine divides by this compile-time
+    # constant as XLA does: a multiply by its float32 reciprocal
+    density = kept * float(np.float32(1.0 / total))
     return tree.unflatten(treedef, masks), density

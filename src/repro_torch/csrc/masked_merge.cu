@@ -37,10 +37,14 @@
 //   kernel.  (Keeping V at 16 bytes and reading the mask in narrower
 //   pieces, or lane by lane, measured slower on the H100: the extra mask
 //   loads and registers cost more than the wider L accesses save.)
-// - No 64-bit arithmetic per element and no division: a client leaf holds
-//   fewer than 2^31 elements (the wrapper checks), and a vector's channel
+// - No 64-bit arithmetic per element and no division: a descriptor covers
+//   fewer than 2^31 elements of each client leaf, and a vector's channel
 //   and a block's tile come from magic-number divmods (constants from the
-//   wrapper, as CUTLASS's FastDivmod).
+//   wrapper, as CUTLASS's FastDivmod).  A client leaf of 2^31 elements or
+//   more takes one descriptor per client and per piece (the wrapper's
+//   split_leaf: runs of whole rows, or of whole channels of a row), each
+//   with its pointers moved to that client's piece and its mask to the
+//   piece's first channel, so the kernel's code is the same for it.
 // - L and the output stream past the caches (evict-first loads and
 //   stores); G and the mask are read through the read-only path.
 // - The blend is written with round-to-nearest intrinsics, so no FMA
@@ -194,7 +198,10 @@ bool fill_leaf(const int64_t* f, int64_t es, int64_t tile_begin,
       c < 1 || b < 1 || a >= kLimit || c >= kLimit || b >= kLimit)
     return false;
   const int64_t size = a * c * b;   // < 2^62: no overflow
-  if (size >= kLimit || (mask_c != c && mask_c != 1) || f[10] != tile_begin)
+  // a channel mask's row is the descriptor's channels, or, for one client's
+  // piece of a row, longer
+  if (size >= kLimit || f[10] != tile_begin ||
+      (mask_c != 1 && mask_c != c && (n != 1 || mask_c < c)))
     return false;
   // V lanes: consecutive channels of one mask row (read as one vector), or
   // one shared channel

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.device import DeviceLike, resolve_device
 
 # A spec is a list of layer tuples:
@@ -45,25 +45,34 @@ def _full_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def init_cnn_spec(spec: Sequence[Tuple], *, seed: int = 0,
+def init_cnn_spec(spec: Sequence[Tuple], key=None, *, seed: int = 0,
                   device: DeviceLike = None) -> Dict:
-    """Random parameters with the JAX package's shapes and scales (a
-    torch generator, so not its numbers: carry those over with
-    :mod:`repro_torch.convert` where a run must match them)."""
+    """The JAX package's ``init_cnn_spec(key, spec)``: per layer, split
+    the key and scale ``normal(sub, shape)`` by 1/sqrt(fan-in); zero
+    biases.  ``key`` defaults to ``PRNGKey(seed)``.  The normals agree
+    with ``jax.random.normal`` within a few float32 ulps
+    (:func:`repro_torch.prng.normal`); carry the JAX package's numbers
+    over with :mod:`repro_torch.convert` where a run must match bit for
+    bit."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    key = prng.PRNGKey(seed) if key is None else prng.as_key(key)
     params: Dict[str, Dict] = {}
     for li, layer in enumerate(l for l in spec if l[0] != "pool"):
+        key, sub = prng.split(key)
         if layer[0] == "conv":
             _, cin, cout, k = layer
-            w = (torch.randn((k, k, cin, cout), generator=gen)
-                 / math.sqrt(cin * k * k))
-            params[f"conv{li}"] = {"w": w, "b": torch.zeros(cout)}
+            w = (prng.normal(sub, (k, k, cin, cout), dev)
+                 * (1.0 / math.sqrt(cin * k * k)))
+            params[f"conv{li}"] = {"w": w, "b": torch.zeros(cout,
+                                                            device=dev)}
         else:
             _, din, dout = layer
-            w = torch.randn((din, dout), generator=gen) / math.sqrt(din)
-            params[f"fc{li}"] = {"w": w, "b": torch.zeros(dout)}
-    return tree.tree_map(lambda t: t.to(dev), params)
+            # a tensor divisor: CUDA divides by a Python scalar through
+            # its reciprocal, one ulp away from the true quotient
+            w = prng.normal(sub, (din, dout), dev) / torch.tensor(
+                math.sqrt(din), dtype=torch.float32, device=dev)
+            params[f"fc{li}"] = {"w": w, "b": torch.zeros(dout, device=dev)}
+    return params
 
 
 def apply_spec(params: Dict, spec: Sequence[Tuple],
@@ -115,11 +124,14 @@ def make_local_train_fn(spec: Sequence[Tuple], ds, parts,
                         *, lr: float = 0.05, batch_size: int = 64,
                         local_epochs: int = 1, flatten: bool = False,
                         device: DeviceLike = None):
-    """Returns local_train_fn(params, client_idx, generator) -> (params,
-    loss): ``local_epochs`` epochs of minibatch SGD on the client's shard,
-    each epoch in an order ``torch.randperm`` draws from ``generator``.
-    Client shards move to the device once, here.  The loss is the mean
-    minibatch loss, a 0-d float64 tensor on the device."""
+    """Returns local_train_fn(params, client_idx, key) -> (params, loss):
+    ``local_epochs`` epochs of minibatch SGD on the client's shard, epoch
+    ``e`` in the order ``prng.permutation(fold_in(key, e), n)`` — the JAX
+    package's shuffle, drawn on the host and copied to the device once
+    an epoch.  Client shards move to the device once, here.  The loss is
+    the mean minibatch loss as a Python float: the per-step losses summed
+    in float64 on the device (the order of the JAX package's Python sum)
+    and divided on the host, as the JAX package divides."""
     dev = resolve_device(device)
     _full_fp32()
     xs = [torch.from_numpy(ds.x[p]).to(dev) for p in parts]
@@ -135,28 +147,33 @@ def make_local_train_fn(spec: Sequence[Tuple], ds, parts,
         new = [(l - lr * g).detach() for l, g in zip(leaves, grads)]
         return tree.unflatten(treedef, new), loss.detach()
 
-    def local_train(params, client_idx: int, generator: torch.Generator):
+    def local_train(params, client_idx: int, key):
         x, y = xs[client_idx], ys[client_idx]
         n = x.shape[0]
         if n == 0:
             return params, 0.0
         loss = torch.zeros((), dtype=torch.float64, device=dev)
         steps = 0
-        for _ in range(local_epochs):
-            perm = torch.randperm(n, generator=generator).to(dev)
+        for ep in range(local_epochs):
+            perm = prng.permutation(prng.fold_in(key, ep), n,
+                                    "cpu").to(dev)
             for s in range(0, max(n - batch_size + 1, 1), batch_size):
                 idx = perm[s:s + batch_size]
                 params, l = step(params, x[idx], y[idx])
                 loss = loss + l.double()
                 steps += 1
-        return params, loss / max(steps, 1)
+        return params, float(loss) / max(steps, 1)
 
     return local_train
 
 
 def make_eval_fn(spec: Sequence[Tuple], test_ds, *, flatten: bool = False,
-                 batch_size: int = 512, device: DeviceLike = None):
-    """Returns eval_fn(params) -> {"accuracy": float}."""
+                 batch_size: int = 512, per_class: bool = False,
+                 device: DeviceLike = None):
+    """Returns eval_fn(params) -> {"accuracy": float}; with ``per_class``
+    also ``acc_class_<c>`` for each of the test set's classes (0.0 for a
+    class with no test sample), the rare-class view of the paper's
+    generalisation claim."""
     dev = resolve_device(device)
     _full_fp32()
     x = torch.from_numpy(test_ds.x).to(dev)
@@ -169,6 +186,12 @@ def make_eval_fn(spec: Sequence[Tuple], test_ds, *, flatten: bool = False,
             pred = torch.cat([
                 apply_spec(params, spec, x[s:s + batch_size]).argmax(-1)
                 for s in range(0, x.shape[0], batch_size)]).cpu().numpy()
-        return {"accuracy": float(np.mean(pred == y))}
+        out = {"accuracy": float(np.mean(pred == y))}
+        if per_class:
+            for c in range(test_ds.num_classes):
+                m = y == c
+                out[f"acc_class_{c}"] = (float(np.mean(pred[m] == y[m]))
+                                         if m.any() else 0.0)
+        return out
 
     return eval_fn

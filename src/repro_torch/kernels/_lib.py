@@ -114,11 +114,17 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, symbol: str, *args, route=None) -> None:
-    """Call ``symbol`` on PyTorch's current stream; raise on a launch
-    error, count the launch otherwise (and under ``route``: the route or
-    mode of a kernel that has several, or what a launch covered)."""
-    stream = torch.cuda.current_stream().cuda_stream
+def launch(kernel: str, symbol: str, *args, device: torch.device,
+           route=None) -> None:
+    """Call ``symbol`` on PyTorch's current stream of ``device``, the card
+    its tensors lie on, with that card current (a guard only when another
+    one is); raise on a launch error, count the launch otherwise (and
+    under ``route``: the route or mode of a kernel that has several, or
+    what a launch covered)."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return launch(kernel, symbol, *args, device=device, route=route)
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(load(), symbol)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

@@ -110,8 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *v.stride()[:3], int(bool(causal)), int(window))
     if which == "sm90":
         _lib.launch("flash_attention", "feddd_flash_attention_sm90", *args,
-                    route="sm90")
+                    device=q.device, route="sm90")
     else:
         _lib.launch("flash_attention", "feddd_flash_attention", *args,
-                    _lib.DTYPE_CODES[q.dtype], route="fma")
+                    _lib.DTYPE_CODES[q.dtype], device=q.device, route="fma")
     return out

@@ -54,8 +54,9 @@ def split_rows(rows: int, splits: int) -> List[Tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def sm_count(device: torch.device) -> int:
+    """SMs of the card ``device`` names (the tensors' own card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
@@ -90,11 +91,11 @@ def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
         return channel_importance_ref(w_old.view(n, a, c, b),
                                       w_new.view(n, a, c, b), coverage)
     vec = _lib.vector_width(c, w_old, w_new) if b == 1 else 1
-    plan = work_plan(n, a, c, b, sm_count(w_old.device.index or 0), vec)
+    plan = work_plan(n, a, c, b, sm_count(w_old.device), vec)
     out = torch.empty((n, c), dtype=torch.float32, device=w_old.device)
     _lib.launch("importance", "feddd_importance", w_old.data_ptr(),
                 w_new.data_ptr(),
                 None if coverage is None else coverage.data_ptr(),
                 out.data_ptr(), n, a, c, b, plan.vec, plan.splits,
-                _lib.DTYPE_CODES[w_old.dtype])
+                _lib.DTYPE_CODES[w_old.dtype], device=w_old.device)
     return out

@@ -1,11 +1,15 @@
 """Wrapper of the masked merge kernel (``csrc/masked_merge.cu``): Eq. (5)
 for a group of client-stacked leaves, one launch per dtype and per
-``MAX_LEAVES`` leaves (:func:`plan`)."""
+``MAX_LEAVES`` descriptors (:func:`plan`).  A client leaf of 2**31
+elements or more takes one descriptor per client and per piece, each
+piece under 2**31 elements and on a channel boundary (:func:`split_leaf`),
+so the kernel keeps its 32-bit indices and its code."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -15,8 +19,9 @@ from repro_torch.kernels.masked_merge.ref import masked_merge_ref
 THREADS = 128                 # vectors of G per tile: kThreads
 CLIENTS = 4                   # most clients per tile: kClients
 MAX_LEAVES = 32               # leaf descriptors per launch: kMaxLeaves
-MAX_ELEMENTS = 1 << 31        # a client leaf holds fewer (32-bit indices)
-FIELDS = 18                   # int64 per leaf in the launch table
+MAX_ELEMENTS = 1 << 31        # a descriptor covers fewer (32-bit indices)
+MAX_TILES = (1 << 31) - 1     # blocks of one launch (the grid's x limit)
+FIELDS = 18                   # int64 per descriptor in the launch table
 
 
 class LeafSpec(NamedTuple):
@@ -30,12 +35,21 @@ class LeafSpec(NamedTuple):
     mask_addr: int
 
 
+class Piece(NamedTuple):
+    """The part of a client leaf one descriptor covers."""
+
+    offset: int               # its first element within the client leaf
+    acb: Tuple[int, int, int]  # its (A, C, B)
+    c0: int                   # its first channel
+
+
 class LeafPlan(NamedTuple):
     index: int                # position in the group
     vec: int                  # V, elements per access
     chunk: int                # clients per tile
     tile_begin: int           # first tile: sum of the earlier leaves' tiles
     tiles: int                # ceil(size / V / THREADS) * ceil(N / chunk)
+    spec: Optional[LeafSpec] = None   # what the descriptor covers
 
 
 class Launch(NamedTuple):
@@ -57,7 +71,7 @@ def divmod_constants(d: int) -> Tuple[int, int]:
 
 def leaf_plan(spec: LeafSpec, index: int = 0, tile_begin: int = 0
               ) -> LeafPlan:
-    """Vector width, client chunks and tiles of one leaf.
+    """Vector width, client chunks and tiles of one descriptor.
 
     V is the largest width up to 16 bytes that divides C where the channel
     axis is last (B == 1), else B, and keeps G, L, the output and (B == 1)
@@ -67,8 +81,9 @@ def leaf_plan(spec: LeafSpec, index: int = 0, tile_begin: int = 0
     a, c, b = spec.acb
     size = a * c * b
     if size >= MAX_ELEMENTS:
-        raise ValueError(f"a client leaf of {size} elements: the merge "
-                         f"kernel takes fewer than {MAX_ELEMENTS}")
+        raise ValueError(f"a descriptor of {size} elements: the merge "
+                         f"kernel takes fewer than {MAX_ELEMENTS} "
+                         f"(split_leaf cuts a larger leaf)")
     es = torch.empty((), dtype=spec.dtype).element_size()
     addrs = list(spec.addrs)
     if spec.mask_c != 1 and b == 1:
@@ -78,12 +93,64 @@ def leaf_plan(spec: LeafSpec, index: int = 0, tile_begin: int = 0
     chunks = -(-spec.n // CLIENTS)
     chunk = -(-spec.n // chunks)
     return LeafPlan(index, vec, chunk, tile_begin,
-                    -(-(size // vec) // THREADS) * chunks)
+                    -(-(size // vec) // THREADS) * chunks, spec)
+
+
+def _aligned_step(count: int, unit: int) -> int:
+    """``count`` rounded down to a multiple of the units that keep a
+    piece boundary 16-byte aligned (``unit`` elements each), if any fit."""
+    step = 16 // math.gcd(unit, 16)
+    return count - count % step if count >= step else count
+
+
+def split_leaf(acb: Tuple[int, int, int]) -> List[Piece]:
+    """The descriptors of a client leaf (A, C, B): the whole leaf when it
+    holds fewer than ``MAX_ELEMENTS`` elements; else runs of whole rows of
+    A, each under the limit; else (a row alone reaches it) runs of whole
+    channels of one row; else (one channel reaches it) runs of one
+    channel.  Every element is covered once, in order."""
+    a, c, b = acb
+    limit = MAX_ELEMENTS - 1
+    if a * c * b <= limit:
+        return [Piece(0, acb, 0)]
+    if c * b <= limit:
+        rows = _aligned_step(limit // (c * b), c * b)
+        return [Piece(a0 * c * b, (min(rows, a - a0), c, b), 0)
+                for a0 in range(0, a, rows)]
+    if b <= limit:
+        chans = _aligned_step(limit // b, b)
+        return [Piece(a0 * c * b + c0 * b, (1, min(chans, c - c0), b), c0)
+                for a0 in range(a) for c0 in range(0, c, chans)]
+    run = _aligned_step(limit, 1)
+    return [Piece(a0 * c * b + c0 * b + b0, (1, 1, min(run, b - b0)), c0)
+            for a0 in range(a) for c0 in range(c) for b0 in range(0, b, run)]
+
+
+def _pieces(spec: LeafSpec) -> List[LeafSpec]:
+    """``spec`` as the specs of its descriptors: itself, or for a leaf cut
+    by :func:`split_leaf` one of a single client per piece, its G address
+    moved to the piece, its L and output addresses to the client's piece,
+    its mask to the client's row at the piece's first channel."""
+    a, c, b = spec.acb
+    pieces = split_leaf(spec.acb)
+    if len(pieces) == 1:
+        return [spec]
+    es = torch.empty((), dtype=spec.dtype).element_size()
+    g, l, out = spec.addrs
+    return [spec._replace(
+        n=1, acb=p.acb,
+        addrs=(g + p.offset * es, l + (k * a * c * b + p.offset) * es,
+               out + (k * a * c * b + p.offset) * es),
+        mask_addr=spec.mask_addr + (k * spec.mask_c
+                                    + (p.c0 if spec.mask_c != 1 else 0)) * es)
+        for k in range(spec.n) for p in pieces]
 
 
 def plan(specs: Sequence[LeafSpec]) -> List[Launch]:
-    """The launches that merge ``specs``: the leaves of each dtype (in the
-    order the dtypes first appear), in order, ``MAX_LEAVES`` at a time.
+    """The launches that merge ``specs``: the descriptors of each dtype's
+    leaves (dtypes in the order they first appear; a leaf of 2**31
+    elements or more takes several, :func:`split_leaf`), in order,
+    ``MAX_LEAVES`` at a time and at most ``MAX_TILES`` tiles a launch.
     Empty leaves take no tiles and no launch."""
     by_dtype: Dict[torch.dtype, List[int]] = {}
     for i, s in enumerate(specs):
@@ -92,18 +159,25 @@ def plan(specs: Sequence[LeafSpec]) -> List[Launch]:
             by_dtype.setdefault(s.dtype, []).append(i)
     launches = []
     for dtype, idx in by_dtype.items():
-        for lo in range(0, len(idx), MAX_LEAVES):
-            leaves, begin = [], 0
-            for i in idx[lo:lo + MAX_LEAVES]:
-                leaves.append(leaf_plan(specs[i], i, begin))
-                begin += leaves[-1].tiles
-            launches.append(Launch(dtype, tuple(leaves), begin))
+        leaves, begin = [], 0
+        for i in idx:
+            for piece in _pieces(specs[i]):
+                lp = leaf_plan(piece, i, begin)
+                if len(leaves) == MAX_LEAVES or (
+                        leaves and begin + lp.tiles > MAX_TILES):
+                    launches.append(Launch(dtype, tuple(leaves), begin))
+                    leaves, begin = [], 0
+                    lp = lp._replace(tile_begin=0)
+                leaves.append(lp)
+                begin += lp.tiles
+        launches.append(Launch(dtype, tuple(leaves), begin))
     return launches
 
 
 def leaf_counts() -> Dict[int, int]:
-    """Launches by the number of leaves each merged, since
-    ``kernels.reset_launch_counts``."""
+    """Launches by the number of descriptors each took (its leaves; a
+    leaf of 2**31 elements or more counts a descriptor per client and
+    piece), since ``kernels.reset_launch_counts``."""
     return _lib.route_launches("masked_merge")
 
 
@@ -158,7 +232,7 @@ def masked_merge_many(global_ws: Sequence[torch.Tensor],
     for launch in plan(specs):
         table = (ctypes.c_int64 * (FIELDS * len(launch.leaves)))()
         for row, lp in enumerate(launch.leaves):
-            s = specs[lp.index]
+            s = lp.spec
             a, c, b = s.acb
             table[row * FIELDS:(row + 1) * FIELDS] = [
                 s.addrs[0], s.addrs[1], s.mask_addr, s.addrs[2], s.n, a, c,
@@ -167,7 +241,7 @@ def masked_merge_many(global_ws: Sequence[torch.Tensor],
                 *divmod_constants(-(-s.n // lp.chunk))]
         _lib.launch("masked_merge", "feddd_masked_merge_group", table,
                     len(launch.leaves), _lib.DTYPE_CODES[launch.dtype],
-                    route=len(launch.leaves))
+                    device=outs[0].device, route=len(launch.leaves))
     return outs
 
 

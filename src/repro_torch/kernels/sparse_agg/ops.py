@@ -46,7 +46,8 @@ def _launch(mode, stack_w, stack_m, weights, gprev, out, den, acb,
                 None if gprev is None else gprev.data_ptr(), out.data_ptr(),
                 None if den is None else den.data_ptr(), stack_w.shape[0], a,
                 c, b, mask_c, vec, mode, _lib.DTYPE_CODES[stack_w.dtype],
-                _lib.DTYPE_CODES[out.dtype], route=MODES[mode])
+                _lib.DTYPE_CODES[out.dtype], device=stack_w.device,
+                route=MODES[mode])
 
 
 def mode_counts() -> Dict[str, int]:

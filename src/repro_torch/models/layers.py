@@ -86,17 +86,28 @@ def unembed(p, x: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:
     """fp32 logits against the (V, D) table, cast to fp32 as in JAX."""
     logits = torch.matmul(x.float(), p["table"].float().t())
     if softcap > 0.0:
-        logits = torch.tanh(logits / softcap) * softcap
+        # a tensor divisor (CUDA divides by a Python scalar through its
+        # reciprocal, an ulp off the true quotient)
+        logits = torch.tanh(logits / torch.tensor(
+            softcap, dtype=torch.float32, device=logits.device)) * softcap
     return logits
 
 
 # --------------------------------------------------------------- rotary ----
 
+def rotary_exponents(rotary_dim: int, device=None) -> torch.Tensor:
+    """``arange(0, rotary_dim, 2) / rotary_dim`` in float32, a true
+    division (by a tensor: CUDA divides by a Python scalar through its
+    reciprocal, an ulp off at 15 of the 48 exponents of rotary_dim 96)."""
+    return torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                        device=device) / torch.tensor(
+        float(rotary_dim), dtype=torch.float32, device=device)
+
+
 def rotary_angles(positions: torch.Tensor, rotary_dim: int, theta: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for integer positions.  Shapes (..., rotary_dim/2)."""
-    exps = torch.arange(0, rotary_dim, 2, dtype=torch.float32,
-                        device=positions.device) / rotary_dim
+    exps = rotary_exponents(rotary_dim, positions.device)
     freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
                                          device=positions.device), exps)
     ang = positions.float()[..., None] * freqs

@@ -1,11 +1,14 @@
 """Quickstart: FedDD on a synthetic MNIST-like task, then FedAvg.
 
-    PYTHONPATH=src python -m repro_torch.quickstart [--rounds N] [--device D]
+    PYTHONPATH=src python -m repro_torch.quickstart [--rounds N] \
+        [--codec dense|bitmask|index|auto] [--qbits 32|16|8] [--device D]
 
-The port's twin of ``examples/quickstart.py`` at its defaults: the paper's
-MLP across 10 non-IID clients (3 classes each), A_server = 0.6, h = 5,
-lr 0.1, then FedAvg with full uploads on the same data and telemetry.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+The port's twin of ``examples/quickstart.py``: the paper's MLP from
+``PRNGKey(0)`` across 10 non-IID clients (3 classes each), A_server =
+0.6, h = 5, lr 0.1, uploads in the wire format ``--codec``/``--qbits``
+(8: int8 stochastic rounding of the aggregated values), then FedAvg with
+full uploads on the same data and telemetry.  Runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -13,7 +16,10 @@ from __future__ import annotations
 import argparse
 from typing import Callable, Optional, Tuple
 
+from repro_torch import prng
+from repro_torch.comm import CommConfig
 from repro_torch.core.protocol import RunResult, run_scheme
+from repro_torch.core.selection import SelectionConfig
 from repro_torch.data import (label_coverage_score, make_dataset,
                               partition_noniid_b)
 from repro_torch.device import DeviceLike
@@ -26,15 +32,19 @@ FEDDD_H = 5     # full-broadcast period h of the FedDD run (Table 4)
 
 def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
         clients: int = 10, a_server: float = 0.6,
+        comm: CommConfig = CommConfig(), selection: str = "feddd",
         device: DeviceLike = None,
         on_round: Optional[Callable] = None
-        ) -> Tuple[RunResult, RunResult, object]:
-    """FedDD for ``rounds`` rounds, then FedAvg for ``fedavg_rounds``
-    (default: as many).  ``on_round(scheme, record)`` sees every round
-    once its run has finished.  Returns (feddd, fedavg, telemetry)."""
+        ) -> Tuple[RunResult, Optional[RunResult], object]:
+    """FedDD for ``rounds`` rounds in the wire format ``comm`` with the
+    channel selection ``selection`` (the paper's "feddd" importance, or an
+    ablation such as "random"), then FedAvg for ``fedavg_rounds`` (default:
+    as many; 0: none, and None in its place) with full uploads.
+    ``on_round(scheme, record)`` sees every round once its run has
+    finished.  Returns (feddd, fedavg, telemetry)."""
     train, test = make_dataset("mnist", num_train=6000, num_test=1500)
     parts = partition_noniid_b(train, clients, seed=0)
-    params = init_cnn_spec(MLP_SPEC, seed=0, device=device)
+    params = init_cnn_spec(MLP_SPEC, prng.PRNGKey(0), device=device)
     tel = sample_system_telemetry(
         clients, [model_bytes(params)] * clients, [len(p) for p in parts],
         [label_coverage_score(train, p) for p in parts], seed=0)
@@ -42,9 +52,14 @@ def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
                               device=device)
     ef = make_eval_fn(MLP_SPEC, test, flatten=True, device=device)
     results = []
+    n_avg = rounds if fedavg_rounds is None else fedavg_rounds
     for scheme, n_rounds, kw in (
-            ("feddd", rounds, dict(a_server=a_server, h=FEDDD_H)),
-            ("fedavg", fedavg_rounds or rounds, {})):
+            ("feddd", rounds, dict(a_server=a_server, h=FEDDD_H, comm=comm,
+                                   selection=SelectionConfig(selection))),
+            ("fedavg", n_avg, {})):
+        if not n_rounds:
+            results.append(None)
+            continue
         res = run_scheme(scheme, params, tel, ltf, ef, rounds=n_rounds,
                          device=device, **kw)
         if on_round is not None:
@@ -58,7 +73,8 @@ def _print_round(scheme: str, r) -> None:
     print(f"  {scheme:6s} round {r.round:2d}  "
           f"acc={r.metrics['accuracy']:.3f}  loss={r.mean_loss:.4f}  "
           f"sim_t={r.sim_time:8.1f}s  uploaded={r.uploaded_fraction:.0%}  "
-          f"host={r.host_wall_time:.3f}s", flush=True)
+          f"wire={r.wire_bytes / 1e3:.0f}kB  host={r.host_wall_time:.3f}s",
+          flush=True)
 
 
 def main(argv=None) -> None:
@@ -66,12 +82,21 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=10)
     ap.add_argument("--a-server", type=float, default=0.6)
+    ap.add_argument("--codec", default="dense",
+                    choices=("dense", "bitmask", "index", "auto"),
+                    help="upload mask wire codec; dense is the analytic "
+                         "idealization")
+    ap.add_argument("--qbits", type=int, default=32, choices=(32, 16, 8),
+                    help="uploaded-value precision (8 = int8 stochastic "
+                         "rounding)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     feddd, fedavg, _ = run(args.rounds, clients=args.clients,
-                           a_server=args.a_server, device=args.device,
-                           on_round=_print_round)
+                           a_server=args.a_server,
+                           comm=CommConfig(codec=args.codec,
+                                           qbits=args.qbits),
+                           device=args.device, on_round=_print_round)
     tgt = 0.9
     t_dd, t_avg = (x.time_to_accuracy(tgt) for x in (feddd, fedavg))
     if t_dd and t_avg:

@@ -514,3 +514,174 @@ def test_masked_merge_33_leaves_take_two_launches(cuda_device):
     assert mm_ops.leaf_counts() == {1: 1, 32: 1}
     cases[7] = _merge_leaf(gen, cuda_device, 3, (9, 12), torch.bfloat16)
     _merge_group_exact(*(list(t) for t in zip(*cases[:4] + cases[6:9])), 2)
+
+
+# ------------------------------------------------- slice 6: C1, C2, C4, A8-9
+
+def test_trainer_loss_on_card_is_the_python_mean(cuda_device, monkeypatch):
+    """The mean loss is the per-step losses' Python-float sum divided on
+    the host, as the JAX package divides: bit-equal to ``sum / steps`` of
+    the same losses (a division by the Python int on the card would
+    multiply by its reciprocal, an ulp off for some sums)."""
+    from repro_torch import prng
+    from repro_torch.data import make_dataset, partition_noniid_b
+    from repro_torch.fl import MLP_SPEC, init_cnn_spec, models
+    train, _ = make_dataset("mnist", num_train=3000, num_test=10)
+    parts = partition_noniid_b(train, 10, seed=0)
+    ltf = models.make_local_train_fn(MLP_SPEC, train, parts, flatten=True,
+                                     lr=0.1, device=cuda_device)
+    params = init_cnn_spec(MLP_SPEC, device=cuda_device)
+    seen = []
+    ce = models._ce
+
+    def recording_ce(logits, y):
+        out = ce(logits, y)
+        seen.append(float(out.detach()))
+        return out
+
+    monkeypatch.setattr(models, "_ce", recording_ce)
+    for i in range(10):
+        seen.clear()
+        _, loss = ltf(params, i, prng.fold_in(prng.PRNGKey(0), i))
+        assert isinstance(loss, float) and len(seen) > 1
+        total = 0.0
+        for v in seen:
+            total += v
+        assert loss == total / len(seen)
+
+
+def test_rotary_exponents_on_card_are_true_quotients(cuda_device):
+    """At nemotron-4-340b's rotary_dim of 96 (and the other assigned head
+    dims) the exponents equal numpy's float32 true division bit for bit."""
+    from repro_torch.models.layers import rotary_exponents
+    for dim in (96, 64, 128, 192, 256, 46):
+        got = rotary_exponents(dim, cuda_device).cpu().numpy()
+        want = (np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32)), dim
+
+
+def test_unembed_softcap_on_card_divides_truly(cuda_device):
+    """``logits / softcap`` on the card is the true quotient (a division by
+    a tensor), the same bits as dividing by a 0-d card tensor."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    table = torch.randn((4096, 64), generator=gen, device=cuda_device)
+    x = torch.randn((3, 64), generator=gen, device=cuda_device)
+    got = layers.unembed({"table": table}, x, softcap=30.0)
+    logits = torch.matmul(x, table.t())
+    want = torch.tanh(logits / torch.tensor(30.0, device=cuda_device)) * 30.0
+    assert torch.equal(got, want)
+
+
+def test_kernels_follow_their_tensors_to_a_second_card(cuda_device):
+    """Tensors on cuda:1 while cuda:0 is current: every kernel launches on
+    cuda:1's stream under a guard and matches its plain version there.
+    Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (the launch's device and stream "
+                    "are CPU-tested in tests/test_torch_kernels.py)")
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+    dev1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    gen = torch.Generator(device=dev1).manual_seed(11)
+    n, r, c = 5, 64, 100
+    x = torch.randn((n, r, c), generator=gen, device=dev1)
+    y = x + 0.1 * torch.randn((n, r, c), generator=gen, device=dev1)
+    m = (torch.rand((n, 1, c), generator=gen, device=dev1) > 0.5).float()
+    w = torch.rand((n,), generator=gen, device=dev1) + 0.5
+    got = imp_ops.channel_importance_batched(x, y)
+    torch.testing.assert_close(got, channel_importance_ref(
+        x.view(n, r, c, 1), y.view(n, r, c, 1)), rtol=5e-5, atol=1e-5)
+    got = agg_ops.masked_weighted_mean(y, m, w, x[0], torch.float32)
+    torch.testing.assert_close(got, masked_weighted_mean_ref(
+        y.view(n, r, c, 1), m.view(n, c), w, x[0].view(r, c, 1),
+        torch.float32).view(r, c), rtol=3e-5, atol=1e-4)
+    got = mm_ops.masked_merge(x[0].contiguous(), y, m)
+    assert got.device == dev1
+    assert torch.equal(got, torch.where(m.bool(), x[0][None], y))
+    q = torch.randn((1, 300, 4, 128), generator=gen, device=dev1
+                    ).to(torch.bfloat16)
+    got = flash_ops.flash_attention(q, q, q)
+    torch.testing.assert_close(got.float(),
+                               gqa_attention_ref(q, q, q).float(),
+                               rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize(dev1)
+    assert torch.cuda.current_device() == 0
+
+
+def test_masked_merge_takes_a_client_leaf_past_2_31_elements(cuda_device):
+    """One bf16 client leaf of (32769, 65536) = 2,147,549,184 elements
+    (split into descriptors under 2**31) equals ``torch.where(M > 0, G,
+    L)`` exactly."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    leaf = (32769, 65536)
+    g = torch.randn(leaf, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    loc = torch.randn((1,) + leaf, generator=gen, device=cuda_device,
+                      dtype=torch.bfloat16)
+    m = (torch.rand((1, 1, leaf[1]), generator=gen, device=cuda_device)
+         > 0.5).to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    out = mm_ops.masked_merge(g, loc, m)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["masked_merge"] == 1
+    assert mm_ops.leaf_counts() == {2: 1}          # two descriptors
+    assert torch.equal(out, torch.where(m > 0, g[None], loc))
+
+
+def test_prng_on_card_equals_the_jax_constants(cuda_device):
+    """chip_smoke's PRNG phase on the card: Random123's vectors, keys,
+    bits, uniforms and permutations equal jax.random's (constants), the
+    normal within its ulps."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    out = smoke.prng_phase(cuda_device)
+    assert out["normal_max_ulps"] <= smoke.NORMAL_ULPS
+
+
+@pytest.mark.parametrize("scheme", ["feddd", "random"])
+def test_engine_step_with_int8_on_card_equals_cpu(scheme, cuda_device):
+    """One engine step with the round key and CommConfig(auto, 8) on the
+    card and on the CPU: equal densities, wire overhead and int8-decoded
+    uploads; parameters within 1e-5."""
+    from repro_torch import prng
+    from repro_torch.comm import CommConfig, quantize
+    from repro_torch.core.round_engine import (BatchedRoundEngine,
+                                               stack_pytrees)
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.fl import MLP_SPEC, init_cnn_spec
+    rng = np.random.default_rng(2)
+    gp = init_cnn_spec(MLP_SPEC, seed=1, device="cpu")
+    old = stack_pytrees([tree.tree_map(lambda v: v + torch.from_numpy(
+        rng.normal(0, 0.05, v.shape).astype(np.float32)), gp)
+        for _ in range(10)])
+    new = tree.tree_map(lambda v: v + torch.from_numpy(
+        rng.normal(0, 0.02, v.shape).astype(np.float32)), old)
+    rates, weights = rng.uniform(0, 0.8, 10), rng.integers(100, 900, 10)
+    rk = prng.split(prng.PRNGKey(3))[1]
+    engine = BatchedRoundEngine(SelectionConfig(scheme),
+                                CommConfig(codec="auto", qbits=8))
+    card = lambda t: tree.tree_map(lambda v: v.to(cuda_device), t)  # noqa
+    kernels.reset_launch_counts()
+    got = engine.step(card(old), card(new), card(gp), rates, weights, rk,
+                      full_round=False)
+    want = engine.step(old, new, gp, rates, weights, rk, full_round=False)
+    assert torch.equal(got.densities.cpu(), want.densities)
+    assert torch.equal(got.wire_overhead.cpu(), want.wire_overhead)
+    for a, b in zip(tree.leaves(quantize.quantize_dequantize_stacked(
+            card(new), rk, 8)),
+            tree.leaves(quantize.quantize_dequantize_stacked(new, rk, 8))):
+        assert torch.equal(a.cpu(), b)
+    for part in ("global_params", "client_params"):
+        for a, b in zip(tree.leaves(getattr(got, part)),
+                        tree.leaves(getattr(want, part))):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    counts = kernels.launch_counts()
+    assert counts["importance"] == (6 if scheme == "feddd" else 0)
+    assert counts["sparse_agg"] == 6 and counts["masked_merge"] == 1

@@ -8,6 +8,11 @@ True (Pallas, interpret mode); the port runs its kernels' plain versions.
 Densities agree to rtol 1e-6, masks exactly (up to near-ties of the k-th
 score), parameters to rtol 1e-5 / atol 1e-6 (float32 sums in another
 order).
+
+With the round key and a wire format (codec x qbits, schemes feddd,
+random and FedAvg's dense masks): densities, the measured wire overhead,
+random masks and the quantize-dequantized uploads the aggregation reads
+are equal; parameters within the same tolerance.
 """
 
 import jax
@@ -16,9 +21,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import quantize as jax_quant
+from repro.comm.payload import CommConfig as JaxComm
 from repro.core import round_engine as jax_engine
 from repro.core import selection as jax_sel
 from repro_torch import tree
+from repro_torch.comm import CommConfig
+from repro_torch.comm import quantize
 from repro_torch.core import round_engine, selection
 
 from torch_parity import (assert_masks_match, assert_trees_close, jax_tree,
@@ -95,3 +104,66 @@ def test_stack_and_unstack_roundtrip():
     want = jax_engine.unstack_pytree(jax_tree(old), N)
     for got_i, want_i in zip(parts, want):
         assert_trees_close(got_i, want_i, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qbits", [32, 16, 8])
+@pytest.mark.parametrize("codec", ["dense", "bitmask", "index", "auto"])
+@pytest.mark.parametrize("scheme", ["feddd", "random", "fedavg"])
+def test_engine_step_with_round_key_and_wire_format_matches_jax(
+        scheme, codec, qbits):
+    gp, old, new, rates, weights = _inputs()
+    rk = jax.random.fold_in(jax.random.PRNGKey(5), 2)
+    dense = scheme == "fedavg"
+    sel = "feddd" if dense else scheme
+    want = jax_engine.BatchedRoundEngine(
+        jax_sel.SelectionConfig(scheme=sel),
+        JaxComm(codec=codec, qbits=qbits)).step(
+        jax_tree(old), jax_tree(new), jax_tree(gp), rates, weights, rk,
+        full_round=False, dense_masks=dense)
+    got = round_engine.BatchedRoundEngine(
+        selection.SelectionConfig(scheme=sel),
+        CommConfig(codec=codec, qbits=qbits)).step(
+        torch_tree(old), torch_tree(new), torch_tree(gp), rates, weights,
+        np.asarray(rk), full_round=False, dense_masks=dense)
+    np.testing.assert_array_equal(got.densities.numpy(),
+                                  np.asarray(want.densities))
+    if codec == "dense" and qbits == 32:
+        assert got.wire_overhead is None and want.wire_overhead is None
+    else:
+        assert got.wire_overhead.dtype == torch.int32
+        np.testing.assert_array_equal(got.wire_overhead.numpy(),
+                                      np.asarray(want.wire_overhead))
+    assert_trees_close(got.global_params, want.global_params, rtol=1e-5,
+                       atol=1e-6)
+    assert_trees_close(got.client_params, want.client_params, rtol=1e-5,
+                       atol=1e-6)
+    if scheme == "random":
+        jm, _ = jax_sel.build_masks_batched(
+            jax_tree(old), jax_tree(new), jnp.asarray(rates, jnp.float32),
+            config=jax_sel.SelectionConfig(scheme="random"), rng=rk)
+        tm, _ = selection.build_masks_batched(
+            torch_tree(old), torch_tree(new), rates,
+            config=selection.SelectionConfig(scheme="random"),
+            rng=np.asarray(rk))
+        for t, j in zip(tree.leaves(tm), jax.tree_util.tree_leaves(jm)):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    if qbits < 32:     # what the aggregation read
+        jq = jax.jit(lambda s, k: jax_quant.quantize_dequantize_stacked(
+            s, k, qbits))(jax_tree(new), rk)
+        tq = quantize.quantize_dequantize_stacked(torch_tree(new),
+                                                  np.asarray(rk), qbits)
+        for t, j in zip(tree.leaves(tq), jax.tree_util.tree_leaves(jq)):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+def test_random_scheme_and_int8_need_the_round_key():
+    gp, old, new, rates, weights = _inputs()
+    with pytest.raises(ValueError, match="rng"):
+        round_engine.BatchedRoundEngine(
+            selection.SelectionConfig(scheme="random")).step(
+            torch_tree(old), torch_tree(new), torch_tree(gp), rates,
+            weights, full_round=False)
+    with pytest.raises(ValueError, match="PRNG key"):
+        round_engine.BatchedRoundEngine(comm=CommConfig(qbits=8)).step(
+            torch_tree(old), torch_tree(new), torch_tree(gp), rates,
+            weights, full_round=False)

@@ -4,7 +4,9 @@
   any module of the JAX package ``repro`` (checked in a fresh process).
 * Without a card, entry points raise unless ``device="cpu"`` is asked for.
 * Paths and architectures not ported yet raise with a pointer to
-  ROADMAP.md.
+  ROADMAP.md; what the port does not take (scheme 'random' without a
+  round key, an unknown codec or value width) raises as the JAX package
+  does.
 """
 
 import json
@@ -52,7 +54,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.convert", "repro_torch.models.lm",
                  "repro_torch.models.attention",
                  "repro_torch.kernels.flash_attention.ops",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve", "repro_torch.prng",
+                 "repro_torch.comm.codecs", "repro_torch.comm.quantize",
+                 "repro_torch.comm.payload"):
         assert must in res["modules"]
 
 
@@ -77,8 +81,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_random_selection_raises():
+    """Scheme 'random' draws from the round key: without one it raises."""
     x = {"w": torch.ones(2, 4, 3)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="requires rng"):
         selection.build_masks_batched(
             x, x, np.zeros(2),
             config=selection.SelectionConfig(scheme="random"))
@@ -93,12 +98,15 @@ def test_unported_paths_raise(kw):
 
 
 def test_unported_schemes_and_codecs_raise():
+    """FedCS/Oort are not ported (ROADMAP); every wire format is, and an
+    unknown codec or value width raises as in the JAX package."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         protocol.ProtocolConfig(scheme="oort")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CommConfig(codec="bitmask")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CommConfig(qbits=8)
+    with pytest.raises(ValueError, match="codec"):
+        CommConfig(codec="gzip")
+    with pytest.raises(ValueError, match="qbits"):
+        CommConfig(qbits=4)
+    assert not CommConfig(codec="bitmask", qbits=8).is_default
 
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "jamba-1.5-large-398b",

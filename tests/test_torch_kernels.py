@@ -422,14 +422,100 @@ def test_masked_merge_leaf_plan_vector_width_and_chunks(spec, vec, chunk):
 
 
 def test_masked_merge_plan_rejects_a_leaf_of_2_31_elements():
-    """32-bit indices: a client leaf of 2**31 elements or more is refused
-    (2**31 - 1 is taken)."""
+    """32-bit indices: one descriptor (``leaf_plan``) refuses 2**31
+    elements or more (2**31 - 1 is taken); ``plan`` cuts such a leaf into
+    several descriptors, each under the limit."""
     with pytest.raises(ValueError, match="fewer than"):
-        mm_ops.plan([_spec((1 << 16, 1 << 15))])
+        mm_ops.leaf_plan(_spec((1 << 16, 1 << 15)))
     with pytest.raises(ValueError, match="fewer than"):
-        mm_ops.plan([_spec((8,)), _spec((1 << 31,), n=1)])
+        mm_ops.leaf_plan(_spec((1 << 31,), n=1))
     (launch,) = mm_ops.plan([_spec(((1 << 31) - 1,), n=1)])
     assert launch.leaves[0].vec == 1
+    for specs in ([_spec((1 << 16, 1 << 15))],
+                  [_spec((8,)), _spec((1 << 31,), n=1)]):
+        for launch in mm_ops.plan(specs):
+            for lp in launch.leaves:
+                a, c, b = lp.spec.acb
+                assert a * c * b < mm_ops.MAX_ELEMENTS
+
+
+@pytest.mark.parametrize("acb", [(32769, 65536, 1), (1, 3 << 30, 1),
+                                 (2, 3, (1 << 31) + 5), (5, 1 << 20, 1 << 11),
+                                 (7, 9, 11)])
+def test_masked_merge_split_leaf_covers_every_element_once(acb):
+    """The pieces of a client leaf tile it in order, each under 2**31
+    elements, and each starts on a channel boundary: a run of whole rows,
+    of whole channels of one row, or of one channel."""
+    a, c, b = acb
+    pieces = mm_ops.split_leaf(acb)
+    end = 0
+    for p in pieces:
+        pa, pc, pb = p.acb
+        assert p.offset == end
+        assert 0 < pa * pc * pb < mm_ops.MAX_ELEMENTS
+        assert (p.offset // b) % c == p.c0 and p.c0 + pc <= c
+        if pa > 1:
+            assert (pc, pb, p.c0) == (c, b, 0) and p.offset % (c * b) == 0
+        elif pb == b:
+            assert p.offset % b == 0
+        end += pa * pc * pb
+    assert end == a * c * b
+    if a * c * b < mm_ops.MAX_ELEMENTS:
+        assert pieces == [mm_ops.Piece(0, acb, 0)]
+
+
+def _emulate_merge(launches, g, loc, m, es):
+    """The kernel's arithmetic over the launch plan, in numpy: for every
+    descriptor, client and element, the channel (e // B) % C of the
+    descriptor and the mask at its address plus that (addresses in bytes
+    from 0 for G, 1 << 40 for L and the output, 1 << 50 for the mask)."""
+    out = np.full(loc.size, np.nan, np.float32)
+    gf, lf, mf = g.reshape(-1), loc.reshape(-1), m.reshape(-1)
+    for launch in launches:
+        for lp in launch.leaves:
+            s = lp.spec
+            a, c, b = s.acb
+            g0 = s.addrs[0] // es
+            l0 = (s.addrs[1] - (1 << 40)) // es
+            m0 = (s.mask_addr - (1 << 50)) // es
+            stride = a * c * b       # one client a descriptor when split
+            e = np.arange(a * c * b)
+            ch = (e // b) % c if s.mask_c != 1 else 0 * e
+            for k in range(s.n):
+                mk = mf[m0 + k * s.mask_c + ch]
+                idx = k * stride + l0 + e
+                out[idx] = gf[g0 + e] * mk + lf[idx] * (1 - mk)
+    return out.reshape(loc.shape)
+
+
+@pytest.mark.parametrize("leaf,axis,ones", [
+    ((37, 12), -1, False), ((3, 50), -1, False), ((4, 7, 9), 1, False),
+    ((2, 3, 40), 0, False), ((19, 12), -1, True)])
+def test_masked_merge_plan_of_a_split_leaf_merges_like_plain(
+        leaf, axis, ones, monkeypatch):
+    """With the descriptor limit lowered to 64 elements, the plan of a
+    leaf cut into pieces (runs of rows, of channels, of one channel; one
+    descriptor per client and piece), carried out as the kernel reads its
+    table, equals torch.where over the whole leaf: every element of every
+    client once, with its own channel's mask."""
+    from repro_torch.kernels import _lib
+    monkeypatch.setattr(mm_ops, "MAX_ELEMENTS", 64)
+    n = 3
+    rng = np.random.default_rng(len(leaf) + leaf[0])
+    g = rng.normal(size=leaf).astype(np.float32)
+    loc = rng.normal(size=(n,) + leaf).astype(np.float32)
+    mshape = (tuple(1 for _ in leaf) if ones else
+              tuple(s if i == axis % len(leaf) else 1
+                    for i, s in enumerate(leaf)))
+    m = (rng.uniform(size=(n,) + mshape) > 0.5).astype(np.float32)
+    acb, mask_c = _lib.mask_view(leaf, mshape)
+    spec = mm_ops.LeafSpec(torch.float32, n, acb, mask_c,
+                           (0, 1 << 40, 1 << 40), 1 << 50)
+    launches = mm_ops.plan([spec])
+    assert sum(len(l.leaves) for l in launches) > 1
+    got = _emulate_merge(launches, g, loc, m, 4)
+    want = np.where(np.broadcast_to(m, loc.shape) > 0, g[None], loc)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 7, 10, 64, 100, 257, 513, 4097,
@@ -700,3 +786,119 @@ def test_vector_width_divides_the_row_and_keeps_alignment(dtype, inner,
     base = torch.empty(4 * inner + 16, dtype=dtype)
     t = base[offset:offset + 4 * inner]
     assert _lib.vector_width(inner, t, most=most) == want
+
+
+# ------------------------------------------- launches follow their tensors
+
+class _FakeCuda:
+    """Stand-ins for ``torch.cuda``'s current device, stream and device
+    guard: records which device each was asked for."""
+
+    def __init__(self, current=0):
+        self.current = current
+        self.guards = []
+        self.streams = []
+
+    def current_device(self):
+        return self.current
+
+    def current_stream(self, device=None):
+        import types
+        index = torch.device(device).index
+        self.streams.append(index)
+        return types.SimpleNamespace(cuda_stream=1000 + index)
+
+    def device(self, device):
+        import contextlib
+        fake = self
+
+        @contextlib.contextmanager
+        def guard():
+            fake.guards.append(torch.device(device).index)
+            saved, fake.current = fake.current, torch.device(device).index
+            try:
+                yield
+            finally:
+                fake.current = saved
+        return guard()
+
+
+@pytest.mark.parametrize("index,current", [(1, 0), (0, 0), (3, 1)])
+def test_launch_runs_on_its_tensors_device_and_stream(index, current,
+                                                      monkeypatch):
+    """``_lib.launch`` hands the kernel the current stream of the tensors'
+    card, with that card current: under a device guard only when another
+    card is current (no guard on the common path)."""
+    import collections
+    import types
+    from repro_torch.kernels import _lib
+    fake = _FakeCuda(current)
+    seen = []
+
+    def symbol(*args):
+        seen.append((args, fake.current))
+        return 0
+
+    monkeypatch.setattr(_lib, "load",
+                        lambda: types.SimpleNamespace(feddd_x=symbol))
+    for name in ("current_device", "current_stream", "device"):
+        monkeypatch.setattr(torch.cuda, name, getattr(fake, name))
+    monkeypatch.setattr(_lib, "_launches", collections.Counter())
+    monkeypatch.setattr(_lib, "_routes", collections.Counter())
+    _lib.launch("masked_merge", "feddd_x", 7, 8,
+                device=torch.device("cuda", index), route=1)
+    assert seen == [((7, 8, 1000 + index), index)]
+    assert fake.streams == [index]
+    assert fake.guards == ([] if index == current else [index])
+    assert fake.current == current
+    assert _lib.launch_counts()["masked_merge"] == 1
+
+
+def test_sm_count_reads_the_tensors_own_card(monkeypatch):
+    import types
+    asked = []
+
+    def props(device):
+        asked.append(torch.device(device))
+        return types.SimpleNamespace(multi_processor_count=100 + asked[-1]
+                                     .index)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    imp_ops.sm_count.cache_clear()
+    try:
+        assert imp_ops.sm_count(torch.device("cuda", 2)) == 102
+        assert imp_ops.sm_count(torch.device("cuda", 0)) == 100
+    finally:
+        imp_ops.sm_count.cache_clear()
+    assert asked == [torch.device("cuda", 2), torch.device("cuda", 0)]
+
+
+@pytest.mark.parametrize("which", ["importance", "sparse_agg",
+                                   "sparse_agg_mean", "masked_merge",
+                                   "flash_attention"])
+def test_every_wrapper_launches_on_its_tensors_device(which, monkeypatch):
+    """Each wrapper passes its tensors' device to ``_lib.launch`` (here
+    made to take the kernel path for CPU tensors, with the launch
+    recorded and not made)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    got = []
+    monkeypatch.setattr(_lib, "kernel_device", lambda *t: "cuda")
+    monkeypatch.setattr(_lib, "launch",
+                        lambda *a, device, route=None: got.append(device))
+    monkeypatch.setattr(imp_ops, "sm_count", lambda device: 132)
+    x = torch.ones(3, 8, 16)
+    m = torch.ones(3, 1, 16)
+    w = torch.ones(3)
+    if which == "importance":
+        imp_ops.channel_importance_batched(x, x)
+    elif which == "sparse_agg":
+        agg_ops.masked_weighted_sum(x, m, w)
+    elif which == "sparse_agg_mean":
+        agg_ops.masked_weighted_mean(x, m, w, x[0], torch.float32)
+    elif which == "masked_merge":
+        mm_ops.masked_merge(x[0], x, m)
+    else:
+        q = torch.ones(1, 16, 2, 64, dtype=torch.bfloat16)
+        flash_ops.flash_attention(q, q, q)
+    assert got == [x.device]

@@ -1,6 +1,14 @@
 """The slice as a whole: ``run_scheme`` of the PyTorch port against the JAX
 package, plus the pieces around it (data, telemetry, models, SGD, eval).
 
+With the real trainer (threefry shuffles, ``repro_torch.prng``) and the
+JAX package's initial parameters carried over, 3 quickstart-configuration
+rounds over every wire format give equal dropout rates, uploaded and wire
+bytes, Eq. (12) times, participants, survivors and the other
+``RoundRecord`` fields; the mean losses agree to rtol 1e-6 and the
+global parameters to atol 1e-6 (float32 SGD in another order), plus one
+fp16 or int8 step of the leaf where the uploads are quantized.
+
 Both packages start from the JAX package's MLP parameters (carried over
 with ``repro_torch.convert``) and train with the same key-free trainer:
 each (client, round) adds a fixed numpy-drawn perturbation and reports a
@@ -154,7 +162,7 @@ def test_one_sgd_step_and_eval_match_jax():
     jp, jloss = jltf(jax.tree_util.tree_map(jnp.asarray, params), 1,
                      jax.random.PRNGKey(0))
     tp, tloss = tltf(convert.to_torch(params, "cpu"), 1,
-                     torch.Generator().manual_seed(0))
+                     np.asarray(jax.random.PRNGKey(0)))
     assert_trees_close(tp, jp, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(tloss), jloss, rtol=1e-5, atol=1e-5)
     acc_j = jax_models.make_eval_fn(jax_models.MLP_SPEC, test,
@@ -177,3 +185,134 @@ def test_convert_roundtrip_keeps_bits():
         assert b.dtype == torch.bfloat16
         want = torch.from_numpy(np.array(a)).to(torch.bfloat16)
         assert torch.equal(b, want)
+
+
+def test_local_train_shuffles_as_jax_does():
+    """Two epochs over a 200-sample shard at batch 32: the threefry
+    shuffle of each epoch orders the minibatches as the JAX package's
+    does, so the parameters after 12 SGD steps agree (atol 1e-6) and the
+    mean loss to rtol 1e-6; a Python float, as there."""
+    train, _ = synthetic.make_dataset("mnist", num_train=400, num_test=10,
+                                      seed=6)
+    parts = [np.arange(0, 200), np.arange(200, 400)]
+    params = _jax_params(seed=4)
+    kw = dict(lr=0.1, batch_size=32, local_epochs=2, flatten=True)
+    key = jax.random.fold_in(jax.random.PRNGKey(3), 1)
+    jp, jloss = jax_models.make_local_train_fn(
+        jax_models.MLP_SPEC, train, parts, **kw)(
+        jax.tree_util.tree_map(jnp.asarray, params), 0, key)
+    tp, tloss = models.make_local_train_fn(
+        models.MLP_SPEC, train, parts, device="cpu", **kw)(
+        convert.to_torch(params, "cpu"), 0, np.asarray(key))
+    assert isinstance(tloss, float)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-6)
+    assert_trees_close(tp, jp, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("spec_name", ["MLP_SPEC", "CNN1_SPEC", "CNN2_SPEC"])
+def test_init_draws_the_jax_values(spec_name):
+    """``init_cnn_spec(spec, key)`` splits the key per layer and scales
+    threefry normals as the JAX package does: equal biases, weights within
+    8 float32 ulps (the normal's stated bound, plus the scaling's one
+    rounding)."""
+    key = jax.random.PRNGKey(9)
+    want = jax_models.init_cnn_spec(key, getattr(jax_models, spec_name))
+    got = models.init_cnn_spec(getattr(models, spec_name), np.asarray(key),
+                               device="cpu")
+    for g, w in zip(tree.leaves(got), jax.tree_util.tree_leaves(want)):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        ulps = np.abs(g.numpy().view(np.int32).astype(np.int64)
+                      - w.view(np.int32))
+        assert ulps.max() <= 8
+    same = models.init_cnn_spec(models.MLP_SPEC, seed=9, device="cpu")
+    for a, b in zip(tree.leaves(same), tree.leaves(models.init_cnn_spec(
+            models.MLP_SPEC, np.asarray(key), device="cpu"))):
+        assert torch.equal(a, b)
+
+
+def test_eval_per_class_matches_jax():
+    """``per_class=True`` adds ``acc_class_<c>`` for every class of the
+    test set, as the JAX package's eval does (a class with no test sample
+    reads 0.0)."""
+    train, test = synthetic.make_dataset("mnist", num_train=100,
+                                         num_test=300, seed=8)
+    keep = test.y != 7                     # class 7 absent
+    test = test.subset(np.flatnonzero(keep))
+    params = _jax_params(seed=5)
+    want = jax_models.make_eval_fn(jax_models.MLP_SPEC, test, flatten=True,
+                                   per_class=True)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    got = models.make_eval_fn(models.MLP_SPEC, test, flatten=True,
+                              per_class=True, device="cpu")(
+        convert.to_torch(params, "cpu"))
+    assert got == want
+    assert got["acc_class_7"] == 0.0 and len(got) == 1 + test.num_classes
+    assert set(models.make_eval_fn(models.MLP_SPEC, test, flatten=True,
+                                   device="cpu")(
+        convert.to_torch(params, "cpu"))) == {"accuracy"}
+
+
+def _quickstart_pieces(syn, part, het, fl, **kw):
+    """The quickstart's data, partition, telemetry, trainer and eval, cut
+    to 1200/300 samples (10 non-IID clients, lr 0.1)."""
+    train, test = syn.make_dataset("mnist", num_train=1200, num_test=300)
+    parts = part.partition_noniid_b(train, N_CLIENTS, seed=0)
+    tel = het.sample_system_telemetry(
+        N_CLIENTS, [341_656] * N_CLIENTS, [len(p) for p in parts],
+        [part.label_coverage_score(train, p) for p in parts], seed=0)
+    return (tel, fl.make_local_train_fn(fl.MLP_SPEC, train, parts,
+                                        flatten=True, lr=0.1, **kw),
+            fl.make_eval_fn(fl.MLP_SPEC, test, flatten=True, **kw))
+
+
+RECORD_EQUAL = ("round", "sim_time", "sim_round_time", "uploaded_fraction",
+                "uploaded_bytes", "wire_bytes", "participants", "survivors",
+                "epsilon", "retries", "abandoned_bytes", "quarantined_bytes",
+                "skipped", "metrics")
+
+
+@pytest.mark.parametrize("selection_scheme,codec,qbits,aware", [
+    ("feddd", "dense", 32, False), ("feddd", "auto", 8, False),
+    ("random", "index", 16, False), ("feddd", "bitmask", 8, True)])
+def test_run_scheme_with_the_real_trainer_matches_jax(selection_scheme,
+                                                      codec, qbits, aware):
+    from repro.comm.payload import CommConfig as JaxComm
+    from repro.core.selection import SelectionConfig as JaxSel
+    from repro_torch.comm import CommConfig
+    from repro_torch.core.selection import SelectionConfig
+    params = _jax_params()
+    kw = dict(rounds=3, a_server=0.6, h=5, seed=0)
+    jtel, jltf, jef = _quickstart_pieces(jax_synth, jax_part, jax_het,
+                                         jax_models)
+    want = jax_protocol.run_scheme(
+        "feddd", jax.tree_util.tree_map(jnp.asarray, params), jtel, jltf,
+        jef, selection=JaxSel(scheme=selection_scheme),
+        comm=JaxComm(codec=codec, qbits=qbits,
+                     overhead_aware_allocation=aware), **kw)
+    ttel, tltf, tef = _quickstart_pieces(synthetic, partition,
+                                         heterogeneity, models, device="cpu")
+    got = protocol.run_scheme(
+        "feddd", convert.to_torch(params, "cpu"), ttel, tltf, tef,
+        selection=SelectionConfig(scheme=selection_scheme),
+        comm=CommConfig(codec=codec, qbits=qbits,
+                        overhead_aware_allocation=aware),
+        device="cpu", **kw)
+    assert len(got.history) == len(want.history) == 3
+    for g, w in zip(got.history, want.history):
+        np.testing.assert_array_equal(g.dropout_rates, w.dropout_rates)
+        for field in RECORD_EQUAL:
+            assert getattr(g, field) == getattr(w, field), field
+        np.testing.assert_allclose(g.mean_loss, w.mean_loss, rtol=1e-6)
+    assert got.history[0].survivors == N_CLIENTS
+    if codec != "dense":
+        assert got.history[1].wire_bytes < got.history[1].uploaded_bytes
+    # a float32 difference of ~1e-7 in a client's trained value can move
+    # its fp16 rounding or its int8 code by one step: the tolerance is then
+    # that step (of the leaf's largest value), as the codecs state
+    step = {32: 0.0, 16: 2.0 ** -11, 8: 1.0 / 127}[qbits]
+    for g, w in zip(tree.leaves(got.global_params),
+                    jax.tree_util.tree_leaves(want.global_params)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-6 + step * np.abs(w).max())
