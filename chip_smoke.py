@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    within NORMAL_ULPS);
 3. hold each kernel against its plain PyTorch version on the card, in
    fp32 and bf16, at the MLP's leaves (N=10), at ragged edges and at large
-   leaves (a VGG conv and CNN2's fc), with the tolerances of the CPU tests
-   (the Eq. (5) merge exact); ``sparse_agg``'s mean mode (Eq. (4)
+   leaves (a VGG conv and CNN2's fc), and importance also at fc0 of one
+   client (N=1, fp32: the loop's launch), with the tolerances of the CPU
+   tests (the Eq. (5) merge exact); ``sparse_agg``'s mean mode (Eq. (4)
    finished in the kernel, as the engine calls it) against its plain
    version (the partials' tolerances; one bf16 ulp for a bf16 output) and
    bit for bit against ``finish_masked_mean`` over the partials mode, with
@@ -56,7 +57,24 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    CommConfig(auto, 8) for 5 FedDD rounds (wire bytes under the raw
    bytes from round 2, accuracy >= 0.85 after round 5), and once more
    with random masks (no importance launch), each with the counts set
-   to 0 just before and read just after;
+   to 0 just before and read just after.  Then three more runs of the
+   quickstart configuration, each with the counts set to 0 just before
+   and read just after: the per-client reference loop (batched=False,
+   track_epsilon=True, 5 FedDD rounds: importance at N = 1 for every
+   client and leaf, 300 launches; sparse_agg 30, mean mode; masked_merge
+   40, one per client and partial round for all six leaves; every
+   epsilon finite and >= 0), held against an engine run at the same seed
+   (equal rates, clock and participants, bytes within one float32 ulp of
+   each client's density, masks that differ only at near-ties of the k-th
+   score and, while they agree, equal parameters and accuracy); FedCS and
+   Oort on the engine, 3 rounds each (fewer than 10 participants, the
+   uploaded fraction within A_server, sparse_agg in mean mode and no
+   importance or masked_merge launch); and the default-comm FedDD run
+   with obs off and with a JSONL log under
+   ``torch.cuda.set_sync_debug_mode("warn")`` (the same number of
+   synchronising calls, equal records and parameters, the log loading
+   back to the history), printing each phase's span median over rounds
+   2-5 and the report's phase section;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -71,7 +89,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
-kernels, with the default-comm and random runs' beside them, the prefill
+kernels, with the default-comm, random and loop runs' beside them
+(``launches_loop``) and importance's N = 1 row under ``n1``, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
 beside them; ``masked_merge``'s at fc0, with the grouped launch of the
@@ -88,6 +107,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -105,6 +126,7 @@ RAGGED = [(7, (257, 513)), (3, (3, 3)), (5, (1000, 7)), (2, (33,))]
 # the full-width VGG conv of the Table 3 fleet, and CNN2's first fc
 LARGE = [(16, (3, 3, 512, 512)), (16, (1024, 500))]
 MAIN_SHAPE = (MLP_N, (784, 100))     # fc0.w, the main path's largest leaf
+LOOP_IMPORTANCE_SHAPE = (1, (784, 100))   # fc0.w of one client (the loop)
 # one bf16 client leaf past 2**31 elements: the merge takes it in several
 # descriptors (ops.split_leaf); the plain version checks it in row chunks
 BIG_MERGE = (32769, 65536)
@@ -112,6 +134,13 @@ BIG_MERGE_ROWS = 2048
 COMM = dict(codec="auto", qbits=8)   # the slice's wire format
 COMM_ROUNDS = 5
 COMM_MIN_ACC = 0.85     # after round 5; the port's CPU run reaches 0.917
+A_SERVER = 0.6          # the quickstart's budget
+LOOP_ROUNDS = 5         # the per-client loop phase (4 partial rounds at h=5)
+BASELINE_ROUNDS = 3     # FedCS and Oort on the engine
+OBS_ROUNDS = 5          # the obs phase: span medians over rounds 2-5
+OBS_PHASES = ("local_train", "engine_step", "host_transfer", "allocate",
+              "eval")
+TIE_RTOL = 5e-5         # importance's rtol: closer to the k-th score is a tie
 SLEEP_CYCLES = 40_000_000            # ~20 ms of device time ahead of a burst
 TIMED_LAUNCHES = 30
 
@@ -618,6 +647,35 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
         records.append(rec)
         if dtype == torch.float32:
             main["masked_merge_group"] = rec
+
+    # ---- importance at N = 1, fc0 fp32: the per-client loop's launch
+    n, leaf = LOOP_IMPORTANCE_SHAPE
+    a, c, b = _lib.split_at(leaf, len(leaf) - 1)
+    elems = n * a * c * b
+    wo = randn(n, *leaf)
+    wn = wo + 0.1 * randn(n, *leaf)
+    err = 0.0
+    for cov in (None, torch.rand((c,), generator=gen, device=dev) + 0.5):
+        got = imp_ops.channel_importance_batched(wo, wn, coverage=cov)
+        want = channel_importance_ref(wo.view(n, a, c, b),
+                                      wn.view(n, a, c, b), cov)
+        torch.testing.assert_close(got, want, rtol=5e-5, atol=1e-5)
+        err = max(err, (got - want).abs().max().item())
+    max_err["importance"] = max(max_err["importance"], err)
+    kern = lambda: imp_ops.channel_importance_batched(wo, wn)  # noqa: E731
+    plain = lambda: channel_importance_ref(                     # noqa: E731
+        wo.view(n, a, c, b), wn.view(n, a, c, b))
+    rec = _timed(card, flush, timer, "importance", n, leaf, torch.float32,
+                 kern, plain, None, 2 * elems * 4 + n * c * 4, 5 * elems)
+    rec["max_abs_err"] = err
+    if wo.is_cuda:      # the fan-in split at N = 1 and at the engine's N
+        vec = _lib.vector_width(c, wo, wn) if b == 1 else 1
+        sms = imp_ops.sm_count(wo.device)
+        rec.update(splits=imp_ops.work_plan(n, a, c, b, sms, vec).splits,
+                   splits_engine=imp_ops.work_plan(MLP_N, a, c, b, sms,
+                                                   vec).splits)
+    records.append(rec)
+    main["importance_n1"] = rec
     return {"max_abs_err": max_err, "main": main}
 
 
@@ -1203,6 +1261,297 @@ def comm_run(dev="cuda") -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_scores(out: list):
+    """Append a copy of every importance score the path computes to
+    ``out`` (the engine's (N, C) and the loop's (1, C), in call order); the
+    kernel launches are the path's own."""
+    from repro_torch.core import importance as imp_mod
+    real = imp_mod.channel_importance_batched
+
+    def recording(*args, **kw):
+        scores = real(*args, **kw)
+        out.append(scores.clone())
+        return scores
+
+    imp_mod.channel_importance_batched = recording
+    try:
+        yield out
+    finally:
+        imp_mod.channel_importance_batched = real
+
+
+def mask_agreement(history, eng_scores, loop_scores, n: int, leaves: int):
+    """Walk the rounds of an engine run and a loop run while their masks
+    agree: each client's top-k of its engine scores against the top-k of
+    its loop scores, at the rates the round used.  A channel may change
+    sides only as a near-tie (within TIE_RTOL of the k-th score; the stable
+    sort keeps the lower index on a tie).  -> (the first round whose masks
+    differ or None, scores not bit-equal, near-tie channels)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.selection import keep_count_host, mask_from_scores
+    first, unequal, ties = None, 0, 0
+    for r in range(len(history)):
+        rates = (np.zeros(n) if r == 0 else history[r - 1].dropout_rates)
+        for leaf in range(leaves):
+            es = eng_scores[r * leaves + leaf]
+            for i in range(n):
+                ls = loop_scores[(r * n + i) * leaves + leaf][0]
+                if torch.equal(es[i], ls):
+                    continue
+                unequal += 1
+                c = ls.shape[0]
+                k = keep_count_host(c, rates[i])
+                moved = torch.nonzero(mask_from_scores(es[i], k, c)
+                                      != mask_from_scores(ls, k, c))
+                if not len(moved):
+                    continue
+                kth = torch.sort(es[i], descending=True).values[max(k - 1,
+                                                                    0)]
+                for ch in moved.flatten().tolist():
+                    if abs(es[i][ch] - kth) > TIE_RTOL * abs(kth):
+                        raise AssertionError(
+                            f"round {r + 1} leaf {leaf} client {i}: channel "
+                            f"{ch} changed sides with score {es[i][ch]} "
+                            f"against the k-th {kth}")
+                ties += len(moved)
+                first = first or r + 1
+        if first:
+            break
+    return first, unequal, ties
+
+
+def loop_phase(dev="cuda") -> dict:
+    """The per-client reference loop (batched=False, track_epsilon=True)
+    for LOOP_ROUNDS FedDD rounds of the quickstart configuration, counts
+    set to 0 just before and read just after: importance at N = 1 for
+    every client and leaf, sparse_agg once a leaf and round (mean mode),
+    masked_merge once a client and partial round for all six leaves; every
+    epsilon finite and >= 0.  Held against the engine's run at the same
+    seed: equal rates, Eq. (12) clock and participants, bytes within one
+    float32 ulp of each client's density (the loop divides kept / total,
+    the engine multiplies by the reciprocal, as their JAX twins), and,
+    while the masks agree, equal parameters and accuracy."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.core import protocol
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.quickstart import FEDDD_H, run, setup
+
+    params, tel, _, _ = setup(MLP_N, dev)
+    kind = protocol.FedDDServer(
+        params, protocol.ProtocolConfig(batched=False, track_epsilon=True),
+        tel, device=dev).executor_kind
+    if kind != "loop":
+        raise AssertionError(f"batched=False routes to {kind!r}")
+    eng_scores, loop_scores = [], []
+    with recorded_scores(eng_scores):
+        eng, _, _ = run(LOOP_ROUNDS, fedavg_rounds=0, device=dev)
+    with recorded_scores(loop_scores):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loop, _, _ = run(LOOP_ROUNDS, fedavg_rounds=0, batched=False,
+                         track_epsilon=True, device=dev)
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        modes = agg_ops.mode_counts()
+        merged = merge_ops.leaf_counts()
+    leaves = len(tree.leaves(loop.global_params))
+    partial = sum(r.round % FEDDD_H != 0 for r in loop.history)
+    want = dict(importance=MLP_N * leaves * LOOP_ROUNDS,
+                sparse_agg=leaves * LOOP_ROUNDS,
+                masked_merge=MLP_N * partial, flash_attention=0)
+    if (counts != want or modes != {"partials": 0,
+                                    "mean": leaves * LOOP_ROUNDS}
+            or merged != {leaves: MLP_N * partial}):
+        raise AssertionError(f"loop launches {counts} (want {want}), modes "
+                             f"{modes}, merges {merged}")
+    eps = [r.epsilon for r in loop.history]
+    if not all(e is not None and math.isfinite(e) and e >= 0 for e in eps):
+        raise AssertionError(f"loop epsilons {eps}")
+    ulp_bytes = MLP_N * float(np.finfo(np.float32).eps) * float(
+        np.max(tel.model_bytes))
+    for lr, er in zip(loop.history, eng.history):
+        if not np.array_equal(lr.dropout_rates, er.dropout_rates):
+            raise AssertionError(f"round {lr.round}: loop rates differ")
+        for field in ("sim_time", "sim_round_time", "participants"):
+            if getattr(lr, field) != getattr(er, field):
+                raise AssertionError(f"round {lr.round}: loop {field} "
+                                     f"{getattr(lr, field)} != engine "
+                                     f"{getattr(er, field)}")
+        for field in ("uploaded_bytes", "wire_bytes"):
+            if abs(getattr(lr, field) - getattr(er, field)) > ulp_bytes:
+                raise AssertionError(f"round {lr.round}: loop {field} "
+                                     f"{getattr(lr, field)} vs engine "
+                                     f"{getattr(er, field)}")
+    first, unequal, ties = mask_agreement(eng.history, eng_scores,
+                                          loop_scores, MLP_N, leaves)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(
+        tree.leaves(loop.global_params), tree.leaves(eng.global_params)))
+    acc = [(lr.metrics["accuracy"], er.metrics["accuracy"])
+           for lr, er in zip(loop.history, eng.history)]
+    if first is None and (diff != 0.0 or any(a != b for a, b in acc)
+                          or [r.mean_loss for r in loop.history]
+                          != [r.mean_loss for r in eng.history]):
+        raise AssertionError(f"the masks agree in every round but the "
+                             f"loop's params differ by {diff} or its "
+                             f"accuracies {acc}")
+    steady = lambda res: float(np.median(  # noqa: E731
+        [r.host_wall_time for r in res.history[1:]]))
+    agree = ("agree in every round" if first is None else
+             f"differ from round {first} ({ties} near-tie channels)")
+    print(f"  loop: {wall:.2f} s, launches {counts}, merges {merged}; "
+          f"epsilon {['%.3e' % e for e in eps]}; masks {agree}"
+          f" ({unequal} of {len(loop_scores)} client-leaf scores not "
+          f"bit-equal); params vs engine max |diff| {diff}; host s per "
+          f"steady round loop {steady(loop):.4f}, engine "
+          f"{steady(eng):.4f}", flush=True)
+    return dict(launches=counts, sparse_agg_modes=modes,
+                merge_leaf_counts=merged, wall_s=wall, epsilon=eps,
+                masks_differ_from_round=first, scores_not_bit_equal=unequal,
+                near_tie_channels=ties, params_max_abs_diff=diff,
+                accuracy_loop_engine=acc, steady_host_s=steady(loop),
+                steady_host_s_engine=steady(eng))
+
+
+def baselines_phase(dev="cuda") -> dict:
+    """FedCS and Oort on the engine, BASELINE_ROUNDS rounds each of the
+    quickstart configuration, counts set to 0 just before and read just
+    after: fewer than all clients participate, the uploaded fraction stays
+    within A_server, and the dense path launches sparse_agg (mean mode)
+    and neither importance nor masked_merge."""
+    from repro_torch import kernels
+    from repro_torch.core.protocol import run_scheme
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.quickstart import FEDDD_H, setup
+
+    params, tel, ltf, ef = setup(MLP_N, dev)
+    out = {}
+    for scheme in ("fedcs", "oort"):
+        kernels.reset_launch_counts()
+        res = run_scheme(scheme, params, tel, ltf, ef,
+                         rounds=BASELINE_ROUNDS, a_server=A_SERVER,
+                         h=FEDDD_H, device=dev)
+        counts = kernels.launch_counts()
+        modes = agg_ops.mode_counts()
+        for r in res.history:
+            if not (r.participants < MLP_N
+                    and r.uploaded_fraction <= A_SERVER + 1e-9
+                    and math.isfinite(r.mean_loss)):
+                raise AssertionError(f"{scheme} round {r.round}: "
+                                     f"{r.participants} participants, "
+                                     f"uploaded {r.uploaded_fraction}")
+        agg = 6 * BASELINE_ROUNDS
+        if (counts != dict(importance=0, sparse_agg=agg, masked_merge=0,
+                           flash_attention=0)
+                or modes != {"partials": 0, "mean": agg}):
+            raise AssertionError(f"{scheme} launches {counts}, {modes}")
+        print(f"  {scheme}: participants "
+              f"{[r.participants for r in res.history]}, uploaded "
+              f"{[round(r.uploaded_fraction, 4) for r in res.history]}, "
+              f"accuracy {res.history[-1].metrics['accuracy']:.4f}, "
+              f"launches {counts}", flush=True)
+        out[scheme] = dict(
+            launches=counts, participants=[r.participants
+                                           for r in res.history],
+            uploaded_fraction=[r.uploaded_fraction for r in res.history],
+            accuracy=res.history[-1].metrics["accuracy"])
+    return out
+
+
+def _record_fields(rec) -> dict:
+    d = dataclasses.asdict(rec)
+    d.pop("host_wall_time")
+    d["dropout_rates"] = d["dropout_rates"].tolist()
+    return d
+
+
+def obs_phase(dev="cuda") -> dict:
+    """The default-comm FedDD run (OBS_ROUNDS rounds on the engine) with
+    obs off and with a JSONL log (trace off), under
+    ``torch.cuda.set_sync_debug_mode("warn")`` after a one-round warm-up
+    under it: the same number of synchronising CUDA calls, equal histories (all but host_wall_time) and
+    parameters bit for bit, and a log that loads back to the history
+    exactly.  Prints each phase's span median over rounds 2..OBS_ROUNDS and
+    the report's phase section."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.obs import ObsConfig, load_history, read_events, report
+    from repro_torch.quickstart import run
+
+    log = ROOT / "build" / "obs_run.jsonl"      # git-ignored, like the kernels
+    log.parent.mkdir(parents=True, exist_ok=True)
+    cuda = torch.device(dev).type == "cuda"
+    runs, syncs = {}, {}
+    # a one-round warm-up under the debug mode, not counted: the first
+    # synchronising call the mode sees in a process (a torch-internal one)
+    # would land in whichever run came first
+    for name, cfg, rounds in (("warm-up", ObsConfig(), 1),
+                              ("off", ObsConfig(), OBS_ROUNDS),
+                              ("on", ObsConfig(jsonl_path=str(log)),
+                               OBS_ROUNDS)):
+        _sync(dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runs[name], _, _ = run(rounds, fedavg_rounds=0, obs=cfg,
+                                       device=dev)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+        syncs[name] = sum("synchroniz" in str(w.message) for w in caught)
+    syncs.pop("warm-up")
+    if (cuda and not syncs["off"]) or syncs["on"] != syncs["off"]:
+        raise AssertionError(f"synchronising CUDA calls: obs off "
+                             f"{syncs['off']}, on {syncs['on']}")
+    on, off = runs["on"], runs["off"]
+    if [_record_fields(r) for r in on.history] != [
+            _record_fields(r) for r in off.history]:
+        raise AssertionError("obs changed the round records")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree.leaves(on.global_params), tree.leaves(off.global_params))):
+        raise AssertionError("obs changed the parameters")
+    exact = lambda rec: dataclasses.asdict(rec) | {        # noqa: E731
+        "dropout_rates": rec.dropout_rates.tolist()}
+    if [exact(r) for r in load_history(str(log))] != [exact(r)
+                                                      for r in on.history]:
+        raise AssertionError("the JSONL log does not load back to the "
+                             "history")
+    events = read_events(str(log))
+    spans = [e for e in events if e["event"] == "span"]
+    evals = [e for e in spans if e["name"] == "eval"]    # one a round
+    medians = {}
+    for name in OBS_PHASES:
+        durs = ([e["dur_s"] for e in evals[1:]] if name == "eval" else
+                [e["dur_s"] for e in spans
+                 if e["name"] == name and e["round"] >= 2])
+        medians[name] = 1e3 * statistics.median(durs)
+    host = [r.host_wall_time for r in on.history[1:]]
+    print(f"  obs: synchronising CUDA calls off {syncs['off']} / on "
+          f"{syncs['on']}; records, params and the JSONL round trip equal; "
+          f"span medians over rounds 2-{OBS_ROUNDS} (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in medians.items())
+          + f"; host s per round median {statistics.median(host):.4f}",
+          flush=True)
+    text = report.render(events)
+    section = text[text.index("Phase breakdown"):]
+    print("\n".join("  " + ln for ln in
+                    section[:section.index("\n\n")].splitlines()),
+          flush=True)
+    return dict(syncs=syncs, span_medians_ms=medians,
+                steady_host_s=float(np.median(host)),
+                spans_total_ms_median=sum(medians.values()),
+                log=str(log.relative_to(ROOT)))
+
+
 def _sync(dev) -> None:
     import torch
     if torch.device(dev).type == "cuda":
@@ -1407,6 +1756,9 @@ def main(argv=None) -> int:
         comm_check = comm_engine_check()
         path_out = main_path()
         comm_out = comm_run()
+        loop_out = loop_phase()
+        base_out = baselines_phase()
+        obs_out = obs_phase()
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -1447,7 +1799,13 @@ def main(argv=None) -> int:
         if name in FEDDD_KERNELS:
             line_kernels[-1].update(
                 launches_default_comm=path_out["launches"][name],
-                launches_random=comm_out["random"]["launches"][name])
+                launches_random=comm_out["random"]["launches"][name],
+                launches_loop=loop_out["launches"][name])
+        if name == "importance":
+            n1 = checks["main"]["importance_n1"]
+            line_kernels[-1]["n1"] = {k: n1[k] for k in (
+                "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err", "splits", "splits_engine")}
         if name == "masked_merge":
             group = checks["main"]["masked_merge_group"]
             line_kernels[-1].update(
@@ -1467,12 +1825,17 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(dict(
             card=line, build_s=secs, prng=prng_out, kernels=records,
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
+            loop=loop_out, baselines=base_out, obs=obs_out,
             serving=serve_out, summary=line_kernels), indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
               if r["scheme"] == "feddd" and r["round"] > 1]
     print(f"host s per steady FedDD round: default comm "
           f"{statistics.median(steady):.4f}, {COMM['codec']}/{COMM['qbits']}"
-          f" {comm_out['feddd']['steady_host_s']:.4f}", flush=True)
+          f" {comm_out['feddd']['steady_host_s']:.4f}, loop "
+          f"{loop_out['steady_host_s']:.4f}; span medians (ms) "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in obs_out["span_medians_ms"].items()),
+          flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -226,22 +226,27 @@ def uplink_bytes_raw(densities, participants, model_bytes) -> float:
 
 
 def account_uplink(densities, participants, model_bytes, wire_overhead,
-                   comm: CommConfig) -> Tuple[float, float]:
+                   comm: CommConfig, obs=None) -> Tuple[float, float]:
     """(uploaded_bytes, wire_bytes) of one round.
 
     ``uploaded_bytes`` is the raw kept-parameter mass (density x U_n);
     ``wire_bytes`` scales it to the codec's value precision and adds the
     measured per-client mask overhead (``wire_overhead``, from
     ``codecs.mask_overhead_bytes_stacked``; None for the dense codec).
-    The default CommConfig gives the same float twice.
+    The default CommConfig gives the same float twice.  ``obs`` (a
+    :mod:`repro_torch.obs` recorder) gets both through ``obs.uplink``, so
+    its byte counters equal the round records' sums on every executor.
     """
     raw = uplink_bytes_raw(densities, participants, model_bytes)
     if comm.is_default:
-        return raw, raw
-    wire = raw * (comm.qbits / 32.0)
-    if wire_overhead is not None:
-        wire += float(np.dot(np.asarray(wire_overhead, np.float64),
-                             np.asarray(participants, np.float64)))
+        wire = raw
+    else:
+        wire = raw * (comm.qbits / 32.0)
+        if wire_overhead is not None:
+            wire += float(np.dot(np.asarray(wire_overhead, np.float64),
+                                 np.asarray(participants, np.float64)))
+    if obs is not None and obs.active:
+        obs.uplink(raw, wire)
     return raw, wire
 
 

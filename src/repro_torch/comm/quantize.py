@@ -14,9 +14,11 @@ Keys follow the JAX package: ``fold_in(round_key, 20_000 + i)`` for
 client ``i`` (masks use 10_000 + i), then ``fold_in(client_key, leaf)``
 in flatten order, so the same client and leaf draw the same noise on
 every path.  The scale is ``max|x| * float32(1/127)``, as the JAX
-package's jitted engine computes ``max|x| / 127``; ``x / scale`` divides
-by a tensor (CUDA divides by a Python scalar through its reciprocal, an
-ulp off the true quotient, which could move a code).
+package's jitted engine computes ``max|x| / 127``, or with
+``exact_scale`` the true quotient its eager per-client loop computes;
+``x / scale`` divides by a tensor (CUDA divides by a Python scalar
+through its reciprocal, an ulp off the true quotient, which could move a
+code).
 """
 
 from __future__ import annotations
@@ -51,10 +53,12 @@ def scale_bytes(qbits: int) -> int:
     return 4 if qbits == 8 else 0
 
 
-def quantize_leaf(x: torch.Tensor, qbits: int, key=None):
+def quantize_leaf(x: torch.Tensor, qbits: int, key=None, *,
+                  exact_scale: bool = False):
     """Encode one leaf -> (codes, scale): fp32/fp16 codes are the values
     in the target dtype (scale None); int8 codes are the stochastically
-    rounded integers, with a 0-d float32 scale."""
+    rounded integers, with a 0-d float32 scale (``exact_scale``: the true
+    quotient ``max|x| / 127``, else the reciprocal product)."""
     if qbits == 32:
         return x.to(torch.float32), None
     if qbits == 16:
@@ -63,7 +67,9 @@ def quantize_leaf(x: torch.Tensor, qbits: int, key=None):
         raise ValueError("qbits=8 stochastic rounding requires a PRNG key")
     xf = x.to(torch.float32)
     u = prng.uniform(key, tuple(xf.shape), xf.device)
-    scale = xf.abs().amax() * _INV_127
+    amax = xf.abs().amax()
+    scale = (amax / torch.full((), 127.0, device=xf.device) if exact_scale
+             else amax * _INV_127)
     q = torch.clamp(torch.floor(xf / torch.clamp_min(scale, 1e-30) + u),
                     -127, 127)
     return q.to(torch.int8), scale
@@ -77,23 +83,28 @@ def dequantize_leaf(codes: torch.Tensor, scale: Optional[torch.Tensor],
                        torch.zeros((), device=codes.device))
 
 
-def qdq_leaf(x: torch.Tensor, qbits: int, key=None) -> torch.Tensor:
+def qdq_leaf(x: torch.Tensor, qbits: int, key=None, *,
+             exact_scale: bool = False) -> torch.Tensor:
     """quantize -> dequantize one leaf (what the server's aggregate sees),
     in ``x``'s dtype; the identity for qbits=32."""
     if qbits == 32:
         return x
-    codes, scale = quantize_leaf(x, qbits, key)
+    codes, scale = quantize_leaf(x, qbits, key, exact_scale=exact_scale)
     return dequantize_leaf(codes, scale, qbits).to(x.dtype)
 
 
-def quantize_dequantize(params, key, qbits: int):
+def quantize_dequantize(params, key, qbits: int, *,
+                        exact_scale: bool = False):
     """One client's QDQ over a pytree, leaf ``l`` under
-    ``fold_in(key, l)`` in flatten order."""
+    ``fold_in(key, l)`` in flatten order.  ``exact_scale`` renders the
+    JAX package's eager per-client loop (a true ``max|x| / 127``); the
+    default equals :func:`quantize_dequantize_stacked` row by row."""
     if qbits == 32:
         return params
     leaves, treedef = tree.flatten(params)
     out = [qdq_leaf(l, qbits,
-                    prng.fold_in(key, i) if key is not None else None)
+                    prng.fold_in(key, i) if key is not None else None,
+                    exact_scale=exact_scale)
            for i, l in enumerate(leaves)]
     return tree.unflatten(treedef, out)
 

@@ -8,7 +8,8 @@ Positions received from NO client keep the previous global value.
 Eq. (4) runs through the ``sparse_agg`` kernel in its mean mode (the
 division and the previous-global fill inside the kernel), one launch per
 leaf, and Eq. (5) through the ``masked_merge`` kernel, one launch for all
-the leaves of the tree; masks stay channel-shaped (N, 1, ..., C, ..., 1)
+the leaves of the tree (of every client on the engine, of one client in
+the per-client loop); masks stay channel-shaped (N, 1, ..., C, ..., 1)
 and are never broadcast to the parameters' shape.
 
 Only the weighted mean is ported; the Byzantine-robust variants wait for
@@ -68,18 +69,43 @@ def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
     return tree.unflatten(treedef, out)
 
 
-def client_update_sparse(global_params, stacked_local, stacked_masks):
-    """Eq. (5) for every client: W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n).
+def aggregate_sparse(client_params: Sequence, client_masks: Sequence,
+                     client_weights, *, prev_global=None):
+    """Eq. (4) over lists of client pytrees (the per-client loop's form).
 
-    ``global_params`` is un-stacked; ``stacked_local`` and the
-    channel-shaped ``stacked_masks`` carry the client axis.  The leaves
-    go to the kernel as one group (one launch per dtype on the card).
+    Each client's leaves and channel-shaped masks are stacked and go
+    through the same per-leaf mean-mode kernel as
+    :func:`aggregate_sparse_stacked`, so the two agree bit for bit.
+    """
+    n = len(client_params)
+    if len(client_masks) != n:
+        raise ValueError("params/masks count mismatch")
+    if len(client_weights) != n:
+        raise ValueError("weights count mismatch")
+    return aggregate_sparse_stacked(
+        tree.tree_map(lambda *ls: torch.stack(ls), *client_params),
+        tree.tree_map(lambda *ms: torch.stack(ms), *client_masks),
+        client_weights, prev_global=prev_global)
+
+
+def client_update_sparse(global_params, local_params, masks):
+    """Eq. (5): W_n^{t+1} = W^t ⊙ M_n + What_n ⊙ (1 - M_n).
+
+    ``global_params`` is un-stacked.  ``local_params`` and the
+    channel-shaped ``masks`` either carry the client axis (every client
+    of the stacked engine) or not (one client of the per-client loop, a
+    group of N = 1).  The leaves go to the kernel as one group (one
+    launch per dtype on the card).
     """
     gl, gdef = tree.flatten(global_params)
-    ll, ldef = tree.flatten(stacked_local)
-    ml, mdef = tree.flatten(stacked_masks)
+    ll, ldef = tree.flatten(local_params)
+    ml, mdef = tree.flatten(masks)
     if not gdef == ldef == mdef:
         raise ValueError("tree structure mismatch")
+    if all(l.ndim == g.ndim for g, l in zip(gl, ll)):      # one client
+        merged = merge_ops.masked_merge_many(
+            gl, [l[None] for l in ll], [m[None] for m in ml])
+        return tree.unflatten(ldef, [o[0] for o in merged])
     return tree.unflatten(ldef, merge_ops.masked_merge_many(gl, ll, ml))
 
 

@@ -1,10 +1,22 @@
-"""The Eq. (12) round clock and the FedAvg baseline selector (§6.2).
+"""The Eq. (12) round clock and the client-selection baselines (§6.2).
 
-FedCS and Oort selection are not ported yet (ROADMAP.md queue A item 7).
+* FedAvg — everyone uploads the full model (no budget).
+* FedCS  — drop the clients with the longest round time until the
+           uploaded parameter mass fits the budget (Nishio & Yonetani).
+* Oort   — utility-guided selection (Lai et al., OSDI'21): a loss-based
+           statistical utility times a straggler penalty, highest utility
+           first within the budget.
+
+Every selector returns a boolean participation vector; selected clients
+upload FULL models.  The selectors are the JAX package's numpy code: the
+same ``np.argsort`` calls on the same float64 arrays, so the same clients
+are chosen, ties included.  The traced Oort selector of a scanned
+multi-round engine waits for ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -30,3 +42,63 @@ def round_times(tel: ClientTelemetry, dropout: Optional[np.ndarray] = None,
 def select_fedavg(tel: ClientTelemetry) -> np.ndarray:
     """FedAvg: every client uploads its full model."""
     return np.ones(tel.num_clients, bool)
+
+
+def _greedy_within_budget(order: np.ndarray, tel: ClientTelemetry,
+                          a_server: float) -> np.ndarray:
+    """Admit clients in ``order`` while their models fit A_server * sum(U);
+    always keep at least the first."""
+    budget = a_server * float(np.sum(tel.model_bytes))
+    sel = np.zeros(tel.num_clients, bool)
+    used = 0.0
+    for i in order:
+        if used + tel.model_bytes[i] <= budget + 1e-9:
+            sel[i] = True
+            used += tel.model_bytes[i]
+    if not sel.any():
+        sel[order[0]] = True
+    return sel
+
+
+def select_fedcs(tel: ClientTelemetry, *, a_server: float) -> np.ndarray:
+    """Keep the fastest clients until the budget A_server * sum(U) is spent."""
+    return _greedy_within_budget(np.argsort(round_times(tel)), tel, a_server)
+
+
+@dataclasses.dataclass
+class OortState:
+    """Exploitation statistics for Oort (simplified faithful variant)."""
+    straggler_penalty: float = 2.0   # alpha (= 2 per FedDD §6.2)
+
+    def utilities(self, tel: ClientTelemetry,
+                  round_deadline: Optional[float] = None) -> np.ndarray:
+        """m_n * sqrt(loss_n) * the straggler penalty (Oort's Eq. (1) at
+        client level)."""
+        stat = tel.num_samples * np.sqrt(np.maximum(tel.train_loss, 0.0))
+        return stat * oort_system_penalty(tel, state=self,
+                                          round_deadline=round_deadline)
+
+
+def oort_system_penalty(tel: ClientTelemetry, *,
+                        state: Optional[OortState] = None,
+                        round_deadline: Optional[float] = None
+                        ) -> np.ndarray:
+    """The loss-independent factor of Oort's utility, static per
+    telemetry: ``(deadline / t_n) ** alpha`` for clients slower than the
+    deadline (default: the 80th percentile of the Eq. (12) times), else 1."""
+    state = state or OortState()
+    t = round_times(tel)
+    if round_deadline is None:
+        round_deadline = float(np.percentile(t, 80))
+    return np.where(
+        t > round_deadline,
+        (round_deadline / np.maximum(t, 1e-9)) ** state.straggler_penalty,
+        1.0)
+
+
+def select_oort(tel: ClientTelemetry, *, a_server: float,
+                state: Optional[OortState] = None) -> np.ndarray:
+    """Highest-utility clients within the parameter budget."""
+    state = state or OortState()
+    return _greedy_within_budget(np.argsort(-state.utilities(tel)), tel,
+                                 a_server)

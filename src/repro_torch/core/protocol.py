@@ -10,20 +10,39 @@ with the JAX package's key chain (:mod:`repro_torch.prng`, threefry):
 and the round key ``rk``; client ``i`` trains under ``fold_in(rk, i)`` and
 the engine step takes ``rk`` (random masks, int8 stochastic rounding).
 
-Every round runs through the batched engine (``core/round_engine.py``):
-the fleet's parameters stay stacked on the device, one engine step per
-round.  Between rounds the numpy Eq. (9)-(11) LP re-allocates the dropout
-rates (on effective wire bytes with ``comm.overhead_aware_allocation``)
-and the Eq. (12) clock advances:
+Round execution is a strategy behind one executor interface
+(:class:`_RoundExecutor`); every strategy runs the same Algorithm-1 maths:
+
+* **engine** (default): the fleet's parameters stay stacked on the
+  device, one engine step per round (``core/round_engine.py``).  FedAvg,
+  FedCS and Oort run its ``dense_masks`` mode with non-participants as a
+  0 aggregation weight.
+* **loop** (``batched=False``, or ``track_epsilon=True``): the per-client
+  reference loop, Algorithm 1 written out client by client — the oracle
+  every engine is held to, and the only path that gives
+  ``RoundRecord.epsilon`` (the Assumption-3 estimate,
+  ``core/convergence.py``).  Slow by design: per-client mask building and
+  Eq. (5) launches, and one density read (a device sync) per client.
+
+Between rounds the numpy Eq. (9)-(11) LP re-allocates the dropout rates
+(on effective wire bytes with ``comm.overhead_aware_allocation``) and the
+Eq. (12) clock advances:
 
     t = t_cmp + U(1-D)/r_u + U(1-D)/r_d,   the round takes the max over
     participating clients, at the rates the round's uploads used; with a
     non-default wire format the uplink leg charges the codec's analytic
     bytes (``comm.payload.analytic_wire_bytes``).
 
-Not ported yet, each raising with a pointer to ROADMAP.md queue A: the
-per-client reference loop, ragged (grouped) fleets, the scanned
-multi-round path, FedCS/Oort, the event-driven simulator with faults and
+Observability (``ProtocolConfig.obs``, :mod:`repro_torch.obs`): host spans
+around each phase (allocate / local_train / engine_step / host_transfer /
+eval on the engine; local_train / encode / aggregate / client_update on
+the loop), byte counters from ``account_uplink`` and one JSONL ``round``
+event a round.  The default ``ObsConfig()`` is inert; spans read the
+host clock only, so a run with obs on makes the same device syncs.
+
+Not ported yet, each raising with a pointer to ROADMAP.md queue A:
+ragged (grouped) fleets, the scanned multi-round path, robust
+aggregation, the event-driven simulator with faults, checkpoints and
 population serving, and the client-sharded mesh.
 """
 
@@ -37,20 +56,36 @@ import numpy as np
 import torch
 
 from repro_torch import convert, prng, tree
+from repro_torch import obs as obs_mod
+from repro_torch.comm import codecs as wire_codecs
+from repro_torch.comm import quantize as wire_quant
 from repro_torch.comm.payload import (CommConfig, WireSpec, account_uplink,
                                       analytic_uplink_vector)
-from repro_torch.core import baselines, round_engine, selection
+from repro_torch.core import aggregation, baselines, round_engine, selection
 from repro_torch.core.allocation import (ALLOCATORS, AllocationResult,
                                          ClientTelemetry,
                                          solve_dropout_rates_with)
+from repro_torch.core.convergence import estimate_epsilon
 from repro_torch.device import DeviceLike, resolve_device
 
-SCHEMES = ("feddd", "fedavg")
+SCHEMES = ("feddd", "fedavg", "fedcs", "oort")
+
+# fields of the JAX package's ProtocolConfig whose paths are not ported:
+# (field, its inert default, ROADMAP.md queue A item, what it drives)
+_UNPORTED = (
+    ("rounds_per_dispatch", 1, 10, "the scanned multi-round path"),
+    ("robust_agg", "mean", 12, "robust aggregation"),
+    ("mesh", None, 14, "the client-sharded mesh"),
+    ("checkpoint_every", None, 13, "crash-resume checkpoints"),
+    ("checkpoint_path", None, 13, "crash-resume checkpoints"),
+    ("resume_from", None, 13, "crash-resume checkpoints"),
+    ("population", None, 13, "population serving"),
+    ("cohort_size", None, 13, "population serving"))
 
 
 @dataclasses.dataclass
 class ProtocolConfig:
-    scheme: str = "feddd"            # feddd | fedavg
+    scheme: str = "feddd"            # feddd | fedavg | fedcs | oort
     selection: selection.SelectionConfig = dataclasses.field(
         default_factory=selection.SelectionConfig)
     a_server: float = 0.6            # communication budget (Table 4)
@@ -59,22 +94,43 @@ class ProtocolConfig:
     h: int = 5                       # full-broadcast period (Table 4)
     rounds: int = 50
     seed: int = 0
+    track_epsilon: bool = False      # Assumption-3 estimator (the loop)
+    batched: bool = True             # False: the per-client reference loop
     allocator: str = "numpy"         # Eq. (16)/(17) LP solver
     comm: CommConfig = dataclasses.field(default_factory=CommConfig)
                                      # wire format (repro_torch.comm); the
                                      # default is the analytic accounting
+    obs: obs_mod.ObsConfig = dataclasses.field(
+        default_factory=obs_mod.ObsConfig)
+                                     # observability (repro_torch.obs); the
+                                     # default is inert
+    rounds_per_dispatch: int = 1     # the fields below drive paths not
+    robust_agg: str = "mean"         # ported yet: anything but the
+    mesh: object = None              # default raises
+    checkpoint_every: Optional[int] = None
+    checkpoint_path: Optional[str] = None
+    resume_from: Optional[str] = None
+    population: Optional[int] = None
+    cohort_size: Optional[int] = None
 
     def __post_init__(self):
-        if self.scheme in ("fedcs", "oort"):
-            raise NotImplementedError(
-                f"scheme {self.scheme!r} is not ported yet (ROADMAP.md "
-                "queue A item 7)")
         if self.scheme not in SCHEMES:
             raise ValueError(f"unknown scheme {self.scheme!r}")
         if self.allocator not in ALLOCATORS:
             raise NotImplementedError(
                 f"allocator {self.allocator!r} is not ported yet (ROADMAP.md "
                 "queue A item 4); use allocator='numpy'")
+        for name, default, item, what in _UNPORTED:
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
+                    f"yet (ROADMAP.md queue A item {item})")
+
+
+@dataclasses.dataclass
+class ClientState:
+    params: object                   # W_n^t
+    num_samples: int                 # m_n, the client's Eq. (4) weight
 
 
 @dataclasses.dataclass
@@ -97,8 +153,8 @@ class RoundRecord:
                                      # codec's precision + measured mask /
                                      # scale overhead; == uploaded_bytes
                                      # with the default CommConfig
-    epsilon: Optional[float] = None  # Assumption-3 estimate (the JAX
-                                     # package's reference loop only)
+    epsilon: Optional[float] = None  # Assumption-3 estimate (the
+                                     # reference loop with track_epsilon)
     metrics: Optional[Dict] = None
     # failure-model fields of the JAX package's simulator; the defaults
     # describe a fault-free round
@@ -131,57 +187,185 @@ class _RoundData(NamedTuple):
     losses: np.ndarray               # server-side loss view after the round
     uploaded_bytes: float            # raw kept bytes uploaded this round
     active: np.ndarray               # (N,) bool: clients on the Eq. (12) clock
+    epsilon: Optional[float]         # Assumption-3 estimate (loop only)
     wire_bytes: float
 
 
-class _EngineExecutor:
-    """One BatchedRoundEngine step per round; client state stays stacked
-    on the device.  FedAvg runs ``dense_masks`` mode with
-    non-participation as a 0 aggregation weight."""
+class _RoundExecutor:
+    """One round-execution strategy: the server's :meth:`FedDDServer.run`
+    owns the key schedule, the LP, the Eq. (12) clock and the history, and
+    hands the round's training, masks, aggregation and client updates to
+    one of these."""
 
     def __init__(self, server: "FedDDServer", local_train_fn):
         self.srv = server
         self.local_train_fn = local_train_fn
+
+    def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
+                  d_used: np.ndarray) -> _RoundData:
+        raise NotImplementedError
+
+    def finalize(self) -> None:
+        """Sync executor-held client state back into ``server.clients``."""
+
+
+class _EngineExecutor(_RoundExecutor):
+    """One BatchedRoundEngine step per round; client state stays stacked
+    on the device.  The baselines run ``dense_masks`` mode with
+    non-participation as a 0 aggregation weight."""
+
+    def __init__(self, server: "FedDDServer", local_train_fn):
+        super().__init__(server, local_train_fn)
         self.engine = round_engine.BatchedRoundEngine(server.cfg.selection,
                                                       server.cfg.comm)
         self.weights = np.asarray(
-            [int(s) for s in server.tel.num_samples], float)
+            [cs.num_samples for cs in server.clients], float)
         self.stacked = round_engine.stack_pytrees(
-            [server.global_params] * server.tel.num_clients)
+            [cs.params for cs in server.clients])
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
                   d_used: np.ndarray) -> _RoundData:
         srv, cfg = self.srv, self.srv.cfg
+        obs = srv.obs
         n = srv.tel.num_clients
         dense = cfg.scheme != "feddd"
         part = (np.ones(n, bool) if not dense
                 else srv._participants(losses))
-        new_list, loss_list = [], []
-        for i, p_i in enumerate(round_engine.unstack_pytree(self.stacked, n)):
-            if part[i]:
-                p, l = self.local_train_fn(p_i, i, prng.fold_in(rk, i))
-            else:       # baseline non-participant: stale state
-                p, l = p_i, losses[i]
-            new_list.append(p)
-            loss_list.append(l)
-        stacked_new = round_engine.stack_pytrees(new_list)
-        out = self.engine.step(self.stacked, stacked_new, srv.global_params,
-                               d_used, self.weights * part, rk,
-                               full_round=(t % cfg.h == 0) or dense,
-                               dense_masks=dense)
+        with obs.span("local_train", round=t):
+            new_list, loss_list = [], []
+            for i, p_i in enumerate(round_engine.unstack_pytree(self.stacked,
+                                                                n)):
+                if part[i]:
+                    p, l = self.local_train_fn(p_i, i, prng.fold_in(rk, i))
+                else:       # baseline non-participant: stale state
+                    p, l = p_i, losses[i]
+                new_list.append(p)
+                loss_list.append(l)
+            stacked_new = round_engine.stack_pytrees(new_list)
+        with obs.span("engine_step", round=t):
+            out = self.engine.step(self.stacked, stacked_new,
+                                   srv.global_params, d_used,
+                                   self.weights * part, rk,
+                                   full_round=(t % cfg.h == 0) or dense,
+                                   dense_masks=dense)
         srv.global_params = out.global_params
         self.stacked = out.client_params
-        dens, oh = _to_host(out.densities, out.wire_overhead)
+        with obs.span("host_transfer", round=t):
+            dens, oh = _to_host(out.densities, out.wire_overhead)
         new_losses = np.asarray([float(l) for l in loss_list], float)
         uploaded, wire = account_uplink(dens, part, srv.tel.model_bytes, oh,
-                                        cfg.comm)
-        return _RoundData(new_losses, uploaded, part, wire)
+                                        cfg.comm, obs=obs)
+        return _RoundData(new_losses, uploaded, part, None, wire)
+
+    def finalize(self) -> None:
+        for cs, p in zip(self.srv.clients, round_engine.unstack_pytree(
+                self.stacked, self.srv.tel.num_clients)):
+            cs.params = p
+
+
+class _ReferenceLoopExecutor(_RoundExecutor):
+    """The per-client loop — Algorithm 1 written out client by client.
+
+    The oracle the engine is held to, and the only path that builds the
+    per-client mask pytrees ``track_epsilon`` needs.  Each client scores
+    its leaves through the importance kernel at N = 1, Eq. (4) stacks the
+    uploads for the ``sparse_agg`` kernel, and each client's Eq. (5) is one
+    ``masked_merge`` launch for all its leaves.  Keys: client ``i`` trains
+    under ``fold_in(rk, i)``, builds masks under ``fold_in(rk, 10_000 +
+    i)`` and quantizes under ``client_quant_key(rk, i)``, as the engine.
+    """
+
+    def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
+                  d_used: np.ndarray) -> _RoundData:
+        srv, cfg = self.srv, self.srv.cfg
+        obs = srv.obs
+        n = srv.tel.num_clients
+        feddd = cfg.scheme == "feddd"
+        losses = losses.copy()
+        part = srv._participants(losses)
+        eps_val = None
+
+        # Step 1: local training (in FedDD everyone trains)
+        new_params: List = [None] * n
+        with obs.span("local_train", round=t):
+            for i, cs in enumerate(srv.clients):
+                if feddd or part[i]:
+                    p, l = self.local_train_fn(cs.params, i,
+                                               prng.fold_in(rk, i))
+                    new_params[i] = p
+                    losses[i] = float(l)
+
+        # Steps 2-3: masks and the (simulated) upload
+        densities = np.zeros(n)
+        wire_oh = None if cfg.comm.is_default else np.zeros(n)
+        client_masks: List = [None] * n
+        with obs.span("encode", round=t):
+            if feddd:
+                for i, cs in enumerate(srv.clients):
+                    m = selection.build_masks(
+                        cs.params, new_params[i], d_used[i],
+                        config=cfg.selection,
+                        rng=prng.fold_in(rk, selection.MASK_KEY_OFFSET + i))
+                    client_masks[i] = m
+                    densities[i] = _host_float(
+                        selection.mask_density(new_params[i], m))
+            else:
+                for i in np.flatnonzero(part):
+                    client_masks[i] = tree.tree_map(
+                        lambda w: torch.ones((1,) * w.ndim, dtype=w.dtype,
+                                             device=w.device), new_params[i])
+                    densities[i] = 1.0
+            uploads = np.asarray([m is not None for m in client_masks])
+            if wire_oh is not None:
+                for i in np.flatnonzero(uploads):
+                    # baseline full uploads charge the closed-form
+                    # full-upload constant at true widths, as the engine
+                    wire_oh[i] = (
+                        wire_codecs.mask_overhead_bytes(
+                            client_masks[i], new_params[i], cfg.comm)
+                        if feddd else wire_codecs.full_upload_overhead_bytes(
+                            srv.wire_specs[i], cfg.comm))
+
+        # Step 4: Eq. (4) over the uploads the server decoded; the int8
+        # scale is the true quotient of the JAX package's eager loop (its
+        # jitted engine multiplies by the reciprocal: an ulp apart)
+        idxs = np.flatnonzero(uploads)
+        with obs.span("aggregate", round=t):
+            agg_params = [
+                new_params[i] if cfg.comm.qbits == 32 else
+                wire_quant.quantize_dequantize(
+                    new_params[i], wire_quant.client_quant_key(rk, i),
+                    cfg.comm.qbits, exact_scale=True)
+                for i in idxs]
+            agg_masks = [client_masks[i] for i in idxs]
+            if cfg.track_epsilon:
+                eps_val = _host_float(estimate_epsilon(agg_params, agg_masks))
+            srv.global_params = aggregation.aggregate_sparse(
+                agg_params, agg_masks,
+                [srv.clients[i].num_samples for i in idxs],
+                prev_global=srv.global_params)
+
+        # Steps 6-7: download and the local update, Eq. (5) or Eq. (6)
+        full_round = (t % cfg.h == 0) or not feddd
+        with obs.span("client_update", round=t):
+            for i, cs in enumerate(srv.clients):
+                if full_round:
+                    cs.params = srv.global_params
+                elif new_params[i] is not None:
+                    cs.params = aggregation.client_update_sparse(
+                        srv.global_params, new_params[i], client_masks[i])
+
+        uploaded, wire = account_uplink(densities, uploads,
+                                        srv.tel.model_bytes, wire_oh,
+                                        cfg.comm, obs=obs)
+        active = np.ones(n, bool) if feddd else part
+        return _RoundData(losses, uploaded, active, eps_val, wire)
 
 
 def _to_host(densities: torch.Tensor, wire_overhead):
-    """The round's one device-to-host copy: the (N,) float32 densities and,
-    with a non-default wire format, the (N,) int32 overhead (its bits ride
-    in the same float32 buffer)."""
+    """The engine round's one device-to-host copy: the (N,) float32
+    densities and, with a non-default wire format, the (N,) int32 overhead
+    (its bits ride in the same float32 buffer)."""
     if wire_overhead is None:
         return densities.cpu().numpy(), None
     n = densities.shape[0]
@@ -190,8 +374,13 @@ def _to_host(densities: torch.Tensor, wire_overhead):
     return host[:n], host[n:].view(np.int32)
 
 
+def _host_float(x: torch.Tensor) -> float:
+    """The loop's per-client read of a 0-D device value (a sync each)."""
+    return float(x)
+
+
 class FedDDServer:
-    """Parameter server for FedDD and the FedAvg baseline."""
+    """Parameter server for FedDD and the three baselines."""
 
     def __init__(self, global_params, cfg: ProtocolConfig,
                  telemetry: ClientTelemetry, client_params=None, *,
@@ -204,6 +393,8 @@ class FedDDServer:
         self.cfg = cfg
         self.tel = telemetry
         self.global_params = convert.to_torch(global_params, self.device)
+        self.clients = [ClientState(self.global_params, int(m))
+                        for m in telemetry.num_samples]
         # per-client wire shapes: the analytic byte model behind the
         # Eq. (12) uplink charge and the overhead-aware allocation
         self.wire_specs = [WireSpec.from_params(
@@ -211,6 +402,8 @@ class FedDDServer:
         ] * telemetry.num_clients
         self.dropout = np.zeros(telemetry.num_clients)   # D_n^1 = 0
         self.rng = prng.PRNGKey(cfg.seed)
+        # the inert recorder until run() builds one for an active cfg.obs
+        self.obs = obs_mod.NULL_RECORDER
 
     def allocate(self, losses: np.ndarray) -> AllocationResult:
         tel = dataclasses.replace(self.tel, train_loss=losses)
@@ -224,7 +417,27 @@ class FedDDServer:
     def _participants(self, losses: np.ndarray) -> np.ndarray:
         if self.cfg.scheme == "fedavg":
             return baselines.select_fedavg(self.tel)
+        if self.cfg.scheme == "fedcs":
+            return baselines.select_fedcs(self.tel,
+                                          a_server=self.cfg.a_server)
+        if self.cfg.scheme == "oort":
+            tel = dataclasses.replace(self.tel, train_loss=losses)
+            return baselines.select_oort(tel, a_server=self.cfg.a_server)
         return np.ones(self.tel.num_clients, bool)   # feddd: everyone
+
+    def _executor_kind(self) -> str:
+        """``track_epsilon`` needs the loop's per-client masks;
+        ``batched=False`` asks for the loop as the oracle."""
+        if self.cfg.track_epsilon or not self.cfg.batched:
+            return "loop"
+        return "engine"
+
+    _EXECUTORS = {"engine": _EngineExecutor, "loop": _ReferenceLoopExecutor}
+
+    @property
+    def executor_kind(self) -> str:
+        """The executor ``run`` routes to: "engine" or "loop"."""
+        return self._executor_kind()
 
     def run(self, local_train_fn: Callable,
             eval_fn: Optional[Callable[[object], Dict]] = None,
@@ -236,51 +449,80 @@ class FedDDServer:
         sim_time = 0.0
         history: List[RoundRecord] = []
         full_bytes = float(np.sum(self.tel.model_bytes))
-        executor = _EngineExecutor(self, local_train_fn)
-        for t in range(1, rounds + 1):
-            t0 = time.perf_counter()
-            self.rng, rk = prng.split(self.rng)
-            d_used = self.dropout.copy()  # D_t: what uploads use
-            rd = executor.run_round(t, rk, losses, d_used)
-            losses = rd.losses
-            # --- Step 5: dropout-rate allocation for round t+1
-            if cfg.scheme == "feddd":
-                alloc = self.allocate(np.maximum(losses, 1e-6))
-                self.dropout = alloc.dropout_rates
-            # --- simulated wall clock (paper Eq. (12))
-            d_for_time = (d_used if cfg.scheme == "feddd"
-                          else np.zeros(n))
-            up = (None if cfg.comm.is_default else
-                  analytic_uplink_vector(self.wire_specs, d_for_time,
-                                         cfg.comm))
-            t_all = baselines.round_times(self.tel, d_for_time,
-                                          uplink_bytes=up)
-            round_t = float(np.max(t_all[rd.active]))
-            sim_time += round_t
-            metrics = eval_fn(self.global_params) if eval_fn else None
-            history.append(RoundRecord(
-                round=t, sim_time=sim_time, sim_round_time=round_t,
-                host_wall_time=time.perf_counter() - t0,
-                mean_loss=float(np.mean(losses)),
-                dropout_rates=self.dropout.copy(),
-                uploaded_fraction=rd.uploaded_bytes / max(full_bytes, 1e-9),
-                uploaded_bytes=rd.uploaded_bytes, wire_bytes=rd.wire_bytes,
-                participants=int(np.sum(rd.active)),
-                survivors=int(np.sum(rd.active)), metrics=metrics))
-        return RunResult(history, self.global_params)
+        kind = self._executor_kind()
+        executor = self._EXECUTORS[kind](self, local_train_fn)
+        self.obs = obs_mod.make_recorder(
+            cfg.obs, driver="protocol", scheme=cfg.scheme, executor=kind,
+            clients=n, rounds=rounds)
+        try:
+            for t in range(1, rounds + 1):
+                t0 = time.perf_counter()
+                self.rng, rk = prng.split(self.rng)
+                d_used = self.dropout.copy()  # D_t: what uploads use
+                rd = executor.run_round(t, rk, losses, d_used)
+                losses = rd.losses
+                # --- Step 5: dropout-rate allocation for round t+1
+                if cfg.scheme == "feddd":
+                    with self.obs.span("allocate", round=t):
+                        alloc = self.allocate(np.maximum(losses, 1e-6))
+                    self.dropout = alloc.dropout_rates
+                sim_time, round_t, metrics, t_all = self._finish_round(
+                    rd.active, sim_time, eval_fn, d_used)
+                history.append(RoundRecord(
+                    round=t, sim_time=sim_time, sim_round_time=round_t,
+                    host_wall_time=time.perf_counter() - t0,
+                    mean_loss=float(np.mean(losses)),
+                    dropout_rates=self.dropout.copy(),
+                    uploaded_fraction=rd.uploaded_bytes / max(full_bytes,
+                                                              1e-9),
+                    uploaded_bytes=rd.uploaded_bytes,
+                    wire_bytes=rd.wire_bytes,
+                    participants=int(np.sum(rd.active)),
+                    survivors=int(np.sum(rd.active)), epsilon=rd.epsilon,
+                    metrics=metrics))
+                if self.obs.active:
+                    self.obs.round(
+                        history[-1], path=kind, scheme=cfg.scheme,
+                        client_times=np.where(rd.active, t_all, np.nan))
+            executor.finalize()
+            return RunResult(history, self.global_params)
+        finally:
+            self.obs.close()
+            self.obs = obs_mod.NULL_RECORDER
+
+    def _finish_round(self, active: np.ndarray, sim_time: float, eval_fn,
+                      d_used: np.ndarray):
+        """The paper's Eq. (12) clock at the rates the round's uploads used
+        (D_t), then the eval -> (sim_time, round time, metrics, the
+        per-client times the max ran over)."""
+        d_for_time = (d_used if self.cfg.scheme == "feddd"
+                      else np.zeros(self.tel.num_clients))
+        up = (None if self.cfg.comm.is_default else
+              analytic_uplink_vector(self.wire_specs, d_for_time,
+                                     self.cfg.comm))
+        t_all = baselines.round_times(self.tel, d_for_time, uplink_bytes=up)
+        round_t = float(np.max(t_all[active]))
+        metrics = None
+        if eval_fn:
+            with self.obs.span("eval"):
+                metrics = eval_fn(self.global_params)
+        return sim_time + round_t, round_t, metrics, t_all
 
 
 def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
                eval_fn=None, client_params=None, *,
                device: DeviceLike = None, sim=None, network=None,
-               faults=None, population=None, cohort_size=None, mesh=None,
+               faults=None, population=None, cohort_size=None,
                **cfg_kw) -> RunResult:
     """One-call wrapper: build the server for ``scheme`` and run it.
 
     ``device`` defaults to ``cuda`` and raises without a card; pass
-    ``device="cpu"`` for a CPU run.  The simulator (``sim`` / ``network``
-    / ``faults``), population serving and the client-sharded mesh are not
-    ported yet.
+    ``device="cpu"`` for a CPU run.  ``batched=False`` or
+    ``track_epsilon=True`` runs the per-client reference loop, and
+    ``obs=ObsConfig(...)`` records spans, metrics and a JSONL log.  The
+    simulator (``sim`` / ``network`` / ``faults``) and population serving
+    are not ported yet; neither are the ``ProtocolConfig`` fields that
+    drive other unported paths (``mesh``, ``robust_agg``, ...).
     """
     if sim is not None or network is not None or faults is not None:
         raise NotImplementedError(
@@ -290,10 +532,6 @@ def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
         raise NotImplementedError(
             "population serving is not ported yet (ROADMAP.md queue A "
             "item 13)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "the client-sharded mesh is not ported yet (ROADMAP.md queue A "
-            "item 14)")
     cfg = ProtocolConfig(scheme=scheme, **cfg_kw)
     server = FedDDServer(global_params, cfg, telemetry, client_params,
                          device=device)

@@ -35,6 +35,7 @@ from repro_torch.comm import codecs as wire_codecs
 from repro_torch.comm import quantize as wire_quant
 from repro_torch.comm.payload import CommConfig, WireSpec
 from repro_torch.core import aggregation, selection
+from repro_torch.obs.recorder import profiler_scope
 
 
 class RoundOutputs(NamedTuple):
@@ -98,26 +99,36 @@ def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
                 full_round: bool, dense_masks: bool = False,
                 comm: CommConfig = CommConfig()) -> RoundOutputs:
     """Steps 2-4 and 6-7 of Algorithm 1 over the stacked fleet; ``rng`` is
-    the round key (scheme 'random' masks, int8 stochastic rounding)."""
-    if dense_masks:
-        n = tree.leaves(stacked_new)[0].shape[0]
-        masks, density = _dense_masks(stacked_new, n)
-    else:
-        masks, density = selection.build_masks_batched(
-            stacked_old, stacked_new, dropout_rates, config=sel_cfg, rng=rng)
+    the round key (scheme 'random' masks, int8 stochastic rounding).
+
+    The phases carry the JAX engine's ``named_scope`` names as profiler
+    scopes (``feddd_encode_masks``, ``feddd_encode_wire``,
+    ``feddd_aggregate``, ``feddd_client_update``), entered only while a
+    torch.profiler trace records."""
+    with profiler_scope("feddd_encode_masks"):
+        if dense_masks:
+            n = tree.leaves(stacked_new)[0].shape[0]
+            masks, density = _dense_masks(stacked_new, n)
+        else:
+            masks, density = selection.build_masks_batched(
+                stacked_old, stacked_new, dropout_rates, config=sel_cfg,
+                rng=rng)
     # the server aggregates what it decoded; Eq. (5) below keeps the
     # clients' own full-precision values
-    stacked_agg = wire_quant.quantize_dequantize_stacked(stacked_new, rng,
-                                                         comm.qbits)
-    wire_oh = _wire_overhead(masks, stacked_new, comm, sel_cfg.channel_axis,
-                             dense_masks)
-    new_global = aggregation.aggregate_sparse_stacked(
-        stacked_agg, masks, weights, prev_global=global_params)
-    if full_round:
-        new_clients = _adopt_global(new_global, stacked_new)
-    else:
-        new_clients = aggregation.client_update_sparse(
-            new_global, stacked_new, masks)
+    with profiler_scope("feddd_encode_wire"):
+        stacked_agg = wire_quant.quantize_dequantize_stacked(
+            stacked_new, rng, comm.qbits)
+        wire_oh = _wire_overhead(masks, stacked_new, comm,
+                                 sel_cfg.channel_axis, dense_masks)
+    with profiler_scope("feddd_aggregate"):
+        new_global = aggregation.aggregate_sparse_stacked(
+            stacked_agg, masks, weights, prev_global=global_params)
+    with profiler_scope("feddd_client_update"):
+        if full_round:
+            new_clients = _adopt_global(new_global, stacked_new)
+        else:
+            new_clients = aggregation.client_update_sparse(
+                new_global, stacked_new, masks)
     return RoundOutputs(new_clients, new_global, density, wire_oh)
 
 

@@ -1,10 +1,13 @@
-"""Uploaded-parameter selection — FedDD Algorithm 2, client-stacked.
+"""Uploaded-parameter selection — FedDD Algorithm 2.
 
 Given each client's dropout rate ``D_n`` and its parameters before/after
 the local update, keep per layer the top ``ceil(C_l * (1 - D_n))``
 channels by importance (the same rate for every layer, channel-wise, as
 in the paper's §4.2).  1-D leaves (biases) ride along as channels of
-fan-in 1; 0-D leaves always upload.
+fan-in 1; 0-D leaves always upload.  :func:`build_masks_batched` builds
+every client's masks over client-stacked leaves (the engine);
+:func:`build_masks` one client's (the per-client reference loop, with
+coverage and ``always_upload``).
 
 Ties rank toward the lower channel index, the order of ``lax.top_k`` in
 the JAX package: a stable descending sort gives the same order, which
@@ -14,6 +17,7 @@ the JAX package: a stable descending sort gives the same order, which
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -45,13 +49,22 @@ def keep_count(num_channels: int, dropout_rate: torch.Tensor) -> torch.Tensor:
 def mask_from_scores(scores: torch.Tensor, keep: torch.Tensor,
                      num_channels: int) -> torch.Tensor:
     """float32 mask keeping the top ``keep`` of ``scores`` along the last
-    axis (scores (..., C), keep broadcast against (...,)); ties keep the
-    lower index.  keep == 0 gives an all-zero mask."""
+    axis (scores (..., C), keep an int or broadcast against (...,)); ties
+    keep the lower index.  keep == 0 gives an all-zero mask."""
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     pos = torch.arange(num_channels, device=scores.device).expand_as(order)
     ranks = torch.empty_like(order).scatter_(-1, order, pos)
-    keep = torch.as_tensor(keep, device=scores.device)
-    return (ranks < keep[..., None]).to(torch.float32)
+    if not isinstance(keep, int):      # a host int needs no device copy
+        keep = torch.as_tensor(keep, device=scores.device)[..., None]
+    return (ranks < keep).to(torch.float32)
+
+
+def keep_count_host(num_channels: int, dropout_rate: float) -> int:
+    """:func:`keep_count` of one host rate, in float32 on the host (the
+    same IEEE operations, no device round trip)."""
+    one = np.float32(1.0)
+    k = np.ceil(np.float32(num_channels) * (one - np.float32(dropout_rate)))
+    return int(np.clip(k, 0, num_channels))
 
 
 def _tensor_scores_batched(cfg: SelectionConfig, w_old: torch.Tensor,
@@ -149,3 +162,87 @@ def build_masks_batched(stacked_old, stacked_new,
     # constant as XLA does: a multiply by its float32 reciprocal
     density = kept * float(np.float32(1.0 / total))
     return tree.unflatten(treedef, masks), density
+
+
+def _tensor_scores(cfg: SelectionConfig, w_old: torch.Tensor,
+                   w_new: torch.Tensor, coverage, rng) -> torch.Tensor:
+    """One client's scores of one leaf: (*leaf) x2 -> (C,); feddd runs the
+    importance kernel at N = 1."""
+    if cfg.scheme == "feddd":
+        return imp_mod.channel_importance(w_old, w_new,
+                                          channel_axis=cfg.channel_axis,
+                                          coverage=coverage)
+    nch = w_new.shape[cfg.channel_axis % w_new.ndim]
+    if cfg.scheme == "random":
+        return prng.uniform(rng, (nch,), w_new.device)
+    if cfg.scheme == "ordered":
+        return imp_mod.channel_score_ordered(nch, w_new.device)
+    return _tensor_scores_batched(cfg, w_old[None], w_new[None])[0]
+
+
+def build_masks(params_old, params_new, dropout_rate: float, *,
+                config: SelectionConfig = SelectionConfig(),
+                coverage=None, rng=None,
+                always_upload: Optional[Callable[[str], bool]] = None):
+    """One client's mask pytree ``M_n^t``.
+
+    Args:
+      params_old / params_new: pytrees of identical structure (W, W-hat).
+      dropout_rate: the client's rate, a host scalar (the keep count is
+        computed in float32 on the host).
+      coverage: optional pytree of (C,) fp32 coverage rates CR(k) on the
+        params' device (heterogeneous fleets, Eq. (21)).
+      rng: the client's mask key, ``fold_in(round_key, 10_000 + i)``;
+        required by scheme 'random', whose leaf ``l`` scores are
+        ``uniform(fold_in(rng, l), (C,))``.
+      always_upload: predicate on the leaf's ``tree.keystr`` path; its
+        leaves get an all-ones mask.
+
+    Returns masks shaped 1 everywhere but the channel axis, in the
+    parameters' dtype (0-D leaves: a 0-D one).
+    """
+    if config.scheme == "random" and rng is None:
+        raise ValueError("scheme='random' requires rng")
+    flat_old = tree.leaves(params_old)
+    flat_new, treedef = tree.flatten_with_path(params_new)
+    flat_cov = (tree.leaves(coverage) if coverage is not None
+                else [None] * len(flat_new))
+    if len(flat_old) != len(flat_new):
+        raise ValueError("params_old/params_new structure mismatch")
+    masks = []
+    for li, ((path, w_new), w_old, cov) in enumerate(
+            zip(flat_new, flat_old, flat_cov)):
+        if w_new.ndim == 0 or (always_upload is not None
+                               and always_upload(tree.keystr(path))):
+            masks.append(torch.ones((1,) * w_new.ndim, dtype=w_new.dtype,
+                                    device=w_new.device))
+            continue
+        ax = config.channel_axis % w_new.ndim
+        nch = w_new.shape[ax]
+        scores = _tensor_scores(config, w_old, w_new, cov,
+                                prng.fold_in(rng, li) if rng is not None
+                                else None)
+        m1d = mask_from_scores(scores, keep_count_host(nch, dropout_rate),
+                               nch)
+        shape = [1] * w_new.ndim
+        shape[ax] = nch
+        masks.append(m1d.reshape(shape).to(w_new.dtype))
+    return tree.unflatten(treedef, masks)
+
+
+def apply_mask(params, masks):
+    """W ⊙ M (masks broadcast: they are channel-shaped)."""
+    return tree.tree_map(lambda w, m: w * m, params, masks)
+
+
+def mask_density(params, masks) -> torch.Tensor:
+    """One client's fraction of parameter elements kept, a 0-D float32
+    tensor: float32 kept and total counts summed leaf by leaf, then a true
+    division, as the JAX package's eager ``mask_density``."""
+    kept, size = None, np.float32(0.0)
+    for w, m in zip(tree.leaves(params), tree.leaves(masks)):
+        k = m.float().sum() * float(w.numel() // m.numel())
+        kept = k if kept is None else kept + k
+        size = size + np.float32(w.numel())
+    return kept / torch.full((), float(size), dtype=torch.float32,
+                             device=kept.device)

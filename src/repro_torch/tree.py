@@ -1,28 +1,62 @@
-"""Parameter pytrees: nested dicts of tensors, in ``jax.tree_util`` order.
+"""Parameter pytrees: nested dicts and lists of tensors, in
+``jax.tree_util`` order.
 
 A leaf's flat index matters (masks, densities and per-leaf telemetry are
-lists in flatten order), so flattening walks dict keys SORTED, depth
-first — exactly what ``jax.tree_util.tree_flatten`` does for dicts.
+lists in flatten order), so flattening walks dict keys SORTED and lists
+in order, depth first — exactly what ``jax.tree_util.tree_flatten`` does.
+``None`` is an empty node, as in jax.  Unlike jax, a tuple is a leaf (a
+shape, a named tuple such as a KV cache).  :func:`keystr` renders a
+leaf's path as ``jax.tree_util.keystr`` does (``"['fc0']['w']"``,
+``"[1]"``): coverage tables and ``always_upload`` predicates are keyed on
+those strings.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-TreeDef = Any   # None for a leaf, else (sorted keys, child treedefs)
+TreeDef = Any   # None for a leaf, else (kind, keys, child treedefs)
+KeyPath = Tuple  # (('dict', key) | ('list', index), ...)
+
+
+def _children(node):
+    """(kind, keys, children) of a container node, or None for a leaf."""
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return "dict", keys, [node[k] for k in keys]
+    if isinstance(node, list):
+        return "list", tuple(range(len(node))), node
+    if node is None:
+        return "none", (), []
+    return None
+
+
+def flatten_with_path(tree) -> Tuple[List[Tuple[KeyPath, Any]], TreeDef]:
+    """``[(path, leaf)]`` in flatten order, and the treedef."""
+    out: List[Tuple[KeyPath, Any]] = []
+
+    def rec(node, path):
+        kids = _children(node)
+        if kids is None:
+            out.append((path, node))
+            return None
+        kind, keys, children = kids
+        return kind, keys, tuple(rec(c, path + ((kind, k),))
+                                 for k, c in zip(keys, children))
+
+    return out, rec(tree, ())
+
+
+def keystr(path: KeyPath) -> str:
+    """A path as ``jax.tree_util.keystr`` renders it: ``[repr(key)]`` for
+    a dict key, ``[index]`` for a list index."""
+    return "".join(f"[{k!r}]" if step == "dict" else f"[{k}]"
+                   for step, k in path)
 
 
 def flatten(tree) -> Tuple[List, TreeDef]:
-    leaves: List = []
-
-    def rec(node):
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return keys, tuple(rec(node[k]) for k in keys)
-        leaves.append(node)
-        return None
-
-    return leaves, rec(tree)
+    pairs, treedef = flatten_with_path(tree)
+    return [leaf for _, leaf in pairs], treedef
 
 
 def unflatten(treedef: TreeDef, leaves) -> Any:
@@ -31,8 +65,11 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     def rec(td):
         if td is None:
             return next(it)
-        keys, children = td
-        return {k: rec(c) for k, c in zip(keys, children)}
+        kind, keys, children = td
+        vals = [rec(c) for c in children]
+        if kind == "dict":
+            return dict(zip(keys, vals))
+        return None if kind == "none" else vals
 
     out = rec(treedef)
     if next(it, None) is not None:

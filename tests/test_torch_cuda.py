@@ -685,3 +685,108 @@ def test_engine_step_with_int8_on_card_equals_cpu(scheme, cuda_device):
     counts = kernels.launch_counts()
     assert counts["importance"] == (6 if scheme == "feddd" else 0)
     assert counts["sparse_agg"] == 6 and counts["masked_merge"] == 1
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("leaf", [(784, 100), (100, 64), (64, 10), (100,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_importance_at_one_client_matches_plain(leaf, dtype, cuda_device):
+    """The per-client loop's launch: the importance kernel at N = 1 (each
+    MLP leaf, with and without a coverage vector) against its plain
+    version, one launch a call; at the MLP the fan-in split is the
+    engine's (N = 10), so both sum in one order."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    wo = torch.randn((1,) + leaf, generator=gen, device=cuda_device)
+    wn = (wo + 0.1 * torch.randn((1,) + leaf, generator=gen,
+                                 device=cuda_device)).to(dtype)
+    wo = wo.to(dtype)
+    a, c, b = (leaf[0] if len(leaf) == 2 else 1), leaf[-1], 1
+    for cov in (None, torch.rand((c,), generator=gen, device=cuda_device)
+                + 0.5):
+        before = kernels.launch_counts()["importance"]
+        got = imp_ops.channel_importance_batched(wo, wn, coverage=cov)
+        assert kernels.launch_counts()["importance"] == before + 1
+        want = channel_importance_ref(wo.view(1, a, c, b),
+                                      wn.view(1, a, c, b), cov)
+        torch.testing.assert_close(got, want, rtol=5e-5, atol=1e-5)
+    sms = imp_ops.sm_count(wo.device)
+    vec = 4 if c % 4 == 0 else 2
+    assert (imp_ops.work_plan(1, a, c, b, sms, vec).splits
+            == imp_ops.work_plan(10, a, c, b, sms, vec).splits)
+
+
+def test_loop_matches_the_engine_on_card(cuda_device):
+    """Three quickstart rounds through the per-client loop (track_epsilon)
+    and the engine on the card: the loop's launches (importance at N = 1
+    per client and leaf, Eq. (4) once a leaf, Eq. (5) once a client and
+    partial round), equal rates and clock, finite epsilons; masks that
+    differ only at near-ties of the k-th score, and while they agree,
+    equal parameters."""
+    smoke = _smoke()
+    from repro_torch.quickstart import run
+    eng_scores, loop_scores = [], []
+    with smoke.recorded_scores(eng_scores):
+        eng, _, _ = run(3, fedavg_rounds=0, device=cuda_device)
+    with smoke.recorded_scores(loop_scores):
+        kernels.reset_launch_counts()
+        loop, _, _ = run(3, fedavg_rounds=0, batched=False,
+                         track_epsilon=True, device=cuda_device)
+        counts = kernels.launch_counts()
+        merged = mm_ops.leaf_counts()
+    assert counts == dict(importance=180, sparse_agg=18, masked_merge=30,
+                          flash_attention=0)
+    assert merged == {6: 30}
+    assert all(np.isfinite(r.epsilon) and r.epsilon >= 0
+               for r in loop.history)
+    for lr, er in zip(loop.history, eng.history):
+        np.testing.assert_array_equal(lr.dropout_rates, er.dropout_rates)
+        assert lr.sim_time == er.sim_time
+    first, _, _ = smoke.mask_agreement(eng.history, eng_scores, loop_scores,
+                                       10, 6)
+    if first is None:
+        for a, b in zip(tree.leaves(loop.global_params),
+                        tree.leaves(eng.global_params)):
+            assert torch.equal(a, b)
+
+
+def test_obs_adds_no_synchronising_calls_on_card(cuda_device, tmp_path):
+    """Two quickstart rounds on the engine with obs off and with a JSONL
+    log, after a warm-up run: the same number of synchronising CUDA calls
+    (``set_sync_debug_mode("warn")``), equal records and parameters."""
+    import dataclasses
+    import warnings
+    from repro_torch.obs import ObsConfig
+    from repro_torch.quickstart import run
+    runs, syncs = [], []
+    # the first run under the debug mode takes the one torch-internal
+    # synchronising call it sees first in a process: a warm-up, not counted
+    for cfg in (ObsConfig(), ObsConfig(),
+                ObsConfig(jsonl_path=str(tmp_path / "r.jsonl"))):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runs.append(run(2, fedavg_rounds=0, obs=cfg,
+                                device=cuda_device)[0])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    runs, syncs = runs[1:], syncs[1:]
+    assert syncs[0] > 0 and syncs[0] == syncs[1]
+    fields = [[dataclasses.asdict(r) | {
+        "host_wall_time": None, "dropout_rates": r.dropout_rates.tolist()}
+        for r in res.history] for res in runs]
+    assert fields[0] == fields[1]
+    for a, b in zip(tree.leaves(runs[0].global_params),
+                    tree.leaves(runs[1].global_params)):
+        assert torch.equal(a, b)

@@ -5,8 +5,8 @@
 * Without a card, entry points raise unless ``device="cpu"`` is asked for.
 * Paths and architectures not ported yet raise with a pointer to
   ROADMAP.md; what the port does not take (scheme 'random' without a
-  round key, an unknown codec or value width) raises as the JAX package
-  does.
+  round key, an unknown scheme, codec or value width) raises as the JAX
+  package does.
 """
 
 import json
@@ -56,7 +56,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.launch.serve", "repro_torch.prng",
                  "repro_torch.comm.codecs", "repro_torch.comm.quantize",
-                 "repro_torch.comm.payload"):
+                 "repro_torch.comm.payload", "repro_torch.obs",
+                 "repro_torch.obs.metrics", "repro_torch.obs.recorder",
+                 "repro_torch.obs.runlog", "repro_torch.obs.report",
+                 "repro_torch.core.convergence",
+                 "repro_torch.core.coverage"):
         assert must in res["modules"]
 
 
@@ -91,17 +95,26 @@ def test_random_selection_raises():
 
 @pytest.mark.parametrize("kw", [dict(sim=True), dict(faults=object()),
                                 dict(population=object()), dict(mesh=2),
-                                dict(allocator="jax")])
+                                dict(allocator="jax"),
+                                dict(rounds_per_dispatch=2),
+                                dict(robust_agg="trimmed"),
+                                dict(checkpoint_every=1),
+                                dict(resume_from="state.npz")])
 def test_unported_paths_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _tiny_run(device="cpu", **kw)
 
 
 def test_unported_schemes_and_codecs_raise():
-    """FedCS/Oort are not ported (ROADMAP); every wire format is, and an
-    unknown codec or value width raises as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        protocol.ProtocolConfig(scheme="oort")
+    """Every scheme and wire format is ported: an unknown scheme, codec or
+    value width raises as in the JAX package; a config field of a path not
+    ported yet (population serving) raises with a pointer to ROADMAP."""
+    for scheme in ("feddd", "fedavg", "fedcs", "oort"):
+        assert protocol.ProtocolConfig(scheme=scheme).scheme == scheme
+    with pytest.raises(ValueError, match="scheme"):
+        protocol.ProtocolConfig(scheme="fedprox")
+    with pytest.raises(NotImplementedError, match="queue A item 13"):
+        protocol.ProtocolConfig(population=100)
     with pytest.raises(ValueError, match="codec"):
         CommConfig(codec="gzip")
     with pytest.raises(ValueError, match="qbits"):
