@@ -74,7 +74,18 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    ``torch.cuda.set_sync_debug_mode("warn")`` (the same number of
    synchronising calls, equal records and parameters, the log loading
    back to the history), printing each phase's span median over rounds
-   2-5 and the report's phase section;
+   2-5 and the report's phase section.  Then the fused and scanned paths
+   (``scan_phase``): the paper's MLP over 10 IID clients (600 samples
+   each) with a vmapped one-epoch SGD trainer (``batched_train_fn``) and
+   ``allocator="jax"``: 10 FedDD rounds per-round fused (K = 1) and
+   scanned at K = 5 and K = 4, bit-equal, each launching importance 60,
+   sparse_agg 60 and masked_merge 8 times, accuracy >= 0.85; FedAvg,
+   FedCS and Oort, robust trimmed and clip (sparse_agg's partials mode)
+   and CommConfig(auto, 8), scanned against per-round, bit-equal; no
+   synchronising CUDA call inside ``BatchedRoundEngine.run`` for a K = 5
+   chunk; and, printed only, host s per round of the three modes, the
+   ``allocate`` span of each allocator, the device ops of one "jax"
+   solve and the reference benchmark's 64-client fleet in rounds/s;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -90,7 +101,8 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
 kernels, with the default-comm, random and loop runs' beside them
-(``launches_loop``) and importance's N = 1 row under ``n1``, the prefill
+(``launches_loop``) and the scanned K = 5 run's (``launches_scan``),
+and importance's N = 1 row under ``n1``, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
 beside them; ``masked_merge``'s at fc0, with the grouped launch of the
@@ -140,6 +152,15 @@ BASELINE_ROUNDS = 3     # FedCS and Oort on the engine
 OBS_ROUNDS = 5          # the obs phase: span medians over rounds 2-5
 OBS_PHASES = ("local_train", "engine_step", "host_transfer", "allocate",
               "eval")
+SCAN_ROUNDS = 10        # the scan phase: FedDD rounds of (a), (e), (f)
+SCAN_BASELINE_ROUNDS = 6
+SCAN_VARIANT_ROUNDS = 5
+SCAN_MIN_ACC = 0.85     # after 10 IID rounds
+SCAN_STEPS, SCAN_BATCH, SCAN_LR = 9, 64, 0.1   # one epoch of a 600 shard
+FLEET_SPEC = [("fc", 64, 128), ("fc", 128, 64), ("fc", 64, 10)]
+FLEET_CLIENTS, FLEET_SHARD, FLEET_K, FLEET_ROUNDS = 64, 32, 8, 16
+SCAN_SPANS = ("local_train", "engine_step", "host_transfer", "allocate",
+              "chunk_dispatch")
 TIE_RTOL = 5e-5         # importance's rtol: closer to the k-th score is a tie
 SLEEP_CYCLES = 40_000_000            # ~20 ms of device time ahead of a burst
 TIMED_LAUNCHES = 30
@@ -1477,8 +1498,6 @@ def obs_phase(dev="cuda") -> dict:
     parameters bit for bit, and a log that loads back to the history
     exactly.  Prints each phase's span median over rounds 2..OBS_ROUNDS and
     the report's phase section."""
-    import warnings
-
     import numpy as np
     import torch
     from repro_torch import tree
@@ -1497,17 +1516,11 @@ def obs_phase(dev="cuda") -> dict:
                               ("on", ObsConfig(jsonl_path=str(log)),
                                OBS_ROUNDS)):
         _sync(dev)
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            if cuda:
-                torch.cuda.set_sync_debug_mode("warn")
-            try:
-                runs[name], _, _ = run(rounds, fedavg_rounds=0, obs=cfg,
-                                       device=dev)
-            finally:
-                if cuda:
-                    torch.cuda.set_sync_debug_mode(0)
-        syncs[name] = sum("synchroniz" in str(w.message) for w in caught)
+        counted = {}
+        with _count_syncs(counted, dev):
+            runs[name], _, _ = run(rounds, fedavg_rounds=0, obs=cfg,
+                                   device=dev)
+        syncs[name] = counted["syncs"]
     syncs.pop("warm-up")
     if (cuda and not syncs["off"]) or syncs["on"] != syncs["off"]:
         raise AssertionError(f"synchronising CUDA calls: obs off "
@@ -1550,6 +1563,374 @@ def obs_phase(dev="cuda") -> dict:
                 steady_host_s=float(np.median(host)),
                 spans_total_ms_median=sum(medians.values()),
                 log=str(log.relative_to(ROOT)))
+
+
+def _scan_setup(dev, spec=None, clients=MLP_N):
+    """The scan phase's configuration: the paper's MLP from PRNGKey(0),
+    synthetic MNIST 6000/1500 over ``clients`` IID clients (equal shards,
+    so the clients stack), the quickstart's telemetry, and a per-client
+    step of one epoch of in-order minibatch SGD (SCAN_STEPS steps of
+    SCAN_BATCH, lr SCAN_LR, the mean minibatch loss) vmapped by
+    ``make_batched_train_fn`` -> (params, tel, batched_train_fn, eval_fn).
+    """
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import prng, tree
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.data import (label_coverage_score, make_dataset,
+                                  partition_iid)
+    from repro_torch.fl import (MLP_SPEC, apply_spec, init_cnn_spec,
+                                make_eval_fn, model_bytes,
+                                sample_system_telemetry)
+
+    train, test = make_dataset("mnist", num_train=6000, num_test=1500)
+    parts = partition_iid(train, clients, seed=0)
+    params = init_cnn_spec(MLP_SPEC, prng.PRNGKey(0), device=dev)
+    tel = sample_system_telemetry(
+        clients, [model_bytes(params)] * clients, [len(p) for p in parts],
+        [label_coverage_score(train, p) for p in parts], seed=0)
+    xs = torch.from_numpy(np.stack([train.x[p].reshape(len(p), -1)
+                                    for p in parts])).to(dev)
+    ys = torch.from_numpy(np.stack([train.y[p] for p in parts])
+                          .astype(np.int64)).to(dev)
+    steps = torch.full((), float(SCAN_STEPS), device=dev)
+
+    def loss(p, x, y):
+        return F.cross_entropy(apply_spec(p, MLP_SPEC, x), y)
+
+    def client_epoch(p, x, y):
+        total = 0.0
+        for s in range(0, SCAN_STEPS * SCAN_BATCH, SCAN_BATCH):
+            g, l = torch.func.grad_and_value(loss)(
+                p, x[s:s + SCAN_BATCH], y[s:s + SCAN_BATCH])
+            p = tree.tree_map(lambda w, gw: w - SCAN_LR * gw, p, g)
+            total = total + l
+        return p, total / steps
+
+    ef = make_eval_fn(MLP_SPEC, test, flatten=True, device=dev)
+    return params, tel, make_batched_train_fn(client_epoch, (xs, ys)), ef
+
+
+def _fleet_setup(dev):
+    """The reference benchmark's fleet (``benchmarks/perf_federated.py``
+    ``make_setup``): spec 64-128-64-10, FLEET_CLIENTS clients with
+    FLEET_SHARD seeded normal samples each, one full-shard SGD step at lr
+    0.05 a round."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import prng, tree
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.fl import (apply_spec, init_cnn_spec, model_bytes,
+                                sample_system_telemetry)
+
+    rng = np.random.default_rng(0)
+    n = FLEET_CLIENTS
+    xs = torch.from_numpy(rng.normal(size=(n, FLEET_SHARD, 64))
+                          .astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 10, (n, FLEET_SHARD))).to(dev)
+    params = init_cnn_spec(FLEET_SPEC, prng.PRNGKey(0), device=dev)
+    tel = sample_system_telemetry(n, [model_bytes(params)] * n,
+                                  [FLEET_SHARD] * n, [1.0] * n, seed=0)
+
+    def step(p, x, y):
+        g, l = torch.func.grad_and_value(
+            lambda q: F.cross_entropy(apply_spec(q, FLEET_SPEC, x), y))(p)
+        return tree.tree_map(lambda w, gw: w - 0.05 * gw, p, g), l
+
+    return params, tel, make_batched_train_fn(step, (xs, ys))
+
+
+@contextlib.contextmanager
+def _count_syncs(out: dict, dev):
+    """Count the synchronising CUDA calls of the block under
+    ``torch.cuda.set_sync_debug_mode("warn")`` into ``out["syncs"]``, by
+    the Python line that made each (``out["where"]``)."""
+    import collections
+    import warnings
+
+    import torch
+    cuda = torch.device(dev).type == "cuda"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    out["syncs"] = len(hits)
+    out["where"] = dict(collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in hits).most_common())
+
+
+def scan_phase(dev="cuda") -> dict:
+    """The fused and scanned FedDD paths on the card (``batched_train_fn``,
+    ``rounds_per_dispatch``, ``allocator="jax"``), counts set to 0 just
+    before each run and read just after:
+
+    (a) FedDD, SCAN_ROUNDS rounds, per-round fused (K = 1), scanned
+        K = 5 and K = 4 (chunks 4/4/2): records, global and client params
+        bit-equal; importance 60, sparse_agg 60 (mean mode), masked_merge
+        8 ({6: 8}) in each; accuracy >= SCAN_MIN_ACC on the 1500 test
+        samples;
+    (b) FedAvg, FedCS and Oort, SCAN_BASELINE_ROUNDS rounds, K = 4
+        against K = 1, bit-equal (Oort leaves a client out);
+    (c) robust_agg "trimmed:0.2" and "clip:2.0", K = 5 against K = 1,
+        bit-equal; clip launches sparse_agg's partials mode;
+    (d) CommConfig(auto, 8), K = 5 against K = 1, bit-equal;
+    (e) synchronising CUDA calls: none inside ``BatchedRoundEngine.run``
+        for a K = 5 chunk (after an uncounted warm-up chunk); a whole run
+        of K = 1 and of K = 5 counted beside it, by the line making each;
+    (f) printed only: host s per steady round (K = 1 numpy, K = 1 "jax",
+        K = 5), the ``allocate`` span of each allocator, the device ops
+        and time of one "jax" solve, and the reference benchmark's
+        64-client fleet per-round fused against scanned K = 8 in
+        rounds/s.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import kernels, prng, tree
+    from repro_torch.comm import CommConfig
+    from repro_torch.core import allocation, round_engine
+    from repro_torch.core.protocol import FedDDServer, ProtocolConfig
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.obs import ObsConfig, read_events
+    from repro_torch.quickstart import FEDDD_H
+
+    t_phase = time.perf_counter()
+    params, tel, bt, ef = _scan_setup(dev)
+    base = dict(a_server=A_SERVER, h=FEDDD_H, seed=0, allocator="jax")
+
+    def drive(rounds, k=1, obs=None, fleet=None, syncs=None, **kw):
+        """One run, counted: (server, result, launches, modes, merges);
+        with ``syncs`` (a dict) its synchronising calls go there too."""
+        p, t, b = fleet or (params, tel, bt)
+        cfg = ProtocolConfig(rounds=rounds, rounds_per_dispatch=k,
+                             **{**base, **kw},
+                             **({} if obs is None else dict(obs=obs)))
+        srv = FedDDServer(p, cfg, t, device=dev)
+        _sync(dev)
+        kernels.reset_launch_counts()
+        with (contextlib.nullcontext() if syncs is None
+              else _count_syncs(syncs, dev)):
+            res = srv.run(batched_train_fn=b)
+        counts = kernels.launch_counts()
+        return (srv, res, counts, agg_ops.mode_counts(),
+                merge_ops.leaf_counts())
+
+    def same(a, b, what):
+        (sa, ra), (sb, rb) = a[:2], b[:2]
+        if [_record_fields(r) for r in ra.history] != [
+                _record_fields(r) for r in rb.history]:
+            raise AssertionError(f"{what}: records differ")
+        if not all(torch.equal(x, y) for x, y in zip(
+                tree.leaves(ra.global_params),
+                tree.leaves(rb.global_params))):
+            raise AssertionError(f"{what}: global params differ")
+        if not all(torch.equal(x, y) for ca, cb in zip(sa.clients,
+                                                       sb.clients)
+                   for x, y in zip(tree.leaves(ca.params),
+                                   tree.leaves(cb.params))):
+            raise AssertionError(f"{what}: client params differ")
+
+    out = {}
+    # (a) FedDD, K = 1 / 5 / 4
+    runs = {k: drive(SCAN_ROUNDS, k) for k in (1, 5, 4)}
+    partial = sum(t % FEDDD_H != 0 for t in range(1, SCAN_ROUNDS + 1))
+    want = dict(importance=6 * SCAN_ROUNDS, sparse_agg=6 * SCAN_ROUNDS,
+                masked_merge=partial, flash_attention=0)
+    for k, r in runs.items():
+        if (r[2] != want or r[3] != {"partials": 0, "mean": 6 * SCAN_ROUNDS}
+                or r[4] != {6: partial}):
+            raise AssertionError(f"feddd K={k}: launches {r[2]}, {r[3]}, "
+                                 f"{r[4]}; want {want}")
+        if k != 1:
+            same(runs[1], r, f"feddd K={k} vs K=1")
+    acc = ef(runs[5][1].global_params)["accuracy"]
+    if acc < SCAN_MIN_ACC:
+        raise AssertionError(f"scanned accuracy {acc} < {SCAN_MIN_ACC}")
+    hist = runs[5][1].history
+    print(f"  scan (a) feddd {SCAN_ROUNDS} rounds: K=1, K=5, K=4 "
+          f"bit-equal; launches {runs[5][2]}, {runs[5][3]}, merges "
+          f"{runs[5][4]}; accuracy {acc:.4f}; uploaded "
+          f"{[round(r.uploaded_fraction, 4) for r in hist]}", flush=True)
+    out["feddd"] = dict(launches={k: r[2] for k, r in runs.items()},
+                        accuracy=acc, sparse_agg_modes=runs[5][3],
+                        merge_leaf_counts=runs[5][4],
+                        loss=[r.mean_loss for r in hist])
+
+    # (b) the baselines, K = 4 against K = 1
+    out["baselines"] = {}
+    for scheme in ("fedavg", "fedcs", "oort"):
+        a = drive(SCAN_BASELINE_ROUNDS, 1, scheme=scheme)
+        b = drive(SCAN_BASELINE_ROUNDS, 4, scheme=scheme)
+        same(a, b, f"{scheme} K=4 vs K=1")
+        part = [r.participants for r in b[1].history]
+        if scheme == "oort" and min(part) >= MLP_N:
+            raise AssertionError(f"oort kept every client: {part}")
+        if b[2]["importance"] or b[2]["masked_merge"]:
+            raise AssertionError(f"{scheme} launched {b[2]}")
+        out["baselines"][scheme] = dict(participants=part,
+                                        launches=b[2])
+    print(f"  scan (b) fedavg/fedcs/oort K=4 vs K=1 bit-equal; "
+          f"participants " + ", ".join(
+              f"{s} {v['participants']}"
+              for s, v in out["baselines"].items()), flush=True)
+
+    # (c) robust Eq. (4), (d) the wire format: K = 5 against K = 1
+    out["variants"] = {}
+    for name, kw in (("trimmed:0.2", dict(robust_agg="trimmed:0.2")),
+                     ("clip:2.0", dict(robust_agg="clip:2.0")),
+                     ("auto/8", dict(comm=CommConfig("auto", 8)))):
+        a = drive(SCAN_VARIANT_ROUNDS, 1, **kw)
+        b = drive(SCAN_VARIANT_ROUNDS, 5, **kw)
+        same(a, b, f"{name} K=5 vs K=1")
+        clip = name.startswith("clip")
+        if (b[3]["partials"] > 0) != clip or a[3] != b[3]:
+            raise AssertionError(f"{name}: sparse_agg modes {a[3]} / {b[3]}")
+        if name == "auto/8" and not all(
+                r.wire_bytes < r.uploaded_bytes for r in b[1].history[1:]):
+            raise AssertionError("auto/8: wire bytes not under the raw")
+        out["variants"][name] = dict(launches=b[2], modes=b[3],
+                                     wire_bytes=[r.wire_bytes
+                                                 for r in b[1].history])
+    print("  scan (c, d) trimmed:0.2, clip:2.0, auto/8 K=5 vs K=1 "
+          "bit-equal; sparse_agg modes " + ", ".join(
+              f"{k} {v['modes']}" for k, v in out["variants"].items()),
+          flush=True)
+
+    # (e) synchronising calls
+    scan_tel = round_engine.ScanTelemetry.from_host(tel, dev)
+    weights = allocation.stage(tel.num_samples, dev)
+    n = tel.num_clients
+    state = round_engine.ScanState(
+        round_engine.stack_pytrees([params] * n),
+        tree.tree_map(torch.clone, params),
+        torch.ones(n, device=dev), torch.zeros(n, device=dev),
+        prng.PRNGKey(0), torch.zeros((), device=dev))
+    engine = round_engine.BatchedRoundEngine()
+    kw = dict(num_rounds=5, batched_train_fn=bt, weights=weights,
+              h=FEDDD_H, a_server=A_SERVER, d_max=0.8, delta=1.0,
+              global_model_bytes=float(tel.model_bytes[0]))
+    chunk = {}
+    with _count_syncs({}, dev):                        # warm-up, uncounted
+        state, _ = engine.run(state, scan_tel, t_start=1, **kw)
+    _sync(dev)
+    with _count_syncs(chunk, dev):
+        state, trace = engine.run(state, scan_tel, t_start=6, **kw)
+    host = trace.to_host()                 # the fetch, after the return
+    if chunk["syncs"] or not np.isfinite(host.losses).all():
+        raise AssertionError(f"BatchedRoundEngine.run made {chunk['syncs']}"
+                             f" synchronising calls: {chunk['where']}")
+    whole = {1: {}, 5: {}}
+    for k, counted in whole.items():
+        drive(SCAN_ROUNDS, k, syncs=counted)
+    print(f"  scan (e) synchronising calls: BatchedRoundEngine.run (K=5) "
+          f"{chunk['syncs']}; a whole {SCAN_ROUNDS}-round run K=1 "
+          f"{whole[1]['syncs']} {whole[1]['where']}, K=5 "
+          f"{whole[5]['syncs']} {whole[5]['where']}", flush=True)
+    out["syncs"] = dict(chunk=chunk, whole_k1=whole[1], whole_k5=whole[5])
+
+    # (f) printed only
+    logs = {}
+    steady = {}
+    for name, k, alloc in (("K=1 numpy", 1, "numpy"), ("K=1 jax", 1, "jax"),
+                           ("K=5", 5, "jax")):
+        log = ROOT / "build" / f"scan_{k}_{alloc}.jsonl"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        r = drive(SCAN_ROUNDS, k, obs=ObsConfig(jsonl_path=str(log)),
+                  allocator=alloc)
+        steady[name] = statistics.median(
+            x.host_wall_time for x in r[1].history[1:])
+        logs[name] = read_events(str(log))
+    spans = {name: {ph: 1e3 * statistics.median(durs) for ph, durs in (
+        (ph, [e["dur_s"] / (5 if ph == "chunk_dispatch" else 1)
+              for e in events if e["event"] == "span" and e["name"] == ph
+              and e["round"] >= 2]) for ph in SCAN_SPANS) if durs}
+        for name, events in logs.items()}
+    alloc_ms = {name: spans[name]["allocate"]
+                for name in ("K=1 numpy", "K=1 jax")}
+    solve_in = [*scan_tel, torch.rand(n, device=dev) + 0.5]
+    akw = dict(a_server=A_SERVER, d_max=0.8, delta=1.0,
+               global_model_bytes=float(tel.model_bytes[0]), num_iters=96)
+    solve_ms = []
+    for _ in range(6):
+        _sync(dev)
+        t0 = time.perf_counter()
+        allocation.solve_dropout_rates_torch(*solve_in, **akw)
+        _sync(dev)
+        solve_ms.append(1e3 * (time.perf_counter() - t0))
+    ops = _profile_ops(lambda: allocation.solve_dropout_rates_torch(
+        *solve_in, **akw), dev)
+    round_ops = _profile_ops(lambda: engine.run(state, scan_tel, t_start=11,
+                                                **{**kw, "num_rounds": 1}),
+                             dev)
+    fleet = _fleet_setup(dev)
+    rps = {}
+    for name, k in (("fused", 1), ("scanned K=8", FLEET_K)):
+        drive(FLEET_ROUNDS, k, fleet=fleet)                    # warm-up
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = drive(FLEET_ROUNDS, k, fleet=fleet)
+        _sync(dev)
+        rps[name] = FLEET_ROUNDS / (time.perf_counter() - t0)
+        rps[name + " params"] = r[1].global_params
+    fleet_equal = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(rps.pop("fused params")),
+        tree.leaves(rps.pop("scanned K=8 params"))))
+    print(f"  scan (f) host s per steady round (median of rounds 2-"
+          f"{SCAN_ROUNDS}): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in steady.items())
+          + "; span medians ms (chunk_dispatch per round): " + "; ".join(
+              f"{k}: " + ", ".join(f"{ph} {v:.3f}" for ph, v in d.items())
+              for k, d in spans.items())
+          + f"; one scanned round: {round_ops['cuda_ops']} device ops, "
+          f"{round_ops['cpu_ops']} top-level aten ops"
+          + f"; one jax solve: {ops['cuda_ops']} device ops, "
+          f"{ops['cpu_ops']} top-level aten ops, median "
+          f"{statistics.median(solve_ms[1:]):.3f} ms; fleet "
+          f"{FLEET_CLIENTS} clients x {FLEET_SHARD} (64-128-64-10), "
+          f"{FLEET_ROUNDS} rounds: " + ", ".join(
+              f"{k} {v:.2f} rounds/s" for k, v in rps.items())
+          + f" (params equal: {fleet_equal}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    out.update(steady_host_s=steady, allocate_span_ms=alloc_ms,
+               span_medians_ms=spans, scanned_round_ops=round_ops,
+               solve=dict(ms=solve_ms, **ops), fleet_rounds_per_s=rps,
+               fleet_params_equal=fleet_equal,
+               wall_s=time.perf_counter() - t_phase)
+    return out
+
+
+def _profile_ops(fn, dev) -> dict:
+    """Device operations of one call of ``fn`` under torch.profiler:
+    CUDA kernels, memsets and copies, and the aten ops the host issued
+    that no other aten op called (profiler scopes do not count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(dev).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        fn()
+        _sync(dev)
+    events = prof.events()
+    cuda = sum(1 for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    def outermost(e):
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("aten::"):
+            p = p.cpu_parent
+        return p is None
+
+    top = sum(1 for e in events
+              if e.name.startswith("aten::") and outermost(e))
+    return dict(cuda_ops=cuda, cpu_ops=top)
 
 
 def _sync(dev) -> None:
@@ -1759,6 +2140,7 @@ def main(argv=None) -> int:
         loop_out = loop_phase()
         base_out = baselines_phase()
         obs_out = obs_phase()
+        scan_out = scan_phase()
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -1800,7 +2182,8 @@ def main(argv=None) -> int:
             line_kernels[-1].update(
                 launches_default_comm=path_out["launches"][name],
                 launches_random=comm_out["random"]["launches"][name],
-                launches_loop=loop_out["launches"][name])
+                launches_loop=loop_out["launches"][name],
+                launches_scan=scan_out["feddd"]["launches"][5][name])
         if name == "importance":
             n1 = checks["main"]["importance_n1"]
             line_kernels[-1]["n1"] = {k: n1[k] for k in (
@@ -1825,7 +2208,7 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(dict(
             card=line, build_s=secs, prng=prng_out, kernels=records,
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
-            loop=loop_out, baselines=base_out, obs=obs_out,
+            loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             serving=serve_out, summary=line_kernels), indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
               if r["scheme"] == "feddd" and r["round"] > 1]
@@ -1834,7 +2217,9 @@ def main(argv=None) -> int:
           f" {comm_out['feddd']['steady_host_s']:.4f}, loop "
           f"{loop_out['steady_host_s']:.4f}; span medians (ms) "
           + ", ".join(f"{k} {v:.3f}"
-                      for k, v in obs_out["span_medians_ms"].items()),
+                      for k, v in obs_out["span_medians_ms"].items())
+          + "; fused/scanned (scan phase): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in scan_out["steady_host_s"].items()),
           flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {

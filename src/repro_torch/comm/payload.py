@@ -280,43 +280,94 @@ def account_collective(spec: WireSpec, num_shards: int, *,
     return dense, actual
 
 
+class _NumpyOps:
+    """The array functions of the analytic byte model, on numpy arrays."""
+
+    @staticmethod
+    def f32(x):
+        return np.asarray(x, np.float32)
+
+    @staticmethod
+    def full_like(x, value):
+        return np.full_like(x, value)
+
+    ceil, clip, maximum, minimum = np.ceil, np.clip, np.maximum, np.minimum
+
+
+class _TorchOps:
+    """The same functions on tensors, on their device, with no host copy
+    (the scanned engine's device clock)."""
+
+    @staticmethod
+    def f32(x):
+        return x.to(torch.float32)
+
+    @staticmethod
+    def full_like(x, value):
+        return torch.full_like(x, value)
+
+    @staticmethod
+    def clip(x, lo, hi):
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def maximum(x, lo):
+        return torch.clamp(x, min=lo)
+
+    @staticmethod
+    def minimum(x, hi):
+        return torch.clamp(x, max=hi)
+
+    ceil = torch.ceil
+
+
+def _ops(x):
+    return _TorchOps if isinstance(x, torch.Tensor) else _NumpyOps
+
+
 def varint_bytes_f(v):
     """Float rendering of ``codecs.varint_bytes`` for the analytic model
-    (expected gaps are fractional)."""
-    out = np.ones_like(np.asarray(v, np.float32))
+    (expected gaps are fractional); a tensor gives a tensor."""
+    xp = _ops(v)
+    v = xp.f32(v)
+    out = xp.full_like(v, 1.0)
     for t in (1 << 7, 1 << 14, 1 << 21, 1 << 28):
-        out = out + (np.asarray(v) >= t).astype(np.float32)
+        out = out + xp.f32(v >= t)
     return out
 
 
 def analytic_wire_bytes(spec: WireSpec, dropout, comm: CommConfig):
     """Modelled on-wire upload bytes as a function of the dropout rate
-    (float32, scalar or vector ``dropout``).
+    (float32, scalar or vector ``dropout``; a tensor of rates gives a
+    tensor on its device, the reference's ``xp=jnp`` rendering).
 
     Kept counts as the mask builder makes them (per leaf
     ``clip(ceil(C*(1-D)), 0, C)``, one D for every leaf) and the measured
     framing; exact for ``dense`` and ``bitmask``; ``index``/``auto`` take
     the expected uniform gap ``C/kept - 1`` (the measured overhead
     depends on which channels survive)."""
-    d = np.asarray(dropout, np.float32)
+    xp = _ops(dropout)
+    d = xp.f32(dropout)
     vbytes = float(quantize.value_bytes(comm.qbits))
-    values = np.zeros_like(d)
-    overhead = np.zeros_like(d)
+    values = xp.full_like(d, 0.0)
+    overhead = xp.full_like(d, 0.0)
     for c, e in spec.leaves:
-        kept = np.clip(np.ceil(c * (1.0 - d)), 0.0, float(c))
+        kept = xp.clip(xp.ceil(c * (1.0 - d)), 0.0, float(c))
         values = values + kept * (e / c) * vbytes
         if comm.qbits == 8:
-            overhead = overhead + 4.0 * (kept > 0).astype(np.float32)
+            overhead = overhead + 4.0 * xp.f32(kept > 0)
         if comm.codec != "dense":
             bm = float(codecs.HEADER_BYTES + codecs.bitmask_bytes(c))
             if comm.codec in ("index", "auto"):
-                gap = np.maximum(c / np.maximum(kept, 1.0) - 1.0, 0.0)
+                # C / kept with C as an array: a tensor divides truly
+                gap = xp.maximum(xp.full_like(kept, float(c))
+                                 / xp.maximum(kept, 1.0) - 1.0, 0.0)
                 ix = codecs.HEADER_BYTES + kept * varint_bytes_f(gap)
                 if comm.codec == "index":
                     overhead = overhead + ix
                 else:
                     overhead = (overhead + codecs.AUTO_TAG_BYTES
-                                + np.minimum(ix, bm))
+                                + xp.minimum(ix, bm))
             else:
                 overhead = overhead + bm
     return values + overhead

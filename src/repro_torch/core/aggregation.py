@@ -12,13 +12,28 @@ the leaves of the tree (of every client on the engine, of one client in
 the per-client loop); masks stay channel-shaped (N, 1, ..., C, ..., 1)
 and are never broadcast to the parameters' shape.
 
-Only the weighted mean is ported; the Byzantine-robust variants wait for
-ROADMAP.md queue A item 12.
+Byzantine-robust variants (``robust=`` on the stacked entry point, from
+``ProtocolConfig.robust_agg``), the JAX package's two hardenings:
+
+* ``"trimmed[:beta]"`` — coordinate-wise trimmed mean: per coordinate,
+  among the clients that uploaded it with positive weight, drop the
+  ``floor(beta * n_valid)`` largest and smallest values and weighted-
+  average the rest (default beta 0.1); a coordinate with no survivor
+  keeps the previous global.  Eager torch (two stable sorts a leaf).
+* ``"clip[:factor]"`` — per-client norm clipping: each client's masked
+  update ``(What_n - W^{t-1}) ⊙ M_n`` is scaled down to at most
+  ``factor`` x the median participant update norm (default 1.0), then
+  the Eq. (4) partials through the ``sparse_agg`` kernel's partials mode
+  and the eager finish.  Requires ``prev_global``.
+
+``"mean"`` (the default) is the kernel's mean mode, unchanged.  The
+deadline-prefix masks (``truncate_masks_to_prefix``) wait for the fault
+layer, ROADMAP.md queue A item 13.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -43,18 +58,130 @@ def leaf_masked_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
     return agg_ops.masked_weighted_sum(stack_w, stack_m, w)
 
 
+ROBUST_AGGS = ("mean", "trimmed", "clip")
+
+
+def parse_robust_agg(spec: Optional[str]) -> Tuple[str, float]:
+    """``"mean" | "trimmed[:beta]" | "clip[:factor]"`` -> (kind, param)."""
+    if spec is None:
+        spec = "mean"
+    name, _, arg = str(spec).partition(":")
+    if name == "mean":
+        if arg:
+            raise ValueError("robust_agg 'mean' takes no parameter")
+        return "mean", 0.0
+    if name == "trimmed":
+        beta = float(arg) if arg else 0.1
+        if not 0.0 <= beta < 0.5:
+            raise ValueError(f"trimmed beta must be in [0,0.5), got {beta}")
+        return "trimmed", beta
+    if name == "clip":
+        c = float(arg) if arg else 1.0
+        if c <= 0.0:
+            raise ValueError(f"clip factor must be > 0, got {c}")
+        return "clip", c
+    raise ValueError(f"unknown robust_agg {spec!r} — expected one of "
+                     f"{ROBUST_AGGS} (optionally 'trimmed:<beta>' / "
+                     "'clip:<factor>')")
+
+
+def _client_view(w: torch.Tensor, ndim: int) -> torch.Tensor:
+    return w.view((-1,) + (1,) * (ndim - 1))
+
+
+def leaf_trimmed_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
+                          w: torch.Tensor, beta: float):
+    """Coordinate-wise trimmed (num, den) of one client-stacked leaf.
+
+    The valid contributors of a coordinate are the clients with mask 1 and
+    positive weight; they are ranked by value (a stable argsort of the
+    argsort, invalid rows keyed to +inf so they rank past the valid tail),
+    and the ``floor(beta * n_valid)`` lowest and highest are dropped
+    before the weighted Eq. (4) sums."""
+    wts = _client_view(w, stack_w.ndim)
+    vals = stack_w.float()
+    valid = ((stack_m > 0) & (wts > 0)).expand(stack_w.shape)
+    n_valid = valid.sum(0)
+    k = torch.floor(beta * n_valid.float()).to(n_valid.dtype)
+    order = torch.argsort(torch.where(valid, vals, torch.inf), dim=0,
+                          stable=True)
+    rank = torch.argsort(order, dim=0, stable=True)
+    keep = valid & (rank >= k) & (rank < n_valid - k)
+    ww = stack_m * wts * keep
+    return (vals * ww).sum(0), ww.sum(0)
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """numpy's (and jax's) nanmedian of a 1-D tensor — the mean of the two
+    middle values for an even count, NaN when every value is NaN — as a
+    0-D tensor, with no host sync (``torch.nanmedian`` takes the lower
+    middle value)."""
+    s = torch.sort(x).values                         # NaN sorts last
+    cnt = (~torch.isnan(x)).sum().float()
+    q = 0.5 * (cnt - 1.0)
+    low, high = torch.floor(q), torch.ceil(q)
+    hw = q - low
+    top = cnt - 1.0
+
+    def at(i):
+        i = torch.clamp(torch.minimum(i, top), min=0.0).long().view(1)
+        return s.gather(0, i)[0]
+
+    return at(low) * (1.0 - hw) + at(high) * hw
+
+
+def _clip_scales(deltas, w: torch.Tensor, factor: float) -> torch.Tensor:
+    """(N,) clip scales from the masked-update leaf deltas: each client's
+    whole-tree update norm is clipped to ``factor`` x the median norm of
+    the positive-weight participants (scale 1 where it is below)."""
+    sq = None
+    for d in deltas:
+        s = torch.sum(d * d, dim=tuple(range(1, d.ndim)))
+        sq = s if sq is None else sq + s
+    norms = torch.sqrt(sq)
+    ref = _nanmedian(torch.where(w > 0, norms, torch.nan))
+    scale = torch.clamp(factor * ref / torch.clamp(norms, min=EPS), max=1.0)
+    return torch.where(torch.isfinite(scale), scale, 1.0)
+
+
+def robust_leaf_stacks(stacks_w, stacks_m, w: torch.Tensor, gleaves,
+                       kind: str, arg: float):
+    """Eq. (4) of each (N, *leaf) stack with its channel-shaped mask under
+    the variant ``kind`` (the clip variant needs the whole tree at once
+    for its per-client norms)."""
+    if kind == "mean":
+        return [agg_ops.masked_weighted_mean(sw, sm, w, gp, sw.dtype)
+                for sw, sm, gp in zip(stacks_w, stacks_m, gleaves)]
+    if kind == "trimmed":
+        return [finish_masked_mean(*leaf_trimmed_partials(sw, sm, w, arg),
+                                   gp, sw.dtype)
+                for sw, sm, gp in zip(stacks_w, stacks_m, gleaves)]
+    if kind == "clip":
+        if any(gp is None for gp in gleaves):
+            raise ValueError("robust_agg 'clip' needs prev_global (the "
+                             "clipped quantity is the update vs W^{t-1})")
+        deltas = [(sw.float() - gp.float()) * sm
+                  for sw, sm, gp in zip(stacks_w, stacks_m, gleaves)]
+        scale = _clip_scales(deltas, w, arg)
+        out = []
+        for d, sw, sm, gp in zip(deltas, stacks_w, stacks_m, gleaves):
+            vals = gp.float() + d * _client_view(scale, d.ndim)
+            num, den = leaf_masked_partials(vals, sm.float(), w)
+            out.append(finish_masked_mean(num, den, gp, sw.dtype))
+        return out
+    raise ValueError(f"unknown robust kind {kind!r}")
+
+
 def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
                              *, prev_global=None, robust: str = "mean"):
     """Eq. (4) over client-stacked pytrees (leaves shaped (N, *leaf)).
 
     ``stacked_masks`` leaves are channel-shaped (N, 1, ..., C, ..., 1) or
     all-ones (N, 1, ..., 1); ``client_weights`` are the (N,) m_n — a zero
-    weight leaves that client out of both sums.
+    weight leaves that client out of both sums.  ``robust`` picks the
+    variant (module docstring); ``"mean"`` is the kernel's mean mode.
     """
-    if robust != "mean":
-        raise NotImplementedError(
-            f"robust_agg {robust!r} is not ported yet (ROADMAP.md queue A "
-            "item 12); only 'mean' is")
+    kind, arg = parse_robust_agg(robust)
     leaves, treedef = tree.flatten(stacked_params)
     mleaves = tree.leaves(stacked_masks)
     gleaves = (tree.leaves(prev_global) if prev_global is not None
@@ -64,9 +191,8 @@ def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
                         device=leaves[0].device)
     if w.shape != (n,):
         raise ValueError("weights count mismatch")
-    out = [agg_ops.masked_weighted_mean(sw, sm, w, gprev, sw.dtype)
-           for sw, sm, gprev in zip(leaves, mleaves, gleaves)]
-    return tree.unflatten(treedef, out)
+    return tree.unflatten(treedef, robust_leaf_stacks(
+        leaves, mleaves, w, gleaves, kind, arg))
 
 
 def aggregate_sparse(client_params: Sequence, client_masks: Sequence,

@@ -1,4 +1,4 @@
-"""Dropout-rate allocation — FedDD §4.1, the numpy subset of
+"""Dropout-rate allocation — FedDD §4.1, the port of
 ``repro.core.allocation``.
 
 Solves the linear program Eq. (16)/(17):
@@ -11,9 +11,20 @@ Solves the linear program Eq. (16)/(17):
 For a fixed ``t_srv`` the straggler constraints are per-client lower
 bounds on ``D_n`` and the rest is a fractional knapsack, solved exactly;
 a golden-section search over ``t_srv`` finds the optimum of the convex
-piecewise-linear outer problem.  It stays in float64 numpy, the same
-arithmetic as the JAX package's reference solver, so the rates agree
-exactly (tests/test_torch_selection_aggregation.py).
+piecewise-linear outer problem.  Two solvers, named as the JAX
+package's ``ALLOCATORS`` so configurations carry over:
+
+* ``"numpy"``: float64 numpy, the same arithmetic as the JAX package's
+  reference solver, so the rates agree exactly
+  (tests/test_torch_selection_aggregation.py);
+* ``"jax"``: :func:`solve_dropout_rates_torch`, the float32
+  golden-section twin of ``solve_dropout_rates_jax`` in torch on the
+  server's device, with no host sync, so the scanned multi-round engine
+  (``core/round_engine.BatchedRoundEngine.run``) runs it between rounds.
+  Its rates are within 5e-5 of the JAX package's solver (the bracket
+  lands a few ulps apart; tests/test_torch_scan.py); between the port's
+  per-round and scanned paths they are bit-equal (the same eager
+  operations on the same device).
 """
 
 from __future__ import annotations
@@ -22,10 +33,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.comm.payload import analytic_uplink_vector
+from repro_torch.device import DeviceLike, resolve_device
 
-ALLOCATORS = ("numpy",)
+ALLOCATORS = ("numpy", "jax")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,6 +285,102 @@ def solve_dropout_rates_overhead_aware(
     return AllocationResult(d, makespan, obj, feasible)
 
 
+# ---------------------------------------------------------------------------
+# The float32 twin of the JAX package's jit-able solver: eager torch on one
+# device, no host sync (every branch is a torch.where), so a scanned chunk
+# of rounds runs it between rounds.
+# ---------------------------------------------------------------------------
+
+_GR = float((np.sqrt(np.float32(5.0)) - np.float32(1.0)) / np.float32(2.0))
+
+
+def stage(x, device) -> torch.Tensor:
+    """A host telemetry vector as a float32 tensor on ``device`` (numpy's
+    rounding of float64 to float32, as ``jnp.asarray(x, jnp.float32)``)."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+
+
+def _inner_knapsack_torch(lower, upper, weights, w_safe, costs, budget,
+                          hi_mass, order):
+    """Vectorised fractional knapsack, (N,) float32 throughout -> (d, cost,
+    feasible).  ``order`` (the argsort of costs / weights), ``hi_mass``
+    and ``w_safe = max(weights, 1e-30)`` do not depend on the bracket, so
+    the caller computes them once."""
+    lo_mass = torch.dot(weights, lower)
+    feasible = (budget >= lo_mass - 1e-9) & (budget <= hi_mass + 1e-9)
+    remaining = torch.clamp(budget - lo_mass, min=0.0)
+    caps = ((upper - lower) * weights)[order]        # mass capacity, sorted
+    prev = torch.cumsum(caps, 0) - caps
+    take_sorted = torch.minimum(torch.clamp(remaining - prev, min=0.0), caps)
+    take = torch.zeros_like(take_sorted).scatter_(0, order, take_sorted)
+    d = lower + take / w_safe
+    return d, torch.dot(costs, d), feasible
+
+
+def solve_dropout_rates_torch(
+    model_bytes: torch.Tensor,
+    uplink_rate: torch.Tensor,
+    downlink_rate: torch.Tensor,
+    compute_latency: torch.Tensor,
+    num_samples: torch.Tensor,
+    label_coverage: torch.Tensor,
+    train_loss: torch.Tensor,
+    *,
+    a_server: float,
+    d_max: float,
+    delta: float,
+    global_model_bytes: Optional[float] = None,
+    num_iters: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The golden-section solver of ``solve_dropout_rates_jax`` in float32
+    torch: inputs are (N,) float32 tensors on one device; returns
+    (dropout_rates, makespan) as tensors there, unclipped, with no host
+    sync — ``num_iters`` bracket updates of a Python loop, each a
+    ``torch.where``.  The argsort of costs / U and the other quantities
+    that do not depend on the bracket are computed once, before the loop.
+    About 80 device operations an iteration, so ~7.7k launches at the
+    protocol's 96 (``PERF.md`` §5 has the measured count and time).
+    """
+    u = model_bytes
+    gmb = torch.max(u) if global_model_bytes is None else global_model_bytes
+    m = torch.sum(num_samples)
+    re = (num_samples / m) * label_coverage * (u / gmb) * train_loss
+    costs = delta * re
+    k = u * (1.0 / uplink_rate + 1.0 / downlink_rate)
+    tc = compute_latency
+    budget = (1.0 - a_server) * torch.sum(u)
+    upper = torch.full_like(u, d_max)
+    big = torch.full((), 1e30, dtype=torch.float32, device=u.device)
+    k_safe = torch.clamp(k, min=1e-30)
+    w_safe = torch.clamp(u, min=1e-30)
+    order = torch.argsort(costs / w_safe, stable=True)
+    hi_mass = torch.dot(u, upper)
+
+    def inner_obj(t_srv):
+        l = torch.clamp(1.0 - (t_srv - tc) / k_safe, min=0.0)
+        bad = torch.any(l > d_max + 1e-12)
+        l = torch.clamp(l, max=d_max)
+        d, cost, feas = _inner_knapsack_torch(l, upper, u, w_safe, costs,
+                                              budget, hi_mass, order)
+        return torch.where(bad | ~feas, big, t_srv + cost), d
+
+    a = torch.max(tc + k * (1.0 - d_max))
+    b = torch.max(tc + k)
+    for _ in range(num_iters):
+        step = _GR * (b - a)
+        c = b - step
+        dd = a + step
+        fc, _ = inner_obj(c)
+        fd, _ = inner_obj(dd)
+        # strict '<': when both probes are infeasible (equal sentinels, only
+        # at the low end) the bracket shrinks from the left, toward
+        # feasibility
+        left = fc < fd
+        a, b = torch.where(left, a, c), torch.where(left, dd, b)
+    _, d_star = inner_obj(0.5 * (a + b))
+    return d_star, torch.max(tc + k * (1.0 - d_star))
+
+
 def solve_dropout_rates_with(
     allocator: str,
     tel: ClientTelemetry,
@@ -282,18 +391,46 @@ def solve_dropout_rates_with(
     global_model_bytes: Optional[float] = None,
     comm=None,
     wire_specs=None,
+    num_iters: int = 96,
+    device: DeviceLike = None,
 ) -> AllocationResult:
-    """Allocator dispatch.  Only ``"numpy"`` is ported; the jit-able
-    solver's torch twin is ROADMAP.md queue A item 4.  A ``comm`` with
-    ``overhead_aware_allocation`` routes to
-    :func:`solve_dropout_rates_overhead_aware` over ``wire_specs``."""
-    if allocator != "numpy":
-        raise NotImplementedError(
-            f"allocator {allocator!r} is not ported yet (ROADMAP.md queue A "
-            "item 4); use allocator='numpy'")
+    """Allocator dispatch: ``"numpy"``, the float64 LP (with ``comm``'s
+    ``overhead_aware_allocation``, :func:`solve_dropout_rates_overhead_aware`
+    over ``wire_specs``), or ``"jax"``, the float32 golden-section twin
+    :func:`solve_dropout_rates_torch` on ``device`` (default ``cuda``) —
+    the scanned engine's solver, run on the same device so per-round and
+    scanned rates agree bit for bit.  Either way a host
+    :class:`AllocationResult`: for "jax" the rates clipped in float64, the
+    device makespan, the objective, and ``feasible`` when the budget
+    equality holds within 1e-4 of the total bytes."""
     kw = dict(a_server=a_server, d_max=d_max, delta=delta,
               global_model_bytes=global_model_bytes)
-    if comm is not None and comm.overhead_aware_allocation:
-        return solve_dropout_rates_overhead_aware(tel, wire_specs, comm=comm,
-                                                  **kw)
-    return solve_dropout_rates(tel, **kw)
+    aware = comm is not None and comm.overhead_aware_allocation
+    if allocator == "numpy":
+        if aware:
+            return solve_dropout_rates_overhead_aware(tel, wire_specs,
+                                                      comm=comm, **kw)
+        return solve_dropout_rates(tel, **kw)
+    if allocator != "jax":
+        raise ValueError(f"unknown allocator {allocator!r}; "
+                         f"expected one of {ALLOCATORS}")
+    if aware:
+        raise ValueError("comm.overhead_aware_allocation is a host-side "
+                         "fixed point around the numpy LP; it requires "
+                         "allocator='numpy'")
+    dev = resolve_device(device)
+    d_dev, t_dev = solve_dropout_rates_torch(
+        *(stage(getattr(tel, f), dev) for f in (
+            "model_bytes", "uplink_rate", "downlink_rate", "compute_latency",
+            "num_samples", "label_coverage", "train_loss")),
+        num_iters=num_iters, **kw)
+    host = torch.cat([t_dev.view(1), d_dev]).cpu().numpy()   # one transfer
+    d = np.clip(host[1:].astype(np.float64), 0.0, d_max)
+    u = tel.model_bytes.astype(np.float64)
+    gmb = float(global_model_bytes if global_model_bytes is not None
+                else np.max(u))
+    obj = float(host[0]) + delta * float(np.dot(regularizer(tel, gmb), d))
+    budget = (1.0 - a_server) * float(np.sum(u))
+    feasible = bool(abs(float(np.dot(u, d)) - budget)
+                    <= 1e-4 * max(float(np.sum(u)), 1.0))
+    return AllocationResult(d, float(host[0]), obj, feasible)

@@ -10,8 +10,9 @@
 Every selector returns a boolean participation vector; selected clients
 upload FULL models.  The selectors are the JAX package's numpy code: the
 same ``np.argsort`` calls on the same float64 arrays, so the same clients
-are chosen, ties included.  The traced Oort selector of a scanned
-multi-round engine waits for ROADMAP.md queue A item 10.
+are chosen, ties included.  :func:`select_oort_traced` is the device
+twin the scanned multi-round engine calls between rounds: Oort's ranking
+depends on the round's losses, which stay on the device there.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.allocation import ClientTelemetry
 
@@ -94,6 +96,38 @@ def oort_system_penalty(tel: ClientTelemetry, *,
         t > round_deadline,
         (round_deadline / np.maximum(t, 1e-9)) ** state.straggler_penalty,
         1.0)
+
+
+def select_oort_traced(train_loss: torch.Tensor, *,
+                       num_samples: torch.Tensor,
+                       system_penalty: torch.Tensor,
+                       model_bytes: torch.Tensor,
+                       budget) -> torch.Tensor:
+    """:func:`select_oort` on device tensors, with no host sync: the
+    (N,) bool participation of the highest-utility clients whose models
+    fit ``budget`` bytes, at least the top-ranked one.
+
+    float32 on the losses' device (the numpy selector is float64), ranked
+    by a stable argsort of ``-utility``; the greedy admits the clients in
+    that order with a float32 running total, one client per step.  The
+    static ``system_penalty`` is :func:`oort_system_penalty`, computed
+    once on the host.  As in the JAX package, the two selectors can
+    differ only where utilities tie to float32 resolution or a budget
+    boundary falls between them: the stable argsort keeps the lower
+    index first, numpy's default sort need not."""
+    util = num_samples * torch.sqrt(torch.clamp(train_loss, min=0.0)) \
+        * system_penalty
+    order = torch.argsort(-util, stable=True)
+    ranked_bytes = model_bytes[order]
+    used = torch.zeros((), dtype=torch.float32, device=util.device)
+    takes = []
+    for i in range(util.shape[0]):
+        take = used + ranked_bytes[i] <= budget + 1e-9
+        used = used + torch.where(take, ranked_bytes[i], 0.0)
+        takes.append(take)
+    taken = torch.stack(takes)
+    taken[0] |= ~torch.any(taken)      # always keep the top-ranked client
+    return torch.zeros_like(taken).scatter_(0, order, taken)
 
 
 def select_oort(tel: ClientTelemetry, *, a_server: float,

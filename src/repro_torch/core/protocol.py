@@ -3,6 +3,7 @@
 The driver orchestrates any model exposing
 
     local_train_fn(params, client_idx, key) -> (new_params, loss)
+      or batched_train_fn(stacked_params, key) -> (stacked_params, (N,) losses)
     eval_fn(params) -> metrics dict            (optional)
 
 with the JAX package's key chain (:mod:`repro_torch.prng`, threefry):
@@ -16,7 +17,15 @@ Round execution is a strategy behind one executor interface
 * **engine** (default): the fleet's parameters stay stacked on the
   device, one engine step per round (``core/round_engine.py``).  FedAvg,
   FedCS and Oort run its ``dense_masks`` mode with non-participants as a
-  0 aggregation weight.
+  0 aggregation weight.  With ``batched_train_fn`` (e.g.
+  ``round_engine.make_batched_train_fn``) local training is one fused
+  call for every client too, and the round's losses reach the host in
+  its one transfer.
+* **scanned** (``rounds_per_dispatch=K > 1``, with ``batched_train_fn``
+  and ``allocator="jax"``): K whole rounds per
+  ``BatchedRoundEngine.run`` call, the allocation and the clock on the
+  device between them, one host transfer per chunk; the records are
+  spliced back per round and equal the per-round path's bit for bit.
 * **loop** (``batched=False``, or ``track_epsilon=True``): the per-client
   reference loop, Algorithm 1 written out client by client — the oracle
   every engine is held to, and the only path that gives
@@ -24,9 +33,11 @@ Round execution is a strategy behind one executor interface
   ``core/convergence.py``).  Slow by design: per-client mask building and
   Eq. (5) launches, and one density read (a device sync) per client.
 
-Between rounds the numpy Eq. (9)-(11) LP re-allocates the dropout rates
-(on effective wire bytes with ``comm.overhead_aware_allocation``) and the
-Eq. (12) clock advances:
+Between rounds the Eq. (9)-(11) LP re-allocates the dropout rates — the
+numpy solver (on effective wire bytes with
+``comm.overhead_aware_allocation``), or with ``allocator="jax"`` its
+float32 torch twin on the server's device — and the Eq. (12) clock
+advances:
 
     t = t_cmp + U(1-D)/r_u + U(1-D)/r_d,   the round takes the max over
     participating clients, at the rates the round's uploads used; with a
@@ -40,10 +51,11 @@ the loop), byte counters from ``account_uplink`` and one JSONL ``round``
 event a round.  The default ``ObsConfig()`` is inert; spans read the
 host clock only, so a run with obs on makes the same device syncs.
 
-Not ported yet, each raising with a pointer to ROADMAP.md queue A:
-ragged (grouped) fleets, the scanned multi-round path, robust
-aggregation, the event-driven simulator with faults, checkpoints and
-population serving, and the client-sharded mesh.
+``robust_agg`` ("trimmed[:beta]", "clip[:factor]") hardens Eq. (4) on
+the engine paths.  Not ported yet, each raising with a pointer to
+ROADMAP.md queue A: ragged (grouped) fleets, the event-driven simulator
+with faults, checkpoints and population serving, and the client-sharded
+mesh.
 """
 
 from __future__ import annotations
@@ -61,7 +73,8 @@ from repro_torch.comm import codecs as wire_codecs
 from repro_torch.comm import quantize as wire_quant
 from repro_torch.comm.payload import (CommConfig, WireSpec, account_uplink,
                                       analytic_uplink_vector)
-from repro_torch.core import aggregation, baselines, round_engine, selection
+from repro_torch.core import (aggregation, allocation, baselines,
+                              round_engine, selection)
 from repro_torch.core.allocation import (ALLOCATORS, AllocationResult,
                                          ClientTelemetry,
                                          solve_dropout_rates_with)
@@ -73,8 +86,6 @@ SCHEMES = ("feddd", "fedavg", "fedcs", "oort")
 # fields of the JAX package's ProtocolConfig whose paths are not ported:
 # (field, its inert default, ROADMAP.md queue A item, what it drives)
 _UNPORTED = (
-    ("rounds_per_dispatch", 1, 10, "the scanned multi-round path"),
-    ("robust_agg", "mean", 12, "robust aggregation"),
     ("mesh", None, 14, "the client-sharded mesh"),
     ("checkpoint_every", None, 13, "crash-resume checkpoints"),
     ("checkpoint_path", None, 13, "crash-resume checkpoints"),
@@ -96,7 +107,10 @@ class ProtocolConfig:
     seed: int = 0
     track_epsilon: bool = False      # Assumption-3 estimator (the loop)
     batched: bool = True             # False: the per-client reference loop
-    allocator: str = "numpy"         # Eq. (16)/(17) LP solver
+    allocator: str = "numpy"         # Eq. (16)/(17) LP solver: "numpy"
+                                     # (float64) or "jax" (the float32
+                                     # torch golden-section twin, on the
+                                     # server's device)
     comm: CommConfig = dataclasses.field(default_factory=CommConfig)
                                      # wire format (repro_torch.comm); the
                                      # default is the analytic accounting
@@ -104,9 +118,13 @@ class ProtocolConfig:
         default_factory=obs_mod.ObsConfig)
                                      # observability (repro_torch.obs); the
                                      # default is inert
-    rounds_per_dispatch: int = 1     # the fields below drive paths not
-    robust_agg: str = "mean"         # ported yet: anything but the
-    mesh: object = None              # default raises
+    rounds_per_dispatch: int = 1     # K > 1: the scanned path (needs
+                                     # allocator="jax")
+    robust_agg: str = "mean"         # Eq. (4) variant: "mean",
+                                     # "trimmed[:beta]", "clip[:factor]"
+    mesh: object = None              # the fields below drive paths not
+                                     # ported yet: anything but the
+                                     # default raises
     checkpoint_every: Optional[int] = None
     checkpoint_path: Optional[str] = None
     resume_from: Optional[str] = None
@@ -117,9 +135,22 @@ class ProtocolConfig:
         if self.scheme not in SCHEMES:
             raise ValueError(f"unknown scheme {self.scheme!r}")
         if self.allocator not in ALLOCATORS:
-            raise NotImplementedError(
-                f"allocator {self.allocator!r} is not ported yet (ROADMAP.md "
-                "queue A item 4); use allocator='numpy'")
+            raise ValueError(f"unknown allocator {self.allocator!r}; "
+                             f"expected one of {ALLOCATORS}")
+        if self.rounds_per_dispatch < 1:
+            raise ValueError("rounds_per_dispatch must be >= 1, got "
+                             f"{self.rounds_per_dispatch}")
+        if self.rounds_per_dispatch > 1 and self.allocator != "jax":
+            raise ValueError(
+                "rounds_per_dispatch > 1 runs the dropout-rate allocation on "
+                "the device between rounds and therefore requires "
+                "allocator='jax' (the numpy LP runs on the host)")
+        if self.comm.overhead_aware_allocation and self.allocator != "numpy":
+            raise ValueError(
+                "comm.overhead_aware_allocation is a host-side fixed point "
+                "around the numpy LP; it requires allocator='numpy' (and "
+                "therefore cannot ride rounds_per_dispatch > 1)")
+        aggregation.parse_robust_agg(self.robust_agg)    # validate the spec
         for name, default, item, what in _UNPORTED:
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -197,9 +228,11 @@ class _RoundExecutor:
     hands the round's training, masks, aggregation and client updates to
     one of these."""
 
-    def __init__(self, server: "FedDDServer", local_train_fn):
+    def __init__(self, server: "FedDDServer", local_train_fn,
+                 batched_train_fn=None):
         self.srv = server
         self.local_train_fn = local_train_fn
+        self.batched_train_fn = batched_train_fn
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
                   d_used: np.ndarray) -> _RoundData:
@@ -210,18 +243,23 @@ class _RoundExecutor:
 
 
 class _EngineExecutor(_RoundExecutor):
-    """One BatchedRoundEngine step per round; client state stays stacked
-    on the device.  The baselines run ``dense_masks`` mode with
-    non-participation as a 0 aggregation weight."""
+    """One BatchedRoundEngine step per round (or one ``run`` per chunk of
+    rounds); client state stays stacked on the device.  The baselines run
+    ``dense_masks`` mode with non-participation as a 0 aggregation
+    weight; a fused trainer trains every row, so non-participants go back
+    to their stale params and losses."""
 
-    def __init__(self, server: "FedDDServer", local_train_fn):
-        super().__init__(server, local_train_fn)
-        self.engine = round_engine.BatchedRoundEngine(server.cfg.selection,
-                                                      server.cfg.comm)
+    def __init__(self, server: "FedDDServer", local_train_fn,
+                 batched_train_fn=None):
+        super().__init__(server, local_train_fn, batched_train_fn)
+        self.engine = round_engine.BatchedRoundEngine(
+            server.cfg.selection, server.cfg.comm,
+            robust_agg=server.cfg.robust_agg)
         self.weights = np.asarray(
             [cs.num_samples for cs in server.clients], float)
         self.stacked = round_engine.stack_pytrees(
             [cs.params for cs in server.clients])
+        self._scan_static = None
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
                   d_used: np.ndarray) -> _RoundData:
@@ -232,16 +270,28 @@ class _EngineExecutor(_RoundExecutor):
         part = (np.ones(n, bool) if not dense
                 else srv._participants(losses))
         with obs.span("local_train", round=t):
-            new_list, loss_list = [], []
-            for i, p_i in enumerate(round_engine.unstack_pytree(self.stacked,
-                                                                n)):
-                if part[i]:
-                    p, l = self.local_train_fn(p_i, i, prng.fold_in(rk, i))
-                else:       # baseline non-participant: stale state
-                    p, l = p_i, losses[i]
-                new_list.append(p)
-                loss_list.append(l)
-            stacked_new = round_engine.stack_pytrees(new_list)
+            if self.batched_train_fn is not None:
+                stacked_new, loss_dev = self.batched_train_fn(self.stacked,
+                                                              rk)
+                loss_dev = torch.as_tensor(loss_dev, dtype=torch.float32)
+                if dense:
+                    pvec = torch.as_tensor(part, device=srv.device)
+                    stacked_new = round_engine.keep_participants(
+                        pvec, stacked_new, self.stacked)
+                    loss_dev = torch.where(pvec, loss_dev, torch.as_tensor(
+                        losses, dtype=torch.float32, device=srv.device))
+            else:
+                new_list, loss_dev = [], []
+                for i, p_i in enumerate(round_engine.unstack_pytree(
+                        self.stacked, n)):
+                    if part[i]:
+                        p, l = self.local_train_fn(p_i, i,
+                                                   prng.fold_in(rk, i))
+                    else:       # baseline non-participant: stale state
+                        p, l = p_i, losses[i]
+                    new_list.append(p)
+                    loss_dev.append(l)
+                stacked_new = round_engine.stack_pytrees(new_list)
         with obs.span("engine_step", round=t):
             out = self.engine.step(self.stacked, stacked_new,
                                    srv.global_params, d_used,
@@ -250,12 +300,64 @@ class _EngineExecutor(_RoundExecutor):
                                    dense_masks=dense)
         srv.global_params = out.global_params
         self.stacked = out.client_params
+        # the round's one device-to-host copy (a fused trainer's losses
+        # ride in it)
         with obs.span("host_transfer", round=t):
-            dens, oh = _to_host(out.densities, out.wire_overhead)
-        new_losses = np.asarray([float(l) for l in loss_list], float)
+            if isinstance(loss_dev, torch.Tensor):
+                dens, oh, new_losses = _to_host(out.densities,
+                                                out.wire_overhead, loss_dev)
+            else:
+                dens, oh = _to_host(out.densities, out.wire_overhead)
+                new_losses = [float(l) for l in loss_dev]
+        new_losses = np.asarray(new_losses, float)
         uploaded, wire = account_uplink(dens, part, srv.tel.model_bytes, oh,
                                         cfg.comm, obs=obs)
         return _RoundData(new_losses, uploaded, part, None, wire)
+
+    def run_chunk(self, t_start: int, count: int,
+                  losses: np.ndarray) -> round_engine.ScanTrace:
+        """Rounds ``t_start .. t_start + count - 1`` in one
+        ``BatchedRoundEngine.run`` call; rebinds the stacked client
+        state, the global params and the key from its carry and returns
+        the host copy of its :class:`ScanTrace` (the chunk's one
+        transfer).  Before the first chunk the executor copies the global
+        params, so its carry never aliases the caller's tensors."""
+        srv, cfg = self.srv, self.srv.cfg
+        dev = srv.device
+        if self._scan_static is None:
+            srv.global_params = tree.tree_map(torch.clone, srv.global_params)
+            static_part, pen, budget = None, None, 0.0
+            if cfg.scheme == "fedcs":
+                static_part = torch.as_tensor(baselines.select_fedcs(
+                    srv.tel, a_server=cfg.a_server), device=dev)
+            elif cfg.scheme == "oort":
+                pen = allocation.stage(baselines.oort_system_penalty(srv.tel),
+                                       dev)
+                budget = cfg.a_server * float(np.sum(srv.tel.model_bytes))
+            self._scan_static = (
+                round_engine.ScanTelemetry.from_host(srv.tel, dev),
+                allocation.stage(self.weights, dev), static_part, pen,
+                budget)
+        scan_tel, weights, static_part, pen, budget = self._scan_static
+        state = round_engine.ScanState(
+            client_params=self.stacked, global_params=srv.global_params,
+            losses=allocation.stage(losses, dev),
+            dropout=allocation.stage(srv.dropout, dev), rng=srv.rng,
+            sim_time=torch.zeros((), dtype=torch.float32, device=dev))
+        out, trace = self.engine.run(
+            state, scan_tel, num_rounds=count,
+            batched_train_fn=self.batched_train_fn, weights=weights,
+            h=cfg.h, a_server=cfg.a_server, d_max=cfg.d_max,
+            delta=cfg.delta,
+            global_model_bytes=_tree_bytes(srv.global_params),
+            t_start=t_start, scheme=cfg.scheme,
+            static_participants=static_part, oort_penalty=pen,
+            oort_budget=budget)
+        self.stacked = out.client_params
+        srv.global_params = out.global_params
+        srv.rng = out.rng
+        with srv.obs.span("host_transfer", round=t_start):
+            return trace.to_host()
 
     def finalize(self) -> None:
         for cs, p in zip(self.srv.clients, round_engine.unstack_pytree(
@@ -362,16 +464,24 @@ class _ReferenceLoopExecutor(_RoundExecutor):
         return _RoundData(losses, uploaded, active, eps_val, wire)
 
 
-def _to_host(densities: torch.Tensor, wire_overhead):
+def _to_host(densities: torch.Tensor, wire_overhead, losses=None):
     """The engine round's one device-to-host copy: the (N,) float32
-    densities and, with a non-default wire format, the (N,) int32 overhead
-    (its bits ride in the same float32 buffer)."""
-    if wire_overhead is None:
-        return densities.cpu().numpy(), None
+    densities, with a non-default wire format the (N,) int32 overhead
+    (its bits ride in the same float32 buffer), and a fused trainer's
+    (N,) float32 losses -> (densities, overhead or None[, losses])."""
     n = densities.shape[0]
-    both = torch.cat([densities, wire_overhead.view(torch.float32)])
-    host = both.cpu().numpy()
-    return host[:n], host[n:].view(np.int32)
+    parts = [densities]
+    if losses is not None:
+        parts.append(losses)
+    if wire_overhead is not None:
+        parts.append(wire_overhead.view(torch.float32))
+    host = torch.cat(parts).cpu().numpy() if len(parts) > 1 else \
+        densities.cpu().numpy()
+    oh = (None if wire_overhead is None
+          else np.ascontiguousarray(host[-n:]).view(np.int32))
+    if losses is None:
+        return host[:n], oh
+    return host[:n], oh, host[n:2 * n]
 
 
 def _host_float(x: torch.Tensor) -> float:
@@ -412,7 +522,8 @@ class FedDDServer:
             a_server=self.cfg.a_server, d_max=self.cfg.d_max,
             delta=self.cfg.delta,
             global_model_bytes=_tree_bytes(self.global_params),
-            comm=self.cfg.comm, wire_specs=self.wire_specs)
+            comm=self.cfg.comm, wire_specs=self.wire_specs,
+            device=self.device)
 
     def _participants(self, losses: np.ndarray) -> np.ndarray:
         if self.cfg.scheme == "fedavg":
@@ -425,12 +536,25 @@ class FedDDServer:
             return baselines.select_oort(tel, a_server=self.cfg.a_server)
         return np.ones(self.tel.num_clients, bool)   # feddd: everyone
 
-    def _executor_kind(self) -> str:
+    def _executor_kind(self, batched_train_fn=None) -> str:
         """``track_epsilon`` needs the loop's per-client masks;
-        ``batched=False`` asks for the loop as the oracle."""
+        ``batched=False`` asks for the loop as the oracle.  A fused
+        trainer and the robust Eq. (4) variants need the engine."""
         if self.cfg.track_epsilon or not self.cfg.batched:
-            return "loop"
-        return "engine"
+            kind = "loop"
+        else:
+            kind = "engine"
+        if batched_train_fn is not None and kind != "engine":
+            raise ValueError(
+                "batched_train_fn requires a homogeneous run with "
+                "batched=True and track_epsilon=False")
+        if str(self.cfg.robust_agg) != "mean" and kind == "loop":
+            raise ValueError(
+                "robust_agg variants are fused into the engine-backed "
+                "stacked Eq. (4) step; the reference loop aggregates "
+                "per-client lists with the plain weighted mean (run with "
+                "batched=True and track_epsilon=False)")
+        return kind
 
     _EXECUTORS = {"engine": _EngineExecutor, "loop": _ReferenceLoopExecutor}
 
@@ -439,22 +563,62 @@ class FedDDServer:
         """The executor ``run`` routes to: "engine" or "loop"."""
         return self._executor_kind()
 
-    def run(self, local_train_fn: Callable,
+    def run(self, local_train_fn: Optional[Callable] = None,
             eval_fn: Optional[Callable[[object], Dict]] = None,
-            rounds: Optional[int] = None) -> RunResult:
+            rounds: Optional[int] = None,
+            batched_train_fn: Optional[Callable] = None) -> RunResult:
+        """Run the protocol.
+
+        Args:
+          local_train_fn: per-client ``(params, client_idx, key) ->
+            (params, loss)``; required unless ``batched_train_fn`` is
+            given.
+          eval_fn: ``params -> metrics dict``, once a round (not with
+            ``rounds_per_dispatch > 1``).
+          batched_train_fn: ``(stacked_params, key) -> (stacked_params,
+            (N,) losses)`` on client-stacked pytrees (engine runs only;
+            ``round_engine.make_batched_train_fn`` builds one): local
+            training in one fused call, and the scanned path's trainer.
+        """
         cfg = self.cfg
         rounds = rounds or cfg.rounds
         n = self.tel.num_clients
+        if local_train_fn is None and batched_train_fn is None:
+            raise ValueError("need local_train_fn or batched_train_fn")
         losses = np.ones(n)
         sim_time = 0.0
         history: List[RoundRecord] = []
         full_bytes = float(np.sum(self.tel.model_bytes))
-        kind = self._executor_kind()
-        executor = self._EXECUTORS[kind](self, local_train_fn)
+        kind = self._executor_kind(batched_train_fn)
+        scanned = cfg.rounds_per_dispatch > 1
+        if scanned:
+            if kind != "engine":
+                raise ValueError(
+                    "rounds_per_dispatch > 1 requires the homogeneous "
+                    "batched engine (batched=True, track_epsilon=False); "
+                    f"this run routes to {kind!r}")
+            if batched_train_fn is None:
+                raise ValueError(
+                    "rounds_per_dispatch > 1 requires batched_train_fn: "
+                    "local training must be device-fused for the rounds "
+                    "to run without a host round trip")
+            if eval_fn is not None:
+                raise ValueError(
+                    "eval_fn evaluates every round on the host, but with "
+                    "rounds_per_dispatch > 1 params only reach the host "
+                    "at chunk boundaries; use rounds_per_dispatch=1 for "
+                    "per-round eval")
+        executor = self._EXECUTORS[kind](self, local_train_fn,
+                                         batched_train_fn)
         self.obs = obs_mod.make_recorder(
-            cfg.obs, driver="protocol", scheme=cfg.scheme, executor=kind,
-            clients=n, rounds=rounds)
+            cfg.obs, driver="protocol", scheme=cfg.scheme,
+            executor="scanned" if scanned else kind, clients=n,
+            rounds=rounds)
         try:
+            if scanned:
+                self._run_scanned(executor, rounds, history, full_bytes)
+                executor.finalize()
+                return RunResult(history, self.global_params)
             for t in range(1, rounds + 1):
                 t0 = time.perf_counter()
                 self.rng, rk = prng.split(self.rng)
@@ -490,6 +654,55 @@ class FedDDServer:
             self.obs.close()
             self.obs = obs_mod.NULL_RECORDER
 
+    def _run_scanned(self, executor: _EngineExecutor, rounds: int,
+                     history: List[RoundRecord], full_bytes: float) -> None:
+        """``rounds_per_dispatch`` rounds per ``BatchedRoundEngine.run``
+        call, spliced back into the per-round :class:`RoundRecord` stream.
+
+        The records replay on the host, in float64, what the per-round
+        driver computes: the clip of the traced rates and the Eq. (12)
+        clock from them and the participation, so a scanned history
+        equals the per-round one bit for bit.  ``host_wall_time`` is the
+        chunk's wall time over its rounds."""
+        cfg = self.cfg
+        losses = np.ones(self.tel.num_clients)
+        sim_time = 0.0
+        t = 1
+        while t <= rounds:
+            k = min(cfg.rounds_per_dispatch, rounds - t + 1)
+            t0 = time.perf_counter()
+            with self.obs.span("chunk_dispatch", round=t):
+                trace = executor.run_chunk(t, k, losses)
+            wall = (time.perf_counter() - t0) / k
+            for j in range(k):
+                d_used = self.dropout.copy()
+                part = trace.participants[j]
+                losses = trace.losses[j].astype(float)
+                if cfg.scheme == "feddd":
+                    self.dropout = np.clip(
+                        trace.next_dropout[j].astype(np.float64), 0.0,
+                        cfg.d_max)
+                uploaded, wire = account_uplink(
+                    trace.densities[j], part,
+                    self.tel.model_bytes,
+                    None if trace.wire_overhead is None
+                    else trace.wire_overhead[j], cfg.comm, obs=self.obs)
+                sim_time, round_t, _, t_all = self._finish_round(
+                    part, sim_time, None, d_used)
+                history.append(RoundRecord(
+                    round=t + j, sim_time=sim_time, sim_round_time=round_t,
+                    host_wall_time=wall, mean_loss=float(np.mean(losses)),
+                    dropout_rates=self.dropout.copy(),
+                    uploaded_fraction=uploaded / max(full_bytes, 1e-9),
+                    uploaded_bytes=uploaded, wire_bytes=wire,
+                    participants=int(np.sum(part)),
+                    survivors=int(np.sum(part))))
+                if self.obs.active:
+                    self.obs.round(
+                        history[-1], path="scanned", scheme=cfg.scheme,
+                        client_times=np.where(part, t_all, np.nan))
+            t += k
+
     def _finish_round(self, active: np.ndarray, sim_time: float, eval_fn,
                       d_used: np.ndarray):
         """The paper's Eq. (12) clock at the rates the round's uploads used
@@ -518,11 +731,13 @@ def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
 
     ``device`` defaults to ``cuda`` and raises without a card; pass
     ``device="cpu"`` for a CPU run.  ``batched=False`` or
-    ``track_epsilon=True`` runs the per-client reference loop, and
-    ``obs=ObsConfig(...)`` records spans, metrics and a JSONL log.  The
+    ``track_epsilon=True`` runs the per-client reference loop,
+    ``robust_agg`` picks the Eq. (4) variant, and ``obs=ObsConfig(...)``
+    records spans, metrics and a JSONL log.  The fused and scanned paths
+    take a ``batched_train_fn``: call ``FedDDServer.run`` for them.  The
     simulator (``sim`` / ``network`` / ``faults``) and population serving
     are not ported yet; neither are the ``ProtocolConfig`` fields that
-    drive other unported paths (``mesh``, ``robust_agg``, ...).
+    drive other unported paths (``mesh``, checkpoints, ...).
     """
     if sim is not None or network is not None or faults is not None:
         raise NotImplementedError(

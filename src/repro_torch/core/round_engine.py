@@ -16,25 +16,40 @@ with a non-default wire format the (N,) measured mask overhead.  With
 (threefry-keyed int8 stochastic rounding, :mod:`repro_torch.comm`), while
 Eq. (5) keeps each client's own full-precision values.
 
-The engine also serves the FedAvg baseline (``dense_masks``: all-ones
-masks, no scoring); non-participation is a 0 aggregation weight.  Fault
-injection (``stacked_upload`` / ``delivered``), robust aggregation and
-the scanned multi-round path of the JAX engine are not ported yet
-(ROADMAP.md queue A).
+The engine also serves the FedAvg, FedCS and Oort baselines
+(``dense_masks``: all-ones masks, no scoring); non-participation is a 0
+aggregation weight.  ``robust_agg`` picks the Eq. (4) variant
+(``core/aggregation.py``).
+
+Multi-round path (:meth:`BatchedRoundEngine.run`): with a device-fused
+trainer (``batched_train_fn``, e.g. :func:`make_batched_train_fn`) and
+the float32 allocator (``allocation.solve_dropout_rates_torch``), K whole
+rounds — training, participation, masks, Eq. (4)-(6), the Eq. (9)-(11)
+re-allocation and the Eq. (12) clock — run back to back with no host
+sync: a Python loop over the rounds that issues the same operations the
+per-round path issues, so the two agree bit for bit, and returns the K
+rounds' telemetry as one device-resident :class:`ScanTrace` the caller
+fetches in one transfer.  Round keys stay host numpy (``prng``); their
+split chain does not depend on device data.  Fault injection
+(``stacked_upload`` / ``delivered``) is not ported yet (ROADMAP.md queue
+A item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch import tree
+from repro_torch import prng, tree
 from repro_torch.comm import codecs as wire_codecs
 from repro_torch.comm import quantize as wire_quant
-from repro_torch.comm.payload import CommConfig, WireSpec
-from repro_torch.core import aggregation, selection
+from repro_torch.comm.payload import (CommConfig, WireSpec,
+                                      analytic_wire_bytes)
+from repro_torch.core import aggregation, allocation, baselines, selection
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.recorder import profiler_scope
 
 
@@ -47,6 +62,77 @@ class RoundOutputs(NamedTuple):
     wire_overhead: Optional[torch.Tensor] = None
                                # (N,) int32 measured mask/scale bytes;
                                # None with the default CommConfig
+
+
+class ScanTelemetry(NamedTuple):
+    """Static client telemetry of a scanned run, float32 on the device:
+    the Eq. (9)-(11) allocator's inputs and the Eq. (12) clock's
+    coefficients.  ``train_loss`` is round-dynamic and rides the
+    :class:`ScanState` instead."""
+
+    model_bytes: torch.Tensor      # (N,) U_n
+    uplink_rate: torch.Tensor      # (N,) r_n^u
+    downlink_rate: torch.Tensor    # (N,) r_n^d
+    compute_latency: torch.Tensor  # (N,) t_n^cmp
+    num_samples: torch.Tensor      # (N,) m_n
+    label_coverage: torch.Tensor   # (N,) Eq. (13) coverage term
+
+    @classmethod
+    def from_host(cls, tel, device: DeviceLike = None) -> "ScanTelemetry":
+        """Stage a ``ClientTelemetry`` (minus ``train_loss``) on
+        ``device`` (default ``cuda``), rounded to float32 as the per-round
+        "jax" allocator stages it."""
+        dev = resolve_device(device)
+        return cls(*(allocation.stage(getattr(tel, f), dev)
+                     for f in cls._fields))
+
+
+class ScanState(NamedTuple):
+    """What round t hands round t+1 in a scanned chunk."""
+
+    client_params: object          # stacked pytree, leaves (N, *leaf)
+    global_params: object          # pytree: W^{t-1}
+    losses: torch.Tensor           # (N,) float32 server-side loss view
+    dropout: torch.Tensor          # (N,) float32 D_t, the next uploads'
+    rng: np.ndarray                # protocol key (host), split each round
+    sim_time: torch.Tensor         # () float32 device Eq. (12) clock,
+                                   # from the chunk's start
+
+
+class ScanTrace(NamedTuple):
+    """The K rounds of a chunk, stacked on the device: the chunk's one
+    device-to-host transfer (:meth:`to_host`).  ``round_time`` and
+    ``sim_time`` are the float32 device rendering of the Eq. (12) clock;
+    the protocol driver recomputes the float64 clock on the host from
+    ``next_dropout`` and ``participants``, as the per-round path does."""
+
+    losses: torch.Tensor           # (K, N) float32 post-round losses
+    densities: torch.Tensor        # (K, N) float32 upload densities
+    next_dropout: torch.Tensor     # (K, N) float32 D_{t+1}
+    participants: torch.Tensor     # (K, N) bool
+    round_time: torch.Tensor       # (K,) float32 Eq. (12) round time
+    sim_time: torch.Tensor         # (K,) float32 cumulative device clock
+    wire_overhead: Optional[torch.Tensor] = None
+                                   # (K, N) int32 measured mask / scale
+                                   # bytes; None with the default comm
+
+    def to_host(self) -> "ScanTrace":
+        """The same fields as numpy arrays, in one device-to-host copy
+        (every field rides one float32 buffer; the int32 overhead as its
+        bits)."""
+        k, n = self.losses.shape
+        parts = [self.losses, self.densities, self.next_dropout,
+                 self.participants.float(), self.round_time.view(k, 1),
+                 self.sim_time.view(k, 1)]
+        if self.wire_overhead is not None:
+            parts.append(self.wire_overhead.view(torch.float32))
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        cols = np.cumsum([0, n, n, n, n, 1, 1])
+        f = [host[:, a:b] for a, b in zip(cols[:-1], cols[1:])]
+        oh = (None if self.wire_overhead is None
+              else np.ascontiguousarray(host[:, cols[-1]:]).view(np.int32))
+        return ScanTrace(f[0], f[1], f[2], f[3] > 0, f[4][:, 0], f[5][:, 0],
+                         oh)
 
 
 def stack_pytrees(trees: Sequence) -> object:
@@ -65,6 +151,15 @@ def _adopt_global(new_global, stacked):
     return tree.tree_map(
         lambda g, l: g.to(l.dtype).expand(l.shape).contiguous(),
         new_global, stacked)
+
+
+def keep_participants(part: torch.Tensor, stacked_new, stacked_old):
+    """A vmapped trainer trains every row: non-participants ((N,) bool
+    ``part`` false) go back to their stale rows."""
+    return tree.tree_map(
+        lambda new, old: torch.where(
+            part.view((-1,) + (1,) * (new.ndim - 1)), new, old),
+        stacked_new, stacked_old)
 
 
 def _dense_masks(stacked, n: int):
@@ -97,7 +192,8 @@ def _wire_overhead(masks, stacked_new, comm: CommConfig, channel_axis: int,
 def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
                 weights, rng, *, sel_cfg: selection.SelectionConfig,
                 full_round: bool, dense_masks: bool = False,
-                comm: CommConfig = CommConfig()) -> RoundOutputs:
+                comm: CommConfig = CommConfig(),
+                robust: str = "mean") -> RoundOutputs:
     """Steps 2-4 and 6-7 of Algorithm 1 over the stacked fleet; ``rng`` is
     the round key (scheme 'random' masks, int8 stochastic rounding).
 
@@ -122,7 +218,8 @@ def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
                                  sel_cfg.channel_axis, dense_masks)
     with profiler_scope("feddd_aggregate"):
         new_global = aggregation.aggregate_sparse_stacked(
-            stacked_agg, masks, weights, prev_global=global_params)
+            stacked_agg, masks, weights, prev_global=global_params,
+            robust=robust)
     with profiler_scope("feddd_client_update"):
         if full_round:
             new_clients = _adopt_global(new_global, stacked_new)
@@ -134,13 +231,16 @@ def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
 
 @dataclasses.dataclass
 class BatchedRoundEngine:
-    """One FedDD round over client-stacked parameters; ``comm`` is the
-    wire format (non-default codecs add the measured overhead to the
-    outputs, ``qbits < 32`` quantizes the aggregation's input)."""
+    """FedDD rounds over client-stacked parameters: one round
+    (:meth:`step`) or a chunk of K (:meth:`run`).  ``comm`` is the wire
+    format (non-default codecs add the measured overhead to the outputs,
+    ``qbits < 32`` quantizes the aggregation's input); ``robust_agg`` the
+    Eq. (4) variant ("mean", "trimmed[:beta]", "clip[:factor]")."""
 
     selection_cfg: selection.SelectionConfig = dataclasses.field(
         default_factory=selection.SelectionConfig)
     comm: CommConfig = dataclasses.field(default_factory=CommConfig)
+    robust_agg: str = "mean"
 
     def step(self, stacked_old, stacked_new, global_params, dropout_rates,
              weights, rng=None, *, full_round: bool,
@@ -166,4 +266,154 @@ class BatchedRoundEngine:
             torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev),
             torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
             sel_cfg=self.selection_cfg, full_round=bool(full_round),
-            dense_masks=bool(dense_masks), comm=self.comm)
+            dense_masks=bool(dense_masks), comm=self.comm,
+            robust=str(self.robust_agg))
+
+    def run(self, state: ScanState, telemetry: ScanTelemetry, *,
+            num_rounds: int, batched_train_fn: Callable, weights,
+            h: int, a_server: float, d_max: float, delta: float,
+            global_model_bytes: float, t_start: int = 1,
+            scheme: str = "feddd", static_participants=None,
+            oort_penalty=None, oort_budget: float = 0.0,
+            alloc_iters: int = 96) -> Tuple[ScanState, ScanTrace]:
+        """Run rounds ``t_start .. t_start + num_rounds - 1`` in full —
+        training, masks, Eq. (4) aggregation, Eq. (5)/(6) updates, the
+        Eq. (9)-(11) re-allocation and the Eq. (12) clock — with no host
+        sync; returns the carry entering the next round and the chunk's
+        :class:`ScanTrace`, both on the device.
+
+        Each round issues the operations the per-round path issues for
+        the same carry (:meth:`step`, the trainer, and the "jax"
+        allocator on the same device), so K rounds here equal K per-round
+        dispatches bit for bit.  Nothing a caller passed in is written.
+
+        Args:
+          state: the :class:`ScanState` entering round ``t_start``.
+          telemetry: the staged :class:`ScanTelemetry`.
+          num_rounds: K.
+          batched_train_fn: ``(stacked_params, round_key) ->
+            (stacked_params, (N,) losses)`` on the device.
+          weights: (N,) aggregation weights m_n.
+          h / a_server / d_max / delta / global_model_bytes: the protocol
+            constants.
+          scheme: "feddd" builds masks and re-allocates; "fedavg",
+            "fedcs" and "oort" upload full models, non-participants
+            masked back to their stale params and losses.
+          static_participants: (N,) bool, required for "fedcs" (its
+            selection does not depend on the losses).
+          oort_penalty / oort_budget: required for "oort": the static
+            ``baselines.oort_system_penalty`` and the byte budget of the
+            device greedy (``baselines.select_oort_traced``).
+          alloc_iters: golden-section iterations (96, as the per-round
+            "jax" allocator).
+
+        ``weights``, ``static_participants`` and ``oort_penalty`` given as
+        host arrays are copied to the device here (a synchronising copy
+        each); the protocol's executor stages them once a run.
+        """
+        if scheme == "fedcs" and static_participants is None:
+            raise ValueError("scheme='fedcs' requires static_participants")
+        if scheme == "oort" and oort_penalty is None:
+            raise ValueError("scheme='oort' requires oort_penalty (see "
+                             "baselines.oort_system_penalty) + oort_budget")
+        dev = telemetry.model_bytes.device
+        n = telemetry.model_bytes.shape[0]
+        dense = scheme != "feddd"
+        w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        everyone = torch.ones((n,), dtype=torch.bool, device=dev)
+        if scheme == "fedcs":
+            static_part = torch.as_tensor(static_participants,
+                                          dtype=torch.bool, device=dev)
+        if scheme == "oort":
+            pen = torch.as_tensor(oort_penalty, dtype=torch.float32,
+                                  device=dev)
+            budget = torch.full((), float(oort_budget), dtype=torch.float32,
+                                device=dev)
+        spec = (None if self.comm.is_default else WireSpec.from_stacked(
+            state.client_params, self.selection_cfg.channel_axis))
+        params, gparams, losses, dropout, rng, sim_time = state
+        rows = []
+        for t in range(int(t_start), int(t_start) + int(num_rounds)):
+            rng, rk = prng.split(rng)
+            d_used = dropout
+            with profiler_scope("feddd_select"):
+                if scheme == "fedcs":
+                    part = static_part
+                elif scheme == "oort":
+                    part = baselines.select_oort_traced(
+                        losses, num_samples=telemetry.num_samples,
+                        system_penalty=pen,
+                        model_bytes=telemetry.model_bytes, budget=budget)
+                else:
+                    part = everyone
+            with profiler_scope("feddd_local_train"):
+                stacked_new, loss_dev = batched_train_fn(params, rk)
+                loss_dev = torch.as_tensor(loss_dev, dtype=torch.float32)
+            if dense:
+                stacked_new = keep_participants(part, stacked_new, params)
+                loss_dev = torch.where(part, loss_dev, losses)
+            out = _round_step(
+                params, stacked_new, gparams, d_used, w * part, rk,
+                sel_cfg=self.selection_cfg,
+                full_round=dense or t % int(h) == 0, dense_masks=dense,
+                comm=self.comm, robust=str(self.robust_agg))
+            with profiler_scope("feddd_allocate"):
+                if dense:
+                    d_next = torch.zeros_like(dropout)
+                    d_time = d_next
+                else:
+                    d_next, _ = allocation.solve_dropout_rates_torch(
+                        *telemetry, torch.clamp(loss_dev, min=1e-6),
+                        a_server=a_server, d_max=d_max, delta=delta,
+                        global_model_bytes=global_model_bytes,
+                        num_iters=alloc_iters)
+                    d_next = torch.clamp(d_next, 0.0, d_max)
+                    d_time = d_used
+            with profiler_scope("feddd_clock"):
+                round_t = _device_round_time(telemetry, d_time, part, spec,
+                                             self.comm)
+                sim_time = sim_time + round_t
+            params, gparams = out.client_params, out.global_params
+            losses, dropout = loss_dev, d_next
+            rows.append((loss_dev, out.densities, d_next, part, round_t,
+                         sim_time, out.wire_overhead))
+        cols = list(zip(*rows))
+        trace = ScanTrace(*(torch.stack(c) for c in cols[:6]),
+                          None if spec is None else torch.stack(cols[6]))
+        return ScanState(params, gparams, losses, dropout, rng,
+                         sim_time), trace
+
+
+def _device_round_time(tel: ScanTelemetry, d_time: torch.Tensor,
+                       part: torch.Tensor, spec: Optional[WireSpec],
+                       comm: CommConfig) -> torch.Tensor:
+    """Eq. (12) in float32 on the device: the slowest participant's
+    ``t_cmp + up / r_u + U(1-D) / r_d``, the uplink leg at the codec's
+    analytic bytes with a non-default wire format."""
+    u_eff = tel.model_bytes * (1.0 - d_time)
+    up = u_eff if spec is None else analytic_wire_bytes(spec, d_time, comm)
+    t_all = (tel.compute_latency + up / tel.uplink_rate
+             + u_eff / tel.downlink_rate)
+    return torch.max(torch.where(part, t_all, -torch.inf))
+
+
+def make_batched_train_fn(per_client_step: Callable,
+                          stacked_data: Sequence[torch.Tensor]) -> Callable:
+    """``torch.func.vmap`` a per-client ``step(params, *client_data) ->
+    (params, loss)`` into ``(stacked_params, rng) -> (stacked_params, (N,)
+    losses)`` — a fused trainer for fleets whose data shards share one
+    shape (``stacked_data``: tensors with a leading client axis).  The
+    key is dropped, as in the JAX package.  A vmapped row can differ from
+    the same step run alone in the last bits (the batched GEMM orders
+    its sums differently).  float32 stays float32 on the card: TF32 is
+    switched off for matmuls and cuDNN convolutions, process-wide, as the
+    per-client trainer (``fl.models.make_local_train_fn``) does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vstep = torch.func.vmap(per_client_step)
+
+    def batched(stacked_params, rng):
+        del rng
+        return vstep(stacked_params, *stacked_data)
+
+    return batched

@@ -1,6 +1,8 @@
 """Client data partitions — a numpy copy of the part of
-``repro.data.partition`` the main path uses.
+``repro.data.partition`` the port uses.
 
+  IID        every class uniformly across clients: equal shards (up to
+             one sample), the stackable data of a vmapped trainer
   Non-IID-b  each client holds exactly 3 random classes (paper §6.1)
 
 Returns a list of index arrays (one per client), equal to the JAX
@@ -22,6 +24,14 @@ def _split_among(idx: np.ndarray, owners: List[int], rng,
     chunks = np.array_split(idx, len(owners))
     for o, ch in zip(owners, chunks):
         parts[o].extend(ch.tolist())
+
+
+def partition_iid(ds: SyntheticImageDataset, num_clients: int,
+                  seed: int = 0) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    idx = np.arange(len(ds))
+    rng.shuffle(idx)
+    return [np.sort(a) for a in np.array_split(idx, num_clients)]
 
 
 def _partition_by_classes(ds, num_clients, classes_per_client, seed):

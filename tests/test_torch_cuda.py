@@ -790,3 +790,133 @@ def test_obs_adds_no_synchronising_calls_on_card(cuda_device, tmp_path):
     for a, b in zip(tree.leaves(runs[0].global_params),
                     tree.leaves(runs[1].global_params)):
         assert torch.equal(a, b)
+
+
+def _scan_fixture(dev, n=8, seed=0):
+    """A small MLP (20-12-5) over ``n`` clients with 32 seeded samples
+    each, one vmapped full-shard SGD step a round -> (params, telemetry,
+    batched_train_fn), on the card."""
+    import torch.nn.functional as F
+    from repro_torch import prng
+    from repro_torch.core.allocation import ClientTelemetry
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.fl import apply_spec, init_cnn_spec, model_bytes
+    spec = [("fc", 20, 12), ("fc", 12, 5)]
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.normal(size=(n, 32, 20)).astype(
+        np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 5, (n, 32))).to(dev)
+    params = init_cnn_spec(spec, prng.PRNGKey(seed), device=dev)
+    tel = ClientTelemetry(
+        model_bytes=np.full(n, float(model_bytes(params))),
+        uplink_rate=rng.uniform(1e3, 5e3, n),
+        downlink_rate=rng.uniform(5e3, 2e4, n),
+        compute_latency=rng.uniform(1.0, 5.0, n),
+        num_samples=rng.integers(10, 50, n).astype(float),
+        label_coverage=rng.uniform(0.5, 1.0, n), train_loss=np.ones(n))
+
+    def step(p, x, y):
+        g, l = torch.func.grad_and_value(
+            lambda q: F.cross_entropy(apply_spec(q, spec, x), y))(p)
+        return tree.tree_map(lambda w, gw: w - 0.1 * gw, p, g), l
+
+    return params, tel, make_batched_train_fn(step, (xs, ys))
+
+
+@pytest.mark.parametrize("scheme,k", [("feddd", 4), ("feddd", 3),
+                                      ("oort", 4), ("fedcs", 2)])
+def test_scanned_equals_per_round_on_card(scheme, k, cuda_device):
+    """7 rounds scanned at K against the per-round fused path on the card
+    (allocator "jax"): records, global and client params bit for bit, and
+    the same kernel launches."""
+    import dataclasses
+    from repro_torch.core.protocol import FedDDServer, ProtocolConfig
+    params, tel, bt = _scan_fixture(cuda_device)
+    runs = []
+    for rpd in (1, k):
+        srv = FedDDServer(params, ProtocolConfig(
+            scheme=scheme, rounds=7, a_server=0.6, h=3, seed=0,
+            allocator="jax", rounds_per_dispatch=rpd), tel,
+            device=cuda_device)
+        kernels.reset_launch_counts()
+        res = srv.run(batched_train_fn=bt)
+        runs.append((srv, res, kernels.launch_counts()))
+    (sa, ra, ca), (sb, rb, cb) = runs
+    assert ca == cb and ca["sparse_agg"] == 4 * 7
+    fields = [[dataclasses.asdict(r) | {
+        "host_wall_time": None, "dropout_rates": r.dropout_rates.tolist()}
+        for r in res.history] for res in (ra, rb)]
+    assert fields[0] == fields[1]
+    for a, b in zip(tree.leaves(ra.global_params),
+                    tree.leaves(rb.global_params)):
+        assert a.is_cuda and torch.equal(a, b)
+    for x, y in zip(sa.clients, sb.clients):
+        for a, b in zip(tree.leaves(x.params), tree.leaves(y.params)):
+            assert torch.equal(a, b)
+    if scheme == "feddd":
+        assert ca["importance"] == 4 * 7
+    else:
+        assert any(r.participants < 8 for r in rb.history)
+
+
+def test_scanned_chunk_makes_no_synchronising_call(cuda_device):
+    """``BatchedRoundEngine.run`` for a K = 5 chunk (FedDD, allocator on
+    the card) makes no synchronising CUDA call from its entry to its
+    return, after an uncounted warm-up chunk; the trace is fetched
+    after."""
+    from repro_torch import prng
+    from repro_torch.core import allocation, round_engine
+    params, tel, bt = _scan_fixture(cuda_device, n=6)
+    n = tel.num_clients
+    stel = round_engine.ScanTelemetry.from_host(tel, cuda_device)
+    state = round_engine.ScanState(
+        round_engine.stack_pytrees([params] * n),
+        tree.tree_map(torch.clone, params),
+        torch.ones(n, device=cuda_device), torch.zeros(n, device=cuda_device),
+        prng.PRNGKey(0), torch.zeros((), device=cuda_device))
+    kw = dict(num_rounds=5, batched_train_fn=bt,
+              weights=allocation.stage(tel.num_samples, cuda_device), h=3,
+              a_server=0.6, d_max=0.8, delta=1.0,
+              global_model_bytes=float(tel.model_bytes[0]))
+    engine = round_engine.BatchedRoundEngine()
+    counts = [{}, {}]
+    for t_start, counted in zip((1, 6), counts):
+        torch.cuda.synchronize()
+        with _smoke()._count_syncs(counted, cuda_device):
+            state, trace = engine.run(state, stel, t_start=t_start, **kw)
+    assert counts[1] == {"syncs": 0, "where": {}}
+    host = trace.to_host()
+    assert host.losses.shape == (5, n) and np.isfinite(host.losses).all()
+    assert host.next_dropout.max() > 0
+
+
+def test_clip_aggregation_launches_the_partials_mode(cuda_device):
+    """robust_agg "clip" reaches sparse_agg's partials mode on the card
+    (one launch a leaf) and agrees with the plain version on the CPU;
+    "trimmed" launches no kernel."""
+    from repro_torch.core import aggregation
+    gen = torch.Generator().manual_seed(3)
+    n = 7
+    shapes = [(20, 12), (12,), (12, 5), (5,)]
+    vals = [torch.randn((n,) + s, generator=gen) for s in shapes]
+    vals[0][1] *= 40.0
+    masks = [(torch.rand((n,) + (1,) * (len(s) - 1) + s[-1:],
+                         generator=gen) > 0.3).float() for s in shapes]
+    prev = [torch.randn(s, generator=gen) for s in shapes]
+    w = np.arange(1.0, n + 1.0)
+    want = aggregation.aggregate_sparse_stacked(vals, masks, w,
+                                                prev_global=prev,
+                                                robust="clip:2.0")
+    kernels.reset_launch_counts()
+    got = aggregation.aggregate_sparse_stacked(
+        [v.to(cuda_device) for v in vals], [m.to(cuda_device) for m in masks],
+        w, prev_global=[p.to(cuda_device) for p in prev], robust="clip:2.0")
+    assert agg_ops.mode_counts() == {"partials": 4, "mean": 0}
+    for g, x in zip(got, want):
+        torch.testing.assert_close(g.cpu(), x, rtol=3e-5, atol=1e-6)
+    kernels.reset_launch_counts()
+    aggregation.aggregate_sparse_stacked(
+        [v.to(cuda_device) for v in vals], [m.to(cuda_device) for m in masks],
+        w, prev_global=[p.to(cuda_device) for p in prev],
+        robust="trimmed:0.2")
+    assert kernels.launch_counts()["sparse_agg"] == 0

@@ -95,9 +95,6 @@ def test_random_selection_raises():
 
 @pytest.mark.parametrize("kw", [dict(sim=True), dict(faults=object()),
                                 dict(population=object()), dict(mesh=2),
-                                dict(allocator="jax"),
-                                dict(rounds_per_dispatch=2),
-                                dict(robust_agg="trimmed"),
                                 dict(checkpoint_every=1),
                                 dict(resume_from="state.npz")])
 def test_unported_paths_raise(kw):
