@@ -25,6 +25,10 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    same function, that call (a yardstick the port never uses), as medians
    of CUDA-event pairs with a cold L2, and at each shape an ``eq4_leaf``
    row: the mean mode against the partials plus the eager finish.
+   ``sparse_agg``'s elementwise-mask mode (a ragged fleet's zero-padded
+   Eq. (4) canvas: each client a leading box of the leaf under a channel
+   mask) the same way, both modes, at the ragged and large shapes and at
+   the hetero-a canvas (5, 3, 3, 512, 512), counted under its own route.
    Eq. (5) also as the engine calls it: the MLP's six leaves in one call
    of the grouped merge, which must launch once and equal the plain
    version leaf by leaf, timed beside the six single-leaf launches; and
@@ -85,7 +89,19 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    synchronising CUDA call inside ``BatchedRoundEngine.run`` for a K = 5
    chunk; and, printed only, host s per round of the three modes, the
    ``allocate`` span of each allocator, the device ops of one "jax"
-   solve and the reference benchmark's 64-client fleet in rounds/s;
+   solve and the reference benchmark's 64-client fleet in rounds/s.
+   Then the shape-grouped engine for ragged fleets (``grouped_phase``):
+   the paper's §6.4 run (``python -m repro_torch.heterogeneous``: the
+   five Table 3 VGG sub-models at full width, synthetic CIFAR-10,
+   6 rounds) and a 20-client fleet cycling them (3 rounds), each on the
+   grouped engine and the per-client loop, every client's scores and
+   masks, the records and the parameters bit-equal, the launches as
+   predicted (importance with the coverage division, sparse_agg
+   elementwise at the rank-2+ leaves, masked_merge once a group and
+   partial round); no synchronising call inside
+   ``GroupedRoundEngine.step``; and, printed only, the reference
+   benchmark's ragged 64-client MLP fleet in rounds/s, grouped against
+   the loop;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -101,8 +117,11 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
 kernels, with the default-comm, random and loop runs' beside them
-(``launches_loop``) and the scanned K = 5 run's (``launches_scan``),
-and importance's N = 1 row under ``n1``, the prefill
+(``launches_loop``), the scanned K = 5 run's (``launches_scan``) and
+the hetero-a run's on the grouped engine and the loop
+(``launches_grouped``, ``launches_grouped_loop``), and importance's N = 1
+row under ``n1``, ``sparse_agg``'s elementwise mode under
+``elementwise``, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
 beside them; ``masked_merge``'s at fc0, with the grouped launch of the
@@ -137,6 +156,9 @@ MLP_LEAVES = [(784, 100), (100,), (100, 64), (64,), (64, 10), (10,)]
 RAGGED = [(7, (257, 513)), (3, (3, 3)), (5, (1000, 7)), (2, (33,))]
 # the full-width VGG conv of the Table 3 fleet, and CNN2's first fc
 LARGE = [(16, (3, 3, 512, 512)), (16, (1024, 500))]
+# the grouped engine's Eq. (4) canvas of the five hetero-a clients at the
+# widest conv (sparse_agg's elementwise-mask mode; its `kernels` row)
+VGG_CANVAS = (5, (3, 3, 512, 512))
 MAIN_SHAPE = (MLP_N, (784, 100))     # fc0.w, the main path's largest leaf
 LOOP_IMPORTANCE_SHAPE = (1, (784, 100))   # fc0.w of one client (the loop)
 # one bf16 client leaf past 2**31 elements: the merge takes it in several
@@ -157,6 +179,12 @@ SCAN_BASELINE_ROUNDS = 6
 SCAN_VARIANT_ROUNDS = 5
 SCAN_MIN_ACC = 0.85     # after 10 IID rounds
 SCAN_STEPS, SCAN_BATCH, SCAN_LR = 9, 64, 0.1   # one epoch of a 600 shard
+HETERO_ROUNDS = 6       # the grouped phase's (a): the example's 6 rounds
+HETERO_FLEET = 20       # (b): clients cycling the five hetero-a specs
+HETERO_FLEET_ROUNDS = 3
+HETERO_PERF_CLIENTS = 64       # (c): benchmarks/heterogeneous.py's fleet
+HETERO_PERF_WIDTHS = (128, 96, 64)
+HETERO_PERF_ROUNDS = 5
 FLEET_SPEC = [("fc", 64, 128), ("fc", 128, 64), ("fc", 64, 10)]
 FLEET_CLIENTS, FLEET_SHARD, FLEET_K, FLEET_ROUNDS = 64, 32, 8, 16
 SCAN_SPANS = ("local_train", "engine_step", "host_transfer", "allocate",
@@ -669,6 +697,18 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
         if dtype == torch.float32:
             main["masked_merge_group"] = rec
 
+    # ---- sparse_agg with an elementwise mask (a ragged fleet's canvas)
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, leaf in RAGGED + LARGE + [VGG_CANVAS]:
+            if len(leaf) < 2:       # a 1-D leaf's mask is channel-shaped
+                continue
+            rec, err = elementwise_check(card, flush, dtype, dev, gen, timer,
+                                         n, leaf)
+            records.append(rec)
+            max_err["sparse_agg"] = max(max_err["sparse_agg"], err)
+            if (n, leaf) == VGG_CANVAS and dtype == torch.float32:
+                main["sparse_agg_elementwise"] = rec
+
     # ---- importance at N = 1, fc0 fp32: the per-client loop's launch
     n, leaf = LOOP_IMPORTANCE_SHAPE
     a, c, b = _lib.split_at(leaf, len(leaf) - 1)
@@ -698,6 +738,84 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
     records.append(rec)
     main["importance_n1"] = rec
     return {"max_abs_err": max_err, "main": main}
+
+
+def ragged_canvas_mask(gen, dev, n, leaf, dtype):
+    """A ragged fleet's Eq. (4) canvas mask: client i uploads a leading
+    box of the leaf (its own widths; the rest is zero padding) under a
+    random channel mask, and no client uploads channel 0."""
+    import torch
+    chan = (torch.rand((n,) + (1,) * (len(leaf) - 1) + leaf[-1:],
+                       generator=gen, device=dev) > 0.4).to(dtype)
+    m = torch.zeros((n,) + tuple(leaf), dtype=dtype, device=dev)
+    for i in range(n):
+        box = tuple(slice(0, max(1, s - (s * (i % 3)) // 4)) for s in leaf)
+        m[(i,) + box] = chan[i].expand(leaf)[box]
+    m[..., 0] = 0
+    return m
+
+
+def elementwise_check(card: Card, flush, dtype, dev, gen, timer, n,
+                      leaf) -> tuple:
+    """Phase 3, sparse_agg's elementwise-mask mode at one shape: both
+    modes against the plain version (the partials' tolerances, MEAN_RTOL
+    for the mean), the mean mode bit for bit against finish_masked_mean
+    over the partials mode and equal to gprev where no client uploaded;
+    the mean mode timed beside its plain version -> (record, max error).
+    The bound reads the values and the mask (the same bytes) once, the
+    weights, gprev where it fills, and writes the leaf once."""
+    import torch
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.kernels.sparse_agg.ref import (finish_masked_mean,
+                                                    masked_weighted_mean_ref,
+                                                    masked_weighted_sum_ref)
+    es = torch.finfo(dtype).bits // 8
+    a = math.prod(leaf[:-1])
+    c = leaf[-1]
+    elems = n * a * c
+    vals = torch.randn((n, *leaf), generator=gen, device=dev).to(dtype)
+    mask = ragged_canvas_mask(gen, dev, n, leaf, dtype)
+    wts = torch.rand((n,), generator=gen, device=dev) + 0.5
+    gprev = torch.randn(leaf, generator=gen, device=dev).to(dtype)
+    v4, m4 = vals.view(n, a, c, 1), mask.view(n, a, c, 1)
+    before = agg_ops.route_counts()
+    num, den = agg_ops.masked_weighted_sum(vals, mask, wts)
+    wnum, wden = masked_weighted_sum_ref(v4, m4, wts)
+    torch.testing.assert_close(
+        num, wnum.view(leaf), rtol=5e-3 if dtype == torch.bfloat16 else 3e-5,
+        atol=1e-4)
+    torch.testing.assert_close(den, wden.view(leaf), rtol=3e-5, atol=1e-5)
+    err = max((num - wnum.view(leaf)).abs().max().item(),
+              (den - wden.view(leaf)).abs().max().item())
+    got = agg_ops.masked_weighted_mean(vals, mask, wts, gprev, dtype)
+    moved = {k: v - before[k] for k, v in agg_ops.route_counts().items()}
+    if dev.type == "cuda" and moved != {"partials": 0, "mean": 0,
+                                        "partials:elementwise": 1,
+                                        "mean:elementwise": 1}:
+        raise AssertionError(f"elementwise masks took the routes {moved}")
+    want = masked_weighted_mean_ref(v4, m4, wts, gprev.view(a, c, 1),
+                                    dtype).view(leaf)
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=MEAN_RTOL[_name(dtype), _name(dtype)],
+                               atol=1e-4)
+    if not torch.equal(got, finish_masked_mean(num, den, gprev, dtype)):
+        raise AssertionError(f"sparse_agg elementwise mean mode differs from "
+                             f"finish_masked_mean over its partials at "
+                             f"{(n,) + leaf} {dtype}")
+    if not torch.equal(got[..., 0], gprev[..., 0]):
+        raise AssertionError("sparse_agg elementwise mean mode did not keep "
+                             "gprev where no client uploaded")
+    err = max(err, (got.float() - want.float()).abs().max().item())
+    filled = int((wden <= 1e-12).sum())
+    rec = _timed(card, flush, timer, "eq4_elementwise", n, leaf, dtype,
+                 lambda: agg_ops.masked_weighted_mean(vals, mask, wts, gprev,
+                                                      dtype),
+                 lambda: masked_weighted_mean_ref(v4, m4, wts,
+                                                  gprev.view(a, c, 1), dtype),
+                 None, 2 * elems * es + n * 4 + a * c * es + filled * es,
+                 5 * elems + a * c)
+    rec.update(mode="mean", mask="elementwise", max_abs_err=err)
+    return rec, err
 
 
 def merge_group_check(card: Card, flush, dtype, dev, gen, timer) -> dict:
@@ -1907,6 +2025,305 @@ def scan_phase(dev="cuda") -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded_masks(out: list):
+    """Append (scores, mask) copies of every top-k selection the path
+    makes to ``out``, in call order: the grouped engine's (n_g, C) rows a
+    group and leaf, the loop's (C,) a client and leaf."""
+    from repro_torch.core import selection
+    real = selection.mask_from_scores
+
+    def recording(scores, keep, num_channels):
+        mask = real(scores, keep, num_channels)
+        out.append((scores.clone(), mask.clone()))
+        return mask
+
+    selection.mask_from_scores = recording
+    try:
+        yield out
+    finally:
+        selection.mask_from_scores = real
+
+
+def _grouped_vs_loop(grouped_sel, loop_sel, groups, rounds, leaves) -> int:
+    """Each client's scores and masks of every round and leaf, grouped
+    against loop, bit for bit -> the client-leaf selections compared."""
+    import torch
+    n = sum(len(g.indices) for g in groups)
+    per_round_g = len(groups) * leaves
+    compared = 0
+    for r in range(rounds):
+        for gi, g in enumerate(groups):
+            for leaf in range(leaves):
+                gs, gm = grouped_sel[r * per_round_g + gi * leaves + leaf]
+                for pos, i in enumerate(g.indices):
+                    ls, lm = loop_sel[(r * n + i) * leaves + leaf]
+                    if not (torch.equal(gs[pos], ls)
+                            and torch.equal(gm[pos], lm)):
+                        raise AssertionError(
+                            f"round {r + 1} client {i} leaf {leaf}: grouped "
+                            f"scores or mask differ from the loop's")
+                    compared += 1
+    return compared
+
+
+def _same_run(a, b, what) -> None:
+    """Records (all but host_wall_time), global and client params equal."""
+    import torch
+    from repro_torch import tree
+    (sa, ra), (sb, rb) = a, b
+    for x, y in zip(ra.history, rb.history):
+        fx, fy = _record_fields(x), _record_fields(y)
+        if fx != fy:
+            raise AssertionError(f"{what}: round {x.round} records differ "
+                                 f"in {[k for k in fx if fx[k] != fy[k]]}")
+    if not all(torch.equal(x, y) for x, y in zip(
+            tree.leaves(ra.global_params), tree.leaves(rb.global_params))):
+        raise AssertionError(f"{what}: global params differ")
+    if not all(torch.equal(x, y) for ca, cb in zip(sa.clients, sb.clients)
+               for x, y in zip(tree.leaves(ca.params),
+                               tree.leaves(cb.params))):
+        raise AssertionError(f"{what}: client params differ")
+
+
+def _perf_fleet(dev, n=HETERO_PERF_CLIENTS, shard=32, seed=0):
+    """The reference benchmark's ragged perf fleet
+    (``benchmarks/heterogeneous.py`` ``make_perf_setup``): n clients
+    cycling the widths 128/96/64 of a 64-w-64-10 MLP, ``shard`` seeded
+    normal samples each, one full-shard SGD step at lr 0.05 a round ->
+    (global, clients, telemetry, local_train_fn)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import prng, tree
+    from repro_torch.fl import (apply_spec, init_cnn_spec, model_bytes,
+                                sample_system_telemetry)
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.normal(size=(n, shard, 64))
+                          .astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 10, size=(n, shard))).to(dev)
+    spec = {w: [("fc", 64, w), ("fc", w, 64), ("fc", 64, 10)]
+            for w in HETERO_PERF_WIDTHS}
+    widths = [HETERO_PERF_WIDTHS[i % len(HETERO_PERF_WIDTHS)]
+              for i in range(n)]
+    clients = [init_cnn_spec(spec[w], prng.PRNGKey(100 + i), device=dev)
+               for i, w in enumerate(widths)]
+    gp = init_cnn_spec(spec[max(HETERO_PERF_WIDTHS)], prng.PRNGKey(seed),
+                       device=dev)
+    tel = sample_system_telemetry(n, [model_bytes(p) for p in clients],
+                                  [shard] * n, [1.0] * n, seed=seed)
+
+    def local_train(p, idx, key):
+        leaves, td = tree.flatten(p)
+        leaves = [l.detach().requires_grad_(True) for l in leaves]
+        loss = F.cross_entropy(apply_spec(tree.unflatten(td, leaves),
+                                          spec[widths[idx]], xs[idx]),
+                               ys[idx])
+        grads = torch.autograd.grad(loss, leaves)
+        return (tree.unflatten(td, [(l - 0.05 * g).detach()
+                                    for l, g in zip(leaves, grads)]),
+                float(loss.detach()))
+
+    return gp, clients, tel, local_train
+
+
+def grouped_phase(dev="cuda") -> dict:
+    """The shape-grouped engine for ragged fleets (the paper's §6.4
+    model-heterogeneous run), counts set to 0 just before each run and
+    read just after:
+
+    (a) the example's configuration (``python -m repro_torch.heterogeneous``:
+        the five Table 3 hetero-a VGG sub-models at full width, synthetic
+        CIFAR-10 3000/800 Non-IID-a, lr 0.05, A_server 0.6, h 5),
+        HETERO_ROUNDS rounds on the grouped engine and on the per-client
+        loop: every client's scores and masks, the records, global and
+        client params bit-equal; launches as predicted (importance all
+        with the coverage division; sparse_agg elementwise at the rank-2+
+        leaves); accuracy, uploads and host s per steady round printed;
+    (b) HETERO_FLEET clients cycling the five specs (4 a group), 6000
+        train samples, HETERO_FLEET_ROUNDS rounds, grouped against loop,
+        bit-equal, launches as predicted;
+    (c) the reference benchmark's ragged 64-client MLP fleet: rounds/s of
+        the grouped engine against the loop (params equal), printed;
+    (d) synchronising CUDA calls inside ``GroupedRoundEngine.step`` with
+        staged inputs (after an uncounted warm-up step): none expected.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import kernels, prng, tree
+    from repro_torch.core import coverage as cov_mod
+    from repro_torch.core import round_engine
+    from repro_torch.fl.heterogeneity import group_by_shape
+    from repro_torch.heterogeneous import H, server_for, setup
+    from repro_torch.kernels.importance import ops as imp_ops
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.obs import ObsConfig, read_events
+
+    t_phase = time.perf_counter()
+
+    def drive(fleet, rounds, loop, eval_fn=None, record=None, log=None):
+        gp, clients, tel, ltf = fleet
+        srv = server_for(gp, clients, tel, rounds=rounds, loop=loop,
+                         device=dev, **({} if log is None else dict(
+                             obs=ObsConfig(jsonl_path=str(log)))))
+        _sync(dev)
+        kernels.reset_launch_counts()
+        with (recorded_masks(record) if record is not None
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            res = srv.run(ltf, eval_fn)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        return dict(srv=srv, res=res, wall=wall,
+                    launches=kernels.launch_counts(),
+                    importance=imp_ops.route_counts(),
+                    sparse_agg=agg_ops.route_counts(),
+                    merges=merge_ops.leaf_counts())
+
+    def want_launches(groups, n, leaves, rounds, loop, partial):
+        return dict(importance=leaves * rounds * (n if loop else groups),
+                    sparse_agg=leaves * rounds,
+                    masked_merge=(n if loop else groups) * partial,
+                    flash_attention=0)
+
+    out = {}
+    for name, clients_n, rounds, num_train in (
+            ("a", 5, HETERO_ROUNDS, 3000),
+            ("b", HETERO_FLEET, HETERO_FLEET_ROUNDS, 6000)):
+        gp, clients, tel, ltf, ef = setup(clients_n, num_train=num_train,
+                                          num_test=800, device=dev)
+        fleet = (gp, clients, tel, ltf)
+        sel, runs, spans = {}, {}, {}
+        for mode, loop in (("grouped", False), ("loop", True)):
+            sel[mode] = []
+            log = ROOT / "build" / f"grouped_{name}_{mode}.jsonl"
+            log.parent.mkdir(parents=True, exist_ok=True)
+            runs[mode] = drive(fleet, rounds, loop,
+                               ef if name == "a" else None, sel[mode], log)
+            durs = {}                   # each span once a round
+            for e in read_events(str(log)):
+                if e["event"] == "span":
+                    durs.setdefault(e["name"], []).append(e["dur_s"])
+            spans[mode] = {ph: 1e3 * statistics.median(d[1:])
+                           for ph, d in durs.items() if len(d) > 1}
+        g_srv = runs["grouped"]["srv"]
+        if (g_srv.executor_kind, runs["loop"]["srv"].executor_kind) != (
+                "grouped", "loop"):
+            raise AssertionError(f"({name}) routed to "
+                                 f"{g_srv.executor_kind}")
+        _same_run((g_srv, runs["grouped"]["res"]),
+                  (runs["loop"]["srv"], runs["loop"]["res"]),
+                  f"grouped ({name}) vs loop")
+        groups = group_by_shape([cs.params for cs in g_srv.clients])
+        leaves = len(tree.leaves(gp))
+        compared = _grouped_vs_loop(sel["grouped"], sel["loop"], groups,
+                                    rounds, leaves)
+        partial = sum(t % H != 0 for t in range(1, rounds + 1))
+        elementwise = sum(l.ndim > 1 for l in tree.leaves(gp)) * rounds
+        for mode, r in runs.items():
+            want = want_launches(len(groups), clients_n, leaves, rounds,
+                                 mode == "loop", partial)
+            merges = {leaves: want["masked_merge"]} if partial else {}
+            if (r["launches"] != want
+                    or r["importance"] != {"plain": 0,
+                                           "coverage": want["importance"]}
+                    or r["sparse_agg"]["mean:elementwise"] != elementwise
+                    or r["sparse_agg"]["mean"] != want["sparse_agg"]
+                    - elementwise or r["merges"] != merges):
+                raise AssertionError(
+                    f"({name}) {mode} launches {r['launches']}, importance "
+                    f"{r['importance']}, sparse_agg {r['sparse_agg']}, "
+                    f"merges {r['merges']}; predicted {want}, "
+                    f"{elementwise} elementwise")
+        hist = runs["grouped"]["res"].history
+        steady = {m: statistics.median(x.host_wall_time
+                                       for x in r["res"].history[1:])
+                  for m, r in runs.items()}
+        acc = ([x.metrics["accuracy"] for x in hist]
+               if name == "a" else None)
+        print(f"  grouped ({name}) {clients_n} clients, {len(groups)} "
+              f"groups, {rounds} rounds: grouped == loop bit for bit "
+              f"({compared} client-leaf score/mask pairs); launches "
+              f"grouped {runs['grouped']['launches']} (sparse_agg "
+              f"{runs['grouped']['sparse_agg']}), loop "
+              f"{runs['loop']['launches']}; importance with coverage "
+              f"{runs['grouped']['importance']['coverage']}; accuracy "
+              f"{acc}; uploaded "
+              f"{[round(x.uploaded_fraction, 4) for x in hist]}; host s per "
+              f"steady round grouped {steady['grouped']:.4f}, loop "
+              f"{steady['loop']:.4f}; wall {runs['grouped']['wall']:.2f} / "
+              f"{runs['loop']['wall']:.2f} s; span medians ms over rounds "
+              f"2-{rounds}: " + "; ".join(
+                  f"{m}: " + ", ".join(f"{ph} {v:.3f}" for ph, v in d.items())
+                  for m, d in spans.items()), flush=True)
+        out[name] = dict(
+            clients=clients_n, groups=len(groups), rounds=rounds,
+            launches={m: r["launches"] for m, r in runs.items()},
+            importance_routes={m: r["importance"] for m, r in runs.items()},
+            sparse_agg_routes={m: r["sparse_agg"] for m, r in runs.items()},
+            merge_leaf_counts={m: r["merges"] for m, r in runs.items()},
+            accuracy=acc,
+            uploaded_fraction=[x.uploaded_fraction for x in hist],
+            steady_host_s=steady, span_medians_ms=spans,
+            wall_s={m: r["wall"] for m, r in runs.items()},
+            selections_compared=compared)
+        if name == "a":
+            # (d) syncs inside GroupedRoundEngine.step, staged inputs
+            fs = round_engine.GroupedFleetState(
+                groups, [cov_mod.coverage_pytree(
+                    g_srv.clients[g.indices[0]].params, g_srv.cr)
+                    for g in groups],
+                [cs.params for cs in g_srv.clients], g_srv.cfg.selection,
+                clients_n)
+            rk = prng.PRNGKey(3)
+            fs.train(lambda p, i, k: (tree.tree_map(lambda l: l * 1.001, p),
+                                      1.0), rk, np.ones(clients_n, bool),
+                     np.ones(clients_n), np.full(clients_n, 0.4),
+                     dense=False)
+            weights = torch.as_tensor(tel.num_samples, dtype=torch.float32,
+                                      device=dev)
+            syncs = [{}, {}]
+            for counted in syncs:
+                _sync(dev)
+                with _count_syncs(counted, dev):
+                    fs.engine.step(fs.staged_batches,
+                                   g_srv.global_params, weights, rk,
+                                   full_round=False)
+            _sync(dev)
+            if syncs[1]["syncs"]:
+                print(f"  grouped (d) GroupedRoundEngine.step made "
+                      f"{syncs[1]['syncs']} synchronising calls: "
+                      f"{syncs[1]['where']}", flush=True)
+            else:
+                print("  grouped (d) GroupedRoundEngine.step: 0 "
+                      "synchronising calls", flush=True)
+            out["step_syncs"] = syncs[1]
+            del fs
+        del fleet, runs, sel, clients, gp
+
+    # (c) the reference benchmark's ragged MLP fleet, rounds/s
+    fleet = _perf_fleet(dev)
+    rps, final = {}, {}
+    for mode, loop in (("loop", True), ("grouped", False)):
+        drive(fleet, 5, loop)                                  # warm-up
+        r = drive(fleet, HETERO_PERF_ROUNDS, loop)
+        rps[mode] = HETERO_PERF_ROUNDS / r["wall"]
+        final[mode] = r["res"].global_params
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(final["loop"]), tree.leaves(final["grouped"])))
+    print(f"  grouped (c) {HETERO_PERF_CLIENTS} ragged clients "
+          f"(64-{'/'.join(map(str, HETERO_PERF_WIDTHS))}-64-10), "
+          f"{HETERO_PERF_ROUNDS} rounds: loop {rps['loop']:.2f}, grouped "
+          f"{rps['grouped']:.2f} rounds/s ({rps['grouped'] / rps['loop']:.2f}"
+          f"x; the reference's 3x target is not gated here); params equal: "
+          f"{same}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    out["perf_fleet"] = dict(rounds_per_s=rps, params_equal=same,
+                             speedup=rps["grouped"] / rps["loop"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def _profile_ops(fn, dev) -> dict:
     """Device operations of one call of ``fn`` under torch.profiler:
     CUDA kernels, memsets and copies, and the aten ops the host issued
@@ -2141,6 +2558,7 @@ def main(argv=None) -> int:
         base_out = baselines_phase()
         obs_out = obs_phase()
         scan_out = scan_phase()
+        grouped_out = grouped_phase()
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -2172,18 +2590,29 @@ def main(argv=None) -> int:
             line_kernels[-1]["dispatch"] = dict(
                 route="sm90", launches=serve_out["prefill_routes"])
         if name == "sparse_agg":
+            ew = checks["main"]["sparse_agg_elementwise"]
             line_kernels[-1].update(
                 mode=rec["mode"], modes=comm_out["feddd"]["sparse_agg_modes"],
                 modes_default_comm=path_out["sparse_agg_modes"],
                 partials_ms=rec["partials_ms"],
                 partials_bound_ms=rec["partials_bound_ms"],
-                unfused_eq4_ms=rec["unfused_ms"])
+                unfused_eq4_ms=rec["unfused_ms"],
+                elementwise=dict(
+                    shape=ew["shape"], dtype=ew["dtype"], ms=ew["ms"],
+                    plain_ms=ew["plain_ms"], bound_ms=ew["bound_ms"],
+                    bound_by=ew["bound_by"], max_abs_err=ew["max_abs_err"]),
+                routes_grouped=grouped_out["a"]["sparse_agg_routes"][
+                    "grouped"])
         if name in FEDDD_KERNELS:
             line_kernels[-1].update(
                 launches_default_comm=path_out["launches"][name],
                 launches_random=comm_out["random"]["launches"][name],
                 launches_loop=loop_out["launches"][name],
-                launches_scan=scan_out["feddd"]["launches"][5][name])
+                launches_scan=scan_out["feddd"]["launches"][5][name],
+                launches_grouped=grouped_out["a"]["launches"]["grouped"][
+                    name],
+                launches_grouped_loop=grouped_out["a"]["launches"]["loop"][
+                    name])
         if name == "importance":
             n1 = checks["main"]["importance_n1"]
             line_kernels[-1]["n1"] = {k: n1[k] for k in (
@@ -2209,7 +2638,8 @@ def main(argv=None) -> int:
             card=line, build_s=secs, prng=prng_out, kernels=records,
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
-            serving=serve_out, summary=line_kernels), indent=1))
+            grouped=grouped_out, serving=serve_out, summary=line_kernels),
+            indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
               if r["scheme"] == "feddd" and r["round"] > 1]
     print(f"host s per steady FedDD round: default comm "
@@ -2219,7 +2649,9 @@ def main(argv=None) -> int:
           + ", ".join(f"{k} {v:.3f}"
                       for k, v in obs_out["span_medians_ms"].items())
           + "; fused/scanned (scan phase): " + ", ".join(
-              f"{k} {v:.4f}" for k, v in scan_out["steady_host_s"].items()),
+              f"{k} {v:.4f}" for k, v in scan_out["steady_host_s"].items())
+          + "; hetero-a grouped / loop (grouped phase): " + ", ".join(
+              f"{v:.4f}" for v in grouped_out["a"]["steady_host_s"].values()),
           flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {

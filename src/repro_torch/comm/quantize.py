@@ -114,12 +114,15 @@ def client_quant_key(round_key, client_index):
     return prng.fold_in(round_key, QKEY_OFFSET + np.asarray(client_index))
 
 
-def quantize_dequantize_stacked(stacked, rng, qbits: int):
+def quantize_dequantize_stacked(stacked, rng, qbits: int,
+                                client_indices=None):
     """Client-stacked QDQ: leaves (N, *leaf) -> the same, with client
     ``i``'s leaf ``l`` under ``fold_in(fold_in(rng, 20_000 + i), l)`` —
     equal to :func:`quantize_dequantize` client by client (the scale is a
     max, exact in any order; the rest is elementwise).  All the int8
-    noise of the tree is drawn in one pass.
+    noise of the tree is drawn in one pass.  ``client_indices`` are the
+    (N,) host ids ``i`` of the rows (default ``arange(N)``): a shape
+    group passes its members' fleet positions, as for its masks.
     """
     if qbits == 32:
         return stacked
@@ -129,7 +132,9 @@ def quantize_dequantize_stacked(stacked, rng, qbits: int):
     if rng is None:
         raise ValueError("qbits=8 stochastic rounding requires a PRNG key")
     n = leaves[0].shape[0]
-    client_keys = client_quant_key(rng, np.arange(n))        # (N, 2)
+    ids = (np.arange(n) if client_indices is None
+           else np.asarray(client_indices, np.int64))
+    client_keys = client_quant_key(rng, ids)                 # (N, 2)
     keys = prng.fold_in(client_keys[:, None, :], np.arange(len(leaves)))
     # one leaf-major flat pass: the noise, the values, a scale per (client,
     # leaf) segment, the codes

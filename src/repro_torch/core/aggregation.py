@@ -9,8 +9,12 @@ Eq. (4) runs through the ``sparse_agg`` kernel in its mean mode (the
 division and the previous-global fill inside the kernel), one launch per
 leaf, and Eq. (5) through the ``masked_merge`` kernel, one launch for all
 the leaves of the tree (of every client on the engine, of one client in
-the per-client loop); masks stay channel-shaped (N, 1, ..., C, ..., 1)
-and are never broadcast to the parameters' shape.
+the per-client loop); on a homogeneous fleet masks stay channel-shaped
+(N, 1, ..., C, ..., 1) and are never broadcast to the parameters' shape.
+A ragged fleet (:func:`aggregate_sparse_grouped`, and the per-client
+loop's padded uploads) aggregates on a full-width canvas whose masks are
+elementwise: a narrow client's zero padding covers input channels too,
+so Eq. (4) takes the kernel's elementwise-mask mode there.
 
 Byzantine-robust variants (``robust=`` on the stacked entry point, from
 ``ProtocolConfig.robust_agg``), the JAX package's two hardenings:
@@ -193,6 +197,94 @@ def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
         raise ValueError("weights count mismatch")
     return tree.unflatten(treedef, robust_leaf_stacks(
         leaves, mleaves, w, gleaves, kind, arg))
+
+
+def pad_to(x: torch.Tensor, shape) -> torch.Tensor:
+    """Zero-pad every axis of ``x`` at its end up to ``shape`` (x itself
+    where nothing pads)."""
+    pads = []
+    for xs, gs in zip(reversed(x.shape), reversed(tuple(shape))):
+        pads += [0, gs - xs]
+    return x if not any(pads) else torch.nn.functional.pad(x, pads)
+
+
+def aggregate_sparse_grouped(group_params: Sequence, group_masks: Sequence,
+                             group_indices: Sequence[torch.Tensor],
+                             client_weights, global_template, *,
+                             prev_global=None, single_canvas: bool = True,
+                             robust: str = "mean"):
+    """Eq. (4) over a shape-grouped ragged fleet: every group's stacked
+    sub-model leaves land in a full-width client canvas, which the shared
+    leaf reduction then takes.
+
+    The canvas equals the per-client loop's (each client zero-padded to
+    global widths, its mask broadcast to its values and zero-padded, all N
+    stacked): group rows sit at their fleet positions, the un-owned tail
+    stays zero, and a zero mask adds to neither Eq. (4) sum.  So the
+    grouped and the loop's aggregation launch the same kernel on the same
+    canvas.  The masks are elementwise there; a 1-D leaf's canvas mask is
+    its own shape, a channel mask.
+
+    Args:
+      group_params: per group, a stacked pytree with leaves (n_g, *local).
+      group_masks: per group, channel-shaped stacked masks
+        (n_g, 1, ..., C_local, ..., 1) (or all-ones (n_g, 1, ..., 1)).
+      group_indices: per group, the members' canvas rows as an (n_g,)
+        int64 tensor on the leaves' device.
+      client_weights: (N,) weights m_n by canvas row; 0 drops the row.
+      global_template: pytree with the full-model leaf shapes and dtypes.
+      prev_global: fills the positions no client uploaded.
+      single_canvas: pad every group to global widths, concatenate and
+        land all N rows with one ``index_copy_`` a leaf (default); False
+        writes group by group into the canvas, the reference the
+        equivalence tests hold the default to (equal bit for bit).
+      robust: the Eq. (4) variant (module docstring).
+
+    Returns the aggregated full-width global pytree.
+    """
+    kind, arg = parse_robust_agg(robust)
+    g_leaves, treedef = tree.flatten(global_template)
+    gprev = (tree.leaves(prev_global) if prev_global is not None
+             else [None] * len(g_leaves))
+    leaves = [tree.leaves(p) for p in group_params]
+    mleaves = [tree.leaves(m) for m in group_masks]
+    dev = g_leaves[0].device
+    w = torch.as_tensor(client_weights, dtype=torch.float32, device=dev)
+    n = w.shape[0]
+    all_rows = torch.cat(list(group_indices)) if single_canvas else None
+    out, stacks_w, stacks_m = [], [], []
+    for li, gl in enumerate(g_leaves):
+        stack_w = torch.zeros((n,) + tuple(gl.shape), dtype=gl.dtype,
+                              device=dev)
+        stack_m = torch.zeros_like(stack_w)
+        if single_canvas:
+            pads_w, pads_m = [], []
+            for gi in range(len(group_indices)):
+                lw = leaves[gi][li]                        # (n_g, *local)
+                lm = mleaves[gi][li].to(gl.dtype).expand(lw.shape)
+                pads_w.append(pad_to(lw.to(gl.dtype), stack_w.shape[1:]))
+                pads_m.append(pad_to(lm, stack_w.shape[1:]))
+            stack_w.index_copy_(0, all_rows, torch.cat(pads_w))
+            stack_m.index_copy_(0, all_rows, torch.cat(pads_m))
+        else:
+            for gi, idx in enumerate(group_indices):
+                lw = leaves[gi][li]
+                lm = mleaves[gi][li].to(gl.dtype).expand(lw.shape)
+                box = (slice(None),) + tuple(slice(0, s)
+                                             for s in lw.shape[1:])
+                sub_w = stack_w[box]
+                sub_m = stack_m[box]
+                sub_w.index_copy_(0, idx, lw.to(gl.dtype))
+                sub_m.index_copy_(0, idx, lm.contiguous())
+        if kind == "mean":      # one leaf's canvas at a time
+            out += robust_leaf_stacks([stack_w], [stack_m], w, [gprev[li]],
+                                      kind, arg)
+        else:                   # clip needs every leaf's update at once
+            stacks_w.append(stack_w)
+            stacks_m.append(stack_m)
+    if kind != "mean":
+        out = robust_leaf_stacks(stacks_w, stacks_m, w, gprev, kind, arg)
+    return tree.unflatten(treedef, out)
 
 
 def aggregate_sparse(client_params: Sequence, client_masks: Sequence,

@@ -21,11 +21,14 @@ from repro_torch.kernels.importance import ops as imp_ops
 
 def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
                                channel_axis: int = -1,
-                               coverage: Optional[torch.Tensor] = None
+                               coverage: Optional[torch.Tensor] = None,
+                               per_client_split: bool = False
                                ) -> torch.Tensor:
-    """Eq. (20)/(21) over a leading client axis: (N, *leaf) -> (N, C) fp32."""
+    """Eq. (20)/(21) over a leading client axis: (N, *leaf) -> (N, C) fp32
+    (``per_client_split``: the kernel's split plan, see its wrapper)."""
     return imp_ops.channel_importance_batched(
-        w_old, w_new, channel_axis=channel_axis, coverage=coverage)
+        w_old, w_new, channel_axis=channel_axis, coverage=coverage,
+        per_client_split=per_client_split)
 
 
 def channel_importance(w_old: torch.Tensor, w_new: torch.Tensor, *,

@@ -26,12 +26,23 @@ Round execution is a strategy behind one executor interface
   ``BatchedRoundEngine.run`` call, the allocation and the clock on the
   device between them, one host transfer per chunk; the records are
   spliced back per round and equal the per-round path's bit for bit.
+* **grouped** (a ragged fleet: ``client_params`` whose sub-models differ
+  in width from the global model): clients are partitioned by sub-model
+  shape (``fl.heterogeneity.group_by_shape``), each group stays stacked
+  on the device across rounds, and one ``GroupedRoundEngine`` step a
+  round runs coverage-aware masks per group (Eq. (21)), Eq. (4) on the
+  full-width canvas and Eq. (5) per group at local widths.  It equals
+  the loop on the same fleet bit for bit.
 * **loop** (``batched=False``, or ``track_epsilon=True``): the per-client
   reference loop, Algorithm 1 written out client by client — the oracle
   every engine is held to, and the only path that gives
   ``RoundRecord.epsilon`` (the Assumption-3 estimate,
   ``core/convergence.py``).  Slow by design: per-client mask building and
-  Eq. (5) launches, and one density read (a device sync) per client.
+  Eq. (5) launches, and one density read (a device sync) per client.  On
+  a ragged fleet each client scores its own widths with its coverage
+  slice, its upload and mask are zero-padded to global widths for
+  Eq. (4), and it takes Eq. (5)/(6) against the global sliced to its
+  widths.
 
 Between rounds the Eq. (9)-(11) LP re-allocates the dropout rates — the
 numpy solver (on effective wire bytes with
@@ -52,10 +63,9 @@ event a round.  The default ``ObsConfig()`` is inert; spans read the
 host clock only, so a run with obs on makes the same device syncs.
 
 ``robust_agg`` ("trimmed[:beta]", "clip[:factor]") hardens Eq. (4) on
-the engine paths.  Not ported yet, each raising with a pointer to
-ROADMAP.md queue A: ragged (grouped) fleets, the event-driven simulator
-with faults, checkpoints and population serving, and the client-sharded
-mesh.
+the engine and grouped paths.  Not ported yet, each raising with a
+pointer to ROADMAP.md queue A: the event-driven simulator with faults,
+checkpoints and population serving, and the client-sharded mesh.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ from repro_torch.comm.payload import (CommConfig, WireSpec, account_uplink,
                                       analytic_uplink_vector)
 from repro_torch.core import (aggregation, allocation, baselines,
                               round_engine, selection)
+from repro_torch.core import coverage as cov_mod
 from repro_torch.core.allocation import (ALLOCATORS, AllocationResult,
                                          ClientTelemetry,
                                          solve_dropout_rates_with)
@@ -365,6 +376,59 @@ class _EngineExecutor(_RoundExecutor):
             cs.params = p
 
 
+class _GroupedEngineExecutor(_RoundExecutor):
+    """Ragged fleets: one GroupedRoundEngine step a round.  Clients are
+    partitioned by sub-model shape and each group stays stacked across
+    rounds; a group's coverage pytree is computed once (its members share
+    widths, so they share the CR slice) and the members' keys fold their
+    fleet positions, so a grouped round equals the per-client loop's."""
+
+    def __init__(self, server: "FedDDServer", local_train_fn,
+                 batched_train_fn=None):
+        super().__init__(server, local_train_fn, batched_train_fn)
+        from repro_torch.fl.heterogeneity import group_by_shape
+        cfg = server.cfg
+        self.weights = np.asarray(
+            [cs.num_samples for cs in server.clients], float)
+        client_params = [cs.params for cs in server.clients]
+        groups = group_by_shape(client_params)
+        coverage = [cov_mod.coverage_pytree(client_params[g.indices[0]],
+                                            server.cr,
+                                            cfg.selection.channel_axis)
+                    for g in groups]
+        self.fleet = round_engine.GroupedFleetState(
+            groups, coverage, client_params, cfg.selection,
+            server.tel.num_clients, cfg.comm, robust_agg=cfg.robust_agg)
+
+    def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
+                  d_used: np.ndarray) -> _RoundData:
+        srv, cfg = self.srv, self.srv.cfg
+        obs = srv.obs
+        n = srv.tel.num_clients
+        dense = cfg.scheme != "feddd"
+        part = (np.ones(n, bool) if not dense
+                else srv._participants(losses))
+        with obs.span("local_train", round=t):
+            loss_list = self.fleet.train(self.local_train_fn, rk, part,
+                                         losses, d_used, dense=dense)
+        with obs.span("engine_step", round=t):
+            weights = torch.as_tensor(self.weights * part,
+                                      dtype=torch.float32, device=srv.device)
+            srv.global_params, densities, wire_oh = self.fleet.step(
+                srv.global_params, weights, rk,
+                full_round=(t % cfg.h == 0) or dense, dense=dense)
+        with obs.span("host_transfer", round=t):
+            dens, oh = _to_host(densities, wire_oh)
+        new_losses = np.asarray([float(l) for l in loss_list], float)
+        uploaded, wire = account_uplink(dens, part, srv.tel.model_bytes, oh,
+                                        cfg.comm, obs=obs)
+        return _RoundData(new_losses, uploaded, part, None, wire)
+
+    def finalize(self) -> None:
+        for cs, p in zip(self.srv.clients, self.fleet.export()):
+            cs.params = p
+
+
 class _ReferenceLoopExecutor(_RoundExecutor):
     """The per-client loop — Algorithm 1 written out client by client.
 
@@ -375,6 +439,10 @@ class _ReferenceLoopExecutor(_RoundExecutor):
     ``masked_merge`` launch for all its leaves.  Keys: client ``i`` trains
     under ``fold_in(rk, i)``, builds masks under ``fold_in(rk, 10_000 +
     i)`` and quantizes under ``client_quant_key(rk, i)``, as the engine.
+    On a ragged fleet (``server.heterogeneous``) each client's scores
+    divide by its coverage slice (Eq. (21)), its upload and its mask
+    (broadcast to its values) are zero-padded to global widths for
+    Eq. (4), and Eq. (5)/(6) run against the global sliced to its widths.
     """
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
@@ -404,9 +472,12 @@ class _ReferenceLoopExecutor(_RoundExecutor):
         with obs.span("encode", round=t):
             if feddd:
                 for i, cs in enumerate(srv.clients):
+                    cov = (cov_mod.coverage_pytree(
+                        cs.params, srv.cr, cfg.selection.channel_axis)
+                        if srv.heterogeneous else None)
                     m = selection.build_masks(
                         cs.params, new_params[i], d_used[i],
-                        config=cfg.selection,
+                        config=cfg.selection, coverage=cov,
                         rng=prng.fold_in(rk, selection.MASK_KEY_OFFSET + i))
                     client_masks[i] = m
                     densities[i] = _host_float(
@@ -440,6 +511,11 @@ class _ReferenceLoopExecutor(_RoundExecutor):
                     cfg.comm.qbits, exact_scale=True)
                 for i in idxs]
             agg_masks = [client_masks[i] for i in idxs]
+            if srv.heterogeneous:
+                agg_params = [srv._pad_to_global(p) for p in agg_params]
+                agg_masks = [srv._pad_mask_to_global(client_masks[i],
+                                                     new_params[i])
+                             for i in idxs]
             if cfg.track_epsilon:
                 eps_val = _host_float(estimate_epsilon(agg_params, agg_masks))
             srv.global_params = aggregation.aggregate_sparse(
@@ -451,11 +527,14 @@ class _ReferenceLoopExecutor(_RoundExecutor):
         full_round = (t % cfg.h == 0) or not feddd
         with obs.span("client_update", round=t):
             for i, cs in enumerate(srv.clients):
-                if full_round:
-                    cs.params = srv.global_params
+                if full_round:     # non-participants too: the global
+                    cs.params = srv._slice_like(
+                        srv.global_params, new_params[i]
+                        if new_params[i] is not None else cs.params)
                 elif new_params[i] is not None:
                     cs.params = aggregation.client_update_sparse(
-                        srv.global_params, new_params[i], client_masks[i])
+                        srv._slice_like(srv.global_params, new_params[i]),
+                        new_params[i], client_masks[i])
 
         uploaded, wire = account_uplink(densities, uploads,
                                         srv.tel.model_bytes, wire_oh,
@@ -495,21 +574,32 @@ class FedDDServer:
     def __init__(self, global_params, cfg: ProtocolConfig,
                  telemetry: ClientTelemetry, client_params=None, *,
                  device: DeviceLike = None):
-        if client_params is not None:
-            raise NotImplementedError(
-                "per-client (ragged) client_params need the grouped engine, "
-                "not ported yet (ROADMAP.md queue A item 11)")
+        """``client_params``: per-client starting params (numpy or
+        tensors), default the global model for every client; sub-models
+        pruned in width from the global (HeteroFL-style: the same
+        structure, a leading [0:w) block of each axis) make the fleet
+        heterogeneous and route it to the grouped engine."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.tel = telemetry
         self.global_params = convert.to_torch(global_params, self.device)
-        self.clients = [ClientState(self.global_params, int(m))
-                        for m in telemetry.num_samples]
+        n = telemetry.num_clients
+        if client_params is None:
+            client_params = [self.global_params] * n
+        else:
+            client_params = [convert.to_torch(p, self.device)
+                             for p in client_params]
+        self.clients = [ClientState(p, int(m)) for p, m in
+                        zip(client_params, telemetry.num_samples)]
+        axis = cfg.selection.channel_axis
+        full_w = cov_mod.channel_widths(self.global_params, axis)
+        cw = [cov_mod.channel_widths(p, axis) for p in client_params]
+        self.cr = cov_mod.coverage_rates(cw, full_w)
+        self.heterogeneous = any(w != full_w for w in cw)
         # per-client wire shapes: the analytic byte model behind the
         # Eq. (12) uplink charge and the overhead-aware allocation
-        self.wire_specs = [WireSpec.from_params(
-            self.global_params, cfg.selection.channel_axis)
-        ] * telemetry.num_clients
+        self.wire_specs = [WireSpec.from_params(p, axis)
+                           for p in client_params]
         self.dropout = np.zeros(telemetry.num_clients)   # D_n^1 = 0
         self.rng = prng.PRNGKey(cfg.seed)
         # the inert recorder until run() builds one for an active cfg.obs
@@ -538,10 +628,14 @@ class FedDDServer:
 
     def _executor_kind(self, batched_train_fn=None) -> str:
         """``track_epsilon`` needs the loop's per-client masks;
-        ``batched=False`` asks for the loop as the oracle.  A fused
-        trainer and the robust Eq. (4) variants need the engine."""
+        ``batched=False`` asks for the loop as the oracle; a ragged fleet
+        runs the grouped engine.  A fused trainer needs the homogeneous
+        engine (a ragged fleet's data and models do not stack), the
+        robust Eq. (4) variants an engine."""
         if self.cfg.track_epsilon or not self.cfg.batched:
             kind = "loop"
+        elif self.heterogeneous:
+            kind = "grouped"
         else:
             kind = "engine"
         if batched_train_fn is not None and kind != "engine":
@@ -556,11 +650,14 @@ class FedDDServer:
                 "batched=True and track_epsilon=False)")
         return kind
 
-    _EXECUTORS = {"engine": _EngineExecutor, "loop": _ReferenceLoopExecutor}
+    _EXECUTORS = {"engine": _EngineExecutor,
+                  "grouped": _GroupedEngineExecutor,
+                  "loop": _ReferenceLoopExecutor}
 
     @property
     def executor_kind(self) -> str:
-        """The executor ``run`` routes to: "engine" or "loop"."""
+        """The executor a plain ``run(local_train_fn)`` routes to:
+        "engine" (homogeneous), "grouped" (ragged fleet) or "loop"."""
         return self._executor_kind()
 
     def run(self, local_train_fn: Optional[Callable] = None,
@@ -595,8 +692,8 @@ class FedDDServer:
             if kind != "engine":
                 raise ValueError(
                     "rounds_per_dispatch > 1 requires the homogeneous "
-                    "batched engine (batched=True, track_epsilon=False); "
-                    f"this run routes to {kind!r}")
+                    "batched engine (batched=True, track_epsilon=False, "
+                    f"homogeneous fleet); this run routes to {kind!r}")
             if batched_train_fn is None:
                 raise ValueError(
                     "rounds_per_dispatch > 1 requires batched_train_fn: "
@@ -721,6 +818,26 @@ class FedDDServer:
                 metrics = eval_fn(self.global_params)
         return sim_time + round_t, round_t, metrics, t_all
 
+    # -- ragged fleets (HeteroFL-style width slicing) -----------------------
+
+    def _pad_to_global(self, params):
+        """A client's sub-model zero-padded up to global widths."""
+        return tree.tree_map(lambda p, g: aggregation.pad_to(p, g.shape),
+                             params, self.global_params)
+
+    def _pad_mask_to_global(self, masks, params):
+        """A client's channel-shaped masks broadcast to its values and
+        zero-padded to global widths: absent positions never add to
+        Eq. (4)."""
+        return tree.tree_map(
+            lambda m, p, g: aggregation.pad_to(m.expand(p.shape), g.shape),
+            masks, params, self.global_params)
+
+    @staticmethod
+    def _slice_like(global_params, local_params):
+        """A full-width pytree cut to a client's widths (contiguous)."""
+        return round_engine.slice_pytree(global_params, local_params)
+
 
 def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
                eval_fn=None, client_params=None, *,
@@ -733,8 +850,10 @@ def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
     ``device="cpu"`` for a CPU run.  ``batched=False`` or
     ``track_epsilon=True`` runs the per-client reference loop,
     ``robust_agg`` picks the Eq. (4) variant, and ``obs=ObsConfig(...)``
-    records spans, metrics and a JSONL log.  The fused and scanned paths
-    take a ``batched_train_fn``: call ``FedDDServer.run`` for them.  The
+    records spans, metrics and a JSONL log.  Ragged ``client_params``
+    run the grouped engine (the loop with ``batched=False``).  The fused
+    and scanned paths take a ``batched_train_fn``: call
+    ``FedDDServer.run`` for them.  The
     simulator (``sim`` / ``network`` / ``faults``) and population serving
     are not ported yet; neither are the ``ProtocolConfig`` fields that
     drive other unported paths (``mesh``, checkpoints, ...).

@@ -33,6 +33,18 @@ fetches in one transfer.  Round keys stay host numpy (``prng``); their
 split chain does not depend on device data.  Fault injection
 (``stacked_upload`` / ``delivered``) is not ported yet (ROADMAP.md queue
 A item 13).
+
+Ragged fleets (:class:`GroupedRoundEngine`): clients holding width-pruned
+sub-models are partitioned by shape (``fl.heterogeneity.group_by_shape``)
+and each group stacks along a member axis.  One step runs, per group,
+the coverage-aware masks at the group's own widths (importance with the
+Eq. (21) coverage division, one launch per group and leaf), then Eq. (4)
+once over the full-width canvas of every client (the sparse_agg
+kernel's elementwise-mask mode, one launch per leaf), then Eq. (5) per
+group at local widths (one masked_merge launch per group).  Its oracle is
+the per-client loop (``protocol``'s loop executor on a ragged fleet): the
+same masks, parameters and clock bit for bit.  The client-sharded grouped
+step (``mesh=``) is not ported yet (ROADMAP.md queue A item 14).
 """
 
 from __future__ import annotations
@@ -62,6 +74,34 @@ class RoundOutputs(NamedTuple):
     wire_overhead: Optional[torch.Tensor] = None
                                # (N,) int32 measured mask/scale bytes;
                                # None with the default CommConfig
+
+
+class GroupBatch(NamedTuple):
+    """One shape group's inputs to a grouped round step."""
+
+    indices: np.ndarray        # (n_g,) host int64: fleet positions, the
+                               # canvas rows and the ids the mask and
+                               # quantization keys fold in
+    stacked_old: object        # pytree, leaves (n_g, *local): W_n^t
+    stacked_new: object        # pytree, leaves (n_g, *local): What_n^t
+    coverage: object           # CR(k) pytree of (C_local,) float32
+                               # leaves on the device, or None
+    dropout: torch.Tensor      # (n_g,) float32 D_n^t on the device
+    rows: Optional[torch.Tensor] = None
+                               # ``indices`` as an int64 device tensor
+                               # (staged once a run); None: copied in the
+                               # step, a synchronising copy
+
+
+class GroupedRoundOutputs(NamedTuple):
+    """Results of one grouped round step, on the parameters' device."""
+
+    group_client_params: Tuple     # per group: pytree, leaves (n_g, *local)
+    global_params: object          # full-width pytree: W^t
+    densities: torch.Tensor        # (N,) canvas of upload densities
+    wire_overhead: Optional[torch.Tensor] = None
+                                   # (N,) int32 canvas of measured mask /
+                                   # scale bytes; None with the default comm
 
 
 class ScanTelemetry(NamedTuple):
@@ -397,6 +437,233 @@ def _device_round_time(tel: ScanTelemetry, d_time: torch.Tensor,
     return torch.max(torch.where(part, t_all, -torch.inf))
 
 
+# --------------------------------------------------- shape-grouped engine
+
+def _slice_leaf(g: torch.Tensor, local_shape) -> torch.Tensor:
+    """HeteroFL width slicing: the leading [0:s) block of every axis, made
+    contiguous (the merge kernel reads contiguous leaves; a copy of at
+    most the global leaf's bytes)."""
+    if tuple(g.shape) == tuple(local_shape):
+        return g
+    return g[tuple(slice(0, s) for s in local_shape)].contiguous()
+
+
+def slice_pytree(global_params, local_template):
+    """A full-width pytree sliced down to a sub-model's local widths."""
+    return tree.tree_map(lambda g, l: _slice_leaf(g, l.shape),
+                         global_params, local_template)
+
+
+def _grouped_round_step(groups: Sequence[GroupBatch], global_params,
+                        weights: torch.Tensor, rng, *,
+                        sel_cfg: selection.SelectionConfig,
+                        full_round: bool, dense_masks: bool = False,
+                        comm: CommConfig = CommConfig(),
+                        robust: str = "mean") -> GroupedRoundOutputs:
+    """Steps 2-4 and 6-7 of Algorithm 1 over a shape-grouped fleet: per
+    group, coverage-aware masks at its own widths (the importance
+    kernel's split planned per client, so each member's scores are the
+    per-client loop's, and the densities divided as the loop divides)
+    and the decoded uploads with member-keyed quantization; Eq. (4) on the full-width canvas; Eq. (5)/(6) per group
+    at local widths against the sliced global.  ``weights`` is the (N,)
+    float32 device vector of m_n by canvas row.  Profiler scopes as
+    :func:`_round_step`'s."""
+    n = weights.shape[0]
+    dev = weights.device
+    rows = [g.rows if g.rows is not None else torch.as_tensor(
+        g.indices, dtype=torch.long, device=dev) for g in groups]
+    densities = torch.zeros((n,), dtype=torch.float32, device=dev)
+    group_masks = []
+    with profiler_scope("feddd_encode_masks"):
+        for g, r in zip(groups, rows):
+            if dense_masks:
+                masks, dens = _dense_masks(g.stacked_new, len(g.indices))
+            else:
+                masks, dens = selection.build_masks_batched(
+                    g.stacked_old, g.stacked_new, g.dropout, config=sel_cfg,
+                    rng=rng, coverage=g.coverage, client_indices=g.indices,
+                    match_loop=True)
+            group_masks.append(masks)
+            densities.index_copy_(0, r, dens)
+    # the server aggregates what it decoded; member keys fold the fleet
+    # positions, as the per-client loop's
+    with profiler_scope("feddd_encode_wire"):
+        group_agg = [wire_quant.quantize_dequantize_stacked(
+            g.stacked_new, rng, comm.qbits, client_indices=g.indices)
+            for g in groups]
+        wire_oh = None
+        if not comm.is_default:
+            wire_oh = torch.zeros((n,), dtype=torch.int32, device=dev)
+            for g, r, masks in zip(groups, rows, group_masks):
+                wire_oh.index_copy_(0, r, _wire_overhead(
+                    masks, g.stacked_new, comm, sel_cfg.channel_axis,
+                    dense_masks))
+    with profiler_scope("feddd_aggregate"):
+        new_global = aggregation.aggregate_sparse_grouped(
+            group_agg, group_masks, rows, weights, global_params,
+            prev_global=global_params, robust=robust)
+    with profiler_scope("feddd_client_update"):
+        new_group_params = []
+        for g, masks in zip(groups, group_masks):
+            g_local = slice_pytree(new_global,
+                                   unstack_pytree(g.stacked_new, 1)[0])
+            if full_round:       # Eq. (6): every member adopts its slice
+                new_group_params.append(_adopt_global(g_local,
+                                                      g.stacked_new))
+            else:                # Eq. (5) at local widths
+                new_group_params.append(aggregation.client_update_sparse(
+                    g_local, g.stacked_new, masks))
+    return GroupedRoundOutputs(tuple(new_group_params), new_global,
+                               densities, wire_oh)
+
+
+@dataclasses.dataclass
+class GroupedRoundEngine:
+    """FedDD rounds over a shape-grouped ragged fleet — the heterogeneous
+    counterpart of :class:`BatchedRoundEngine`.  ``mesh`` (the
+    client-sharded grouped step) is not ported yet and raises."""
+
+    selection_cfg: selection.SelectionConfig = dataclasses.field(
+        default_factory=selection.SelectionConfig)
+    comm: CommConfig = dataclasses.field(default_factory=CommConfig)
+    mesh: object = None
+    robust_agg: str = "mean"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the client-sharded grouped step (mesh=) is not ported yet "
+                "(ROADMAP.md queue A item 14, A14)")
+        aggregation.parse_robust_agg(self.robust_agg)
+
+    def step(self, groups: Sequence[GroupBatch], global_params, weights,
+             rng, *, full_round: bool,
+             dense_masks: bool = False) -> GroupedRoundOutputs:
+        """Run one round's server side over the grouped fleet.
+
+        Args:
+          groups: one :class:`GroupBatch` per shape group; its ``indices``
+            are rows of ``weights`` and of the density canvas and the ids
+            the members' keys fold in.
+          global_params: the current full-width global pytree.
+          weights: (N,) aggregation weights m_n by canvas row (0 leaves
+            a row out); a float32 tensor on the device is used as it is,
+            anything else is copied there (a synchronising copy).
+          rng: the round key (scheme 'random', int8 rounding).
+          full_round / dense_masks: as :meth:`BatchedRoundEngine.step`.
+        """
+        dev = tree.leaves(global_params)[0].device
+        return _grouped_round_step(
+            tuple(groups), global_params,
+            torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
+            sel_cfg=self.selection_cfg, full_round=bool(full_round),
+            dense_masks=bool(dense_masks), comm=self.comm,
+            robust=str(self.robust_agg))
+
+
+def train_grouped(groups, group_stacked, group_coverage, local_train_fn,
+                  rk, part, losses, d_used, *, dense: bool,
+                  num_clients: int, group_rows=None):
+    """Local training over the grouped state and the :class:`GroupBatch`
+    of each group: member ``i`` trains under ``fold_in(rk, i)`` iff
+    ``part[i]`` (all of them for feddd); a non-participant keeps its stale
+    params and loss.  Returns ``(losses, batches)``: the per-client losses
+    in fleet order and one batch per group (``group_rows``: each group's
+    staged device rows)."""
+    loss_out: List = [None] * num_clients
+    batches: List[GroupBatch] = []
+    rows = group_rows or [None] * len(groups)
+    for grp, stacked, cov, r in zip(groups, group_stacked, group_coverage,
+                                    rows):
+        per_client = unstack_pytree(stacked, grp.size)
+        new_list = []
+        for pos, i in enumerate(grp.indices):
+            if part[i]:
+                p, l = local_train_fn(per_client[pos], i,
+                                      prng.fold_in(rk, i))
+            else:
+                p, l = per_client[pos], losses[i]
+            new_list.append(p)
+            loss_out[i] = l
+        dev = tree.leaves(stacked)[0].device
+        batches.append(GroupBatch(
+            indices=np.asarray(grp.indices, np.int64),
+            stacked_old=stacked, stacked_new=stack_pytrees(new_list),
+            coverage=None if dense else cov,
+            dropout=torch.as_tensor(
+                np.asarray(d_used, np.float32)[list(grp.indices)],
+                device=dev),
+            rows=r))
+    return loss_out, batches
+
+
+def unstack_groups(groups, group_stacked, num_clients: int) -> List:
+    """Grouped stacked state -> per-client pytrees in fleet order."""
+    params: List = [None] * num_clients
+    for grp, stacked in zip(groups, group_stacked):
+        for i, p in zip(grp.indices, unstack_pytree(stacked, grp.size)):
+            params[i] = p
+    return params
+
+
+class GroupedFleetState:
+    """A ragged fleet's state between grouped rounds: each group's stacked
+    params (kept stacked across rounds), its coverage and its device rows,
+    and the train -> step -> export cycle."""
+
+    def __init__(self, groups, group_coverage, client_params,
+                 selection_cfg: selection.SelectionConfig,
+                 num_clients: int, comm: CommConfig = CommConfig(),
+                 mesh=None, robust_agg: str = "mean"):
+        self.engine = GroupedRoundEngine(selection_cfg, comm, mesh,
+                                         robust_agg)
+        self.groups = groups
+        self.coverage = group_coverage
+        self.num_clients = num_clients
+        self.group_stacked = [
+            stack_pytrees([client_params[i] for i in g.indices])
+            for g in groups]
+        self.rows = [torch.as_tensor(
+            g.indices, dtype=torch.long,
+            device=tree.leaves(stacked)[0].device)
+            for g, stacked in zip(groups, self.group_stacked)]
+        self._batches = None
+
+    def train(self, local_train_fn, rk, part, losses, d_used, *,
+              dense: bool) -> List:
+        """Local training and this round's batches; returns the
+        per-client losses in fleet order."""
+        losses, self._batches = train_grouped(
+            self.groups, self.group_stacked, self.coverage, local_train_fn,
+            rk, part, losses, d_used, dense=dense,
+            num_clients=self.num_clients, group_rows=self.rows)
+        return losses
+
+    def step(self, global_params, weights, rk, *, full_round: bool,
+             dense: bool):
+        """One grouped step over the staged batches -> (new global,
+        densities, wire overhead or None); rebinds the stacked state."""
+        out = self.engine.step(self._batches, global_params, weights, rk,
+                               full_round=full_round, dense_masks=dense)
+        self.group_stacked = list(out.group_client_params)
+        return out.global_params, out.densities, out.wire_overhead
+
+    def discard(self) -> None:
+        """Drop a staged round without a step: client params stay as they
+        were before training (a quorum-skipped round of the fault layer)."""
+        self._batches = None
+
+    @property
+    def staged_batches(self):
+        """The batches ``train`` staged for the next ``step``."""
+        return self._batches
+
+    def export(self) -> List:
+        """Per-client pytrees in fleet order (views of the stacks)."""
+        return unstack_groups(self.groups, self.group_stacked,
+                              self.num_clients)
+
+
 def make_batched_train_fn(per_client_step: Callable,
                           stacked_data: Sequence[torch.Tensor]) -> Callable:
     """``torch.func.vmap`` a per-client ``step(params, *client_data) ->
@@ -406,10 +673,12 @@ def make_batched_train_fn(per_client_step: Callable,
     key is dropped, as in the JAX package.  A vmapped row can differ from
     the same step run alone in the last bits (the batched GEMM orders
     its sums differently).  float32 stays float32 on the card: TF32 is
-    switched off for matmuls and cuDNN convolutions, process-wide, as the
-    per-client trainer (``fl.models.make_local_train_fn``) does."""
+    switched off for matmuls and cuDNN convolutions and cuDNN runs its
+    deterministic algorithms, process-wide, as the per-client trainer
+    (``fl.models.make_local_train_fn``) does."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     vstep = torch.func.vmap(per_client_step)
 
     def batched(stacked_params, rng):

@@ -68,12 +68,18 @@ def keep_count_host(num_channels: int, dropout_rate: float) -> int:
 
 
 def _tensor_scores_batched(cfg: SelectionConfig, w_old: torch.Tensor,
-                           w_new: torch.Tensor) -> torch.Tensor:
-    """Scores of a client-stacked leaf: (N, *leaf) x2 -> (N, C)."""
+                           w_new: torch.Tensor,
+                           coverage: Optional[torch.Tensor] = None,
+                           per_client_split: bool = False
+                           ) -> torch.Tensor:
+    """Scores of a client-stacked leaf: (N, *leaf) x2 -> (N, C); a (C,)
+    ``coverage`` shared by the clients divides the FedDD scores
+    (Eq. (21))."""
     ax = cfg.channel_axis
     if cfg.scheme == "feddd":
-        return imp_mod.channel_importance_batched(w_old, w_new,
-                                                  channel_axis=ax)
+        return imp_mod.channel_importance_batched(
+            w_old, w_new, channel_axis=ax, coverage=coverage,
+            per_client_split=per_client_split)
     if cfg.scheme == "max":
         return imp_mod.channel_score_max_batched(w_old, w_new,
                                                  channel_axis=ax)
@@ -87,13 +93,12 @@ def _tensor_scores_batched(cfg: SelectionConfig, w_old: torch.Tensor,
     raise AssertionError(cfg.scheme)
 
 
-def _random_scores(cfg: SelectionConfig, flat_new, rng):
+def _random_scores(cfg: SelectionConfig, flat_new, rng, ids):
     """'random selection' scores of every leaf of rank >= 1, {leaf index:
-    (N, C)}: client ``i``'s scores of leaf ``l`` are
-    ``uniform(fold_in(fold_in(rng, 10_000 + i), l), (C,))``, all drawn in
-    one pass on the leaves' device."""
-    n = flat_new[0].shape[0]
-    client_keys = prng.fold_in(rng, MASK_KEY_OFFSET + np.arange(n))
+    (N, C)}: client ``ids[k]``'s scores of leaf ``l`` are
+    ``uniform(fold_in(fold_in(rng, 10_000 + ids[k]), l), (C,))``, all
+    drawn in one pass on the leaves' device."""
+    client_keys = prng.fold_in(rng, MASK_KEY_OFFSET + ids)
     idx = [li for li, w in enumerate(flat_new) if w.ndim > 1]
     if not idx:
         return {}
@@ -107,7 +112,8 @@ def _random_scores(cfg: SelectionConfig, flat_new, rng):
 def build_masks_batched(stacked_old, stacked_new,
                         dropout_rates: torch.Tensor, *,
                         config: SelectionConfig = SelectionConfig(),
-                        rng=None):
+                        rng=None, coverage=None, client_indices=None,
+                        match_loop: bool = False):
     """All clients' masks in one pass over the stacked leaves.
 
     Args:
@@ -119,6 +125,20 @@ def build_masks_batched(stacked_old, stacked_new,
         ``uniform(fold_in(fold_in(rng, 10_000 + i), l), (C,))``, the JAX
         package's fold order (leaves counted in flatten order, 0-D ones
         included).
+      coverage: optional un-stacked pytree of (C,) float32 coverage rates
+        CR(k) on the leaves' device, shared by every client of the stack
+        (a shape group: the same widths, so the same coverage slice); it
+        divides the FedDD scores, Eq. (21).
+      client_indices: the (N,) host ints ``i`` the random-score keys fold
+        in; default ``arange(N)``.  A shape group passes its members'
+        fleet positions, so its masks equal the per-client loop's.
+      match_loop: give each row the bits of :func:`build_masks` and
+        :func:`mask_density` for that client (the grouped engine, whose
+        oracle is the per-client loop): the importance kernel's fan-in
+        split planned as for one client, and the density a true division
+        of the kept count by the total.  By default the split is planned
+        for N and the density multiplies by the float32 reciprocal of the
+        total, as the JAX package's jitted engine.
 
     Returns ``(masks, density)``: a mask pytree with leaves shaped
     (N, 1, ..., C, ..., 1) in the parameters' dtype, and the (N,) float32
@@ -135,12 +155,17 @@ def build_masks_batched(stacked_old, stacked_new,
     dev = flat_new[0].device
     rates = torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev)
 
-    random_scores = (_random_scores(config, flat_new, rng)
+    flat_cov = (tree.leaves(coverage) if coverage is not None
+                else [None] * len(flat_new))
+    ids = (np.arange(n) if client_indices is None
+           else np.asarray(client_indices, np.int64))
+    random_scores = (_random_scores(config, flat_new, rng, ids)
                      if config.scheme == "random" else {})
     masks = []
     kept = torch.zeros((n,), dtype=torch.float32, device=dev)
     total = 0.0
-    for li, (w_old, w_new) in enumerate(zip(flat_old, flat_new)):
+    for li, (w_old, w_new, cov) in enumerate(zip(flat_old, flat_new,
+                                                 flat_cov)):
         leaf_ndim = w_new.ndim - 1
         leaf_size = float(np.prod(w_new.shape[1:], dtype=np.float64))
         if leaf_ndim == 0:
@@ -151,13 +176,17 @@ def build_masks_batched(stacked_old, stacked_new,
         ax = config.channel_axis % leaf_ndim + 1
         nch = w_new.shape[ax]
         scores = (random_scores[li] if random_scores else
-                  _tensor_scores_batched(config, w_old, w_new))
+                  _tensor_scores_batched(config, w_old, w_new, cov,
+                                         match_loop))
         m1d = mask_from_scores(scores, keep_count(nch, rates), nch)
         shape = [n] + [1] * leaf_ndim
         shape[ax] = nch
         masks.append(m1d.reshape(shape).to(w_new.dtype))
         kept = kept + m1d.sum(dim=1) * (leaf_size / nch)
         total += leaf_size
+    if match_loop:
+        return tree.unflatten(treedef, masks), kept / torch.full(
+            (), float(np.float32(total)), dtype=torch.float32, device=dev)
     # the JAX package's jitted engine divides by this compile-time
     # constant as XLA does: a multiply by its float32 reciprocal
     density = kept * float(np.float32(1.0 / total))

@@ -14,11 +14,16 @@
 //
 // fp32 sums over the client axis for fp32 and bf16 values; the mask has
 // the values' dtype and is channel-shaped, (N, C_m) with C_m == C, or
-// C_m == 1 for the all-ones masks of full uploads.
+// C_m == 1 for the all-ones masks of full uploads, or elementwise,
+// C_m == A * C * B and ch(e) == e: the Pallas kernel's own (N, C, F) mask,
+// which a ragged fleet's zero-padded canvas needs (a narrow client's mask
+// is zero across the padded INPUT channels of a conv, which no channel
+// mask describes).
 //
 // Bound: bytes.  One read of the (N, A, C, B) values, the (N, C_m) mask
 // and N weights; two fp32 leaf writes (partials) or one leaf write in the
-// output dtype (mean mode); two flops per value.
+// output dtype (mean mode); two flops per value.  An elementwise mask is
+// read like the values: twice the bytes of the channel route.
 // Design: a thread owns V <= 4 consecutive elements of the leaf (one
 // 16-byte fp32 or 8-byte bf16 access at V = 4; V divides the contiguous C
 // where B == 1, else B) and walks the clients 16 at a time (8 in bf16): it
@@ -30,7 +35,10 @@
 // once per block, as the TPU kernel's blocking suggests, measured slower
 // on the H100: the block barrier serialises the staging round trip with
 // the value loads.)  The client reduction stays in one thread in a fixed
-// order: deterministic, no atomics, no second pass.  The mean mode runs the
+// order: deterministic, no atomics, no second pass.  An elementwise mask is
+// read as the values are, V consecutive elements per access; the
+// arithmetic is the channel route's, so a channel mask broadcast to the
+// values' shape gives the same bits.  The mean mode runs the
 // same accumulation and finishes in registers with a true IEEE division,
 // so num and den never reach device memory, and it equals
 // finish_masked_mean over the partials mode's output bit for bit.  The
@@ -58,9 +66,13 @@ __global__ void __launch_bounds__(kThreads)
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * V;
   if (e >= size) return;
   // the mask column of the thread's first element; with a channel-last
-  // mask its V elements have V consecutive channels, else one
-  const bool mask_vec = b == 1 && mask_c != 1;
-  const int64_t ch = mask_c == 1 ? 0 : (b == 1 ? e % c : (e / b) % c);
+  // or an elementwise mask its V elements have V consecutive columns,
+  // else one
+  const bool elementwise = mask_c == size;
+  const bool mask_vec = elementwise || (b == 1 && mask_c != 1);
+  const int64_t ch = elementwise ? e
+                     : mask_c == 1 ? 0
+                                   : (b == 1 ? e % c : (e / b) % c);
 
   float num[V], den[V];
 #pragma unroll
@@ -173,9 +185,10 @@ cudaError_t launch_mode(int mode, int out_dtype, int vec, const void* vals,
 }  // namespace
 
 // vals: (N, A, C, B) contiguous, dtype code `dtype`; mask: (N, mask_c) with
-// mask_c in {C, 1}, same dtype; weights: (N,) fp32.  `vec` elements per
-// access, 1, 2 or 4 (divides C where B == 1, else B; the pointers aligned
-// to it).
+// mask_c in {C, 1, A * C * B} (channel, all-ones, elementwise), same dtype;
+// weights: (N,) fp32.  `vec` elements per access, 1, 2 or 4 (divides C
+// where B == 1, else B; the pointers aligned to it; an elementwise mask
+// comes with B == 1).
 // mode 0 (partials): out = num and den, (A, C, B) fp32; gprev unused.
 // mode 1 (mean): out (A, C, B) in `out_dtype`; gprev (A, C, B) in
 // `out_dtype` or null; den unused.
@@ -186,7 +199,10 @@ extern "C" int feddd_sparse_agg(const void* vals, const void* mask,
                                 int vec, int mode, int dtype, int out_dtype,
                                 void* stream) {
   const int64_t inner = b == 1 ? c : b;
-  if (n <= 0 || a * c * b <= 0 || (mask_c != c && mask_c != 1) || vec < 1 ||
+  const int64_t size = a * c * b;
+  const bool elementwise = mask_c == size && size != c && size != 1;
+  if (n <= 0 || size <= 0 ||
+      (mask_c != c && mask_c != 1 && !(elementwise && b == 1)) || vec < 1 ||
       inner % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

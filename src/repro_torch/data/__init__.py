@@ -1,8 +1,12 @@
 from repro_torch.data.partition import (label_coverage_score,
-                                        label_distribution, partition_iid,
+                                        label_distribution,
+                                        partition_class_imbalanced,
+                                        partition_dirichlet, partition_iid,
+                                        partition_noniid_a,
                                         partition_noniid_b)
 from repro_torch.data.synthetic import SyntheticImageDataset, make_dataset
 
 __all__ = ["SyntheticImageDataset", "make_dataset", "partition_iid",
-           "partition_noniid_b", "label_distribution",
+           "partition_noniid_a", "partition_noniid_b", "partition_dirichlet",
+           "partition_class_imbalanced", "label_distribution",
            "label_coverage_score"]

@@ -1,9 +1,11 @@
-"""Client data partitions — a numpy copy of the part of
-``repro.data.partition`` the port uses.
+"""Client data partitions — a numpy copy of ``repro.data.partition``.
 
   IID        every class uniformly across clients: equal shards (up to
              one sample), the stackable data of a vmapped trainer
+  Non-IID-a  each client holds a random number (2..C) of classes
   Non-IID-b  each client holds exactly 3 random classes (paper §6.1)
+  Dirichlet  standard Dir(alpha) label-skew partition
+  class-imbalanced  a global dataset with rare classes (paper §6.7)
 
 Returns a list of index arrays (one per client), equal to the JAX
 package's for the same seed.
@@ -50,9 +52,51 @@ def _partition_by_classes(ds, num_clients, classes_per_client, seed):
     return [np.sort(np.asarray(p, np.int64)) for p in parts]
 
 
+def partition_noniid_a(ds: SyntheticImageDataset, num_clients: int,
+                       seed: int = 0) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    ks = rng.integers(2, ds.num_classes + 1, num_clients)
+    return _partition_by_classes(ds, num_clients, ks.tolist(), seed + 1)
+
+
 def partition_noniid_b(ds: SyntheticImageDataset, num_clients: int,
                        seed: int = 0) -> List[np.ndarray]:
     return _partition_by_classes(ds, num_clients, [3] * num_clients, seed)
+
+
+def partition_dirichlet(ds: SyntheticImageDataset, num_clients: int,
+                        alpha: float = 0.5, seed: int = 0
+                        ) -> List[np.ndarray]:
+    rng = np.random.default_rng(seed)
+    parts: List[List[int]] = [[] for _ in range(num_clients)]
+    for cls in range(ds.num_classes):
+        idx = np.where(ds.y == cls)[0].copy()
+        rng.shuffle(idx)
+        p = rng.dirichlet([alpha] * num_clients)
+        cuts = (np.cumsum(p)[:-1] * len(idx)).astype(int)
+        for o, ch in enumerate(np.split(idx, cuts)):
+            parts[o].extend(ch.tolist())
+    return [np.sort(np.asarray(p, np.int64)) for p in parts]
+
+
+def partition_class_imbalanced(ds: SyntheticImageDataset, num_clients: int,
+                               rare_classes=(0, 1, 2),
+                               rare_ratio: float = 0.4,
+                               seed: int = 0) -> List[np.ndarray]:
+    """Paper §6.7: rare classes keep only ``rare_ratio`` of their samples
+    globally; clients then get 3 random classes each (as Non-IID-b)."""
+    rng = np.random.default_rng(seed)
+    keep = []
+    for cls in range(ds.num_classes):
+        idx = np.where(ds.y == cls)[0]
+        if cls in rare_classes:
+            idx = rng.choice(idx, size=int(len(idx) * rare_ratio),
+                             replace=False)
+        keep.extend(idx.tolist())
+    keep = np.sort(np.asarray(keep))
+    sub = ds.subset(keep)
+    parts_local = partition_noniid_b(sub, num_clients, seed + 1)
+    return [keep[p] for p in parts_local]
 
 
 def label_distribution(ds: SyntheticImageDataset, idx: np.ndarray

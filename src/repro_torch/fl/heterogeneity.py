@@ -7,14 +7,21 @@
 
 t_cmp = c_n * b_n / f_n  (Eq. (7)) with b_n = the client's shard size x
 local epochs.  Same draws as ``repro.fl.heterogeneity`` for the same seed.
+
+Also the shape groups of a ragged (model-heterogeneous) fleet: clients
+whose sub-models share one structure and leaf shapes stack along a
+leading member axis, and the grouped round engine
+(``core/round_engine.GroupedRoundEngine``) serves each group in one pass.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import tree
 from repro_torch.core.allocation import ClientTelemetry
 
 
@@ -45,3 +52,51 @@ def sample_system_telemetry(
         label_coverage=np.asarray(label_coverage, float),
         train_loss=np.full(n, initial_loss),
     )
+
+
+# --------------------------------------------------------------- shape groups
+
+@dataclasses.dataclass(frozen=True)
+class ShapeGroup:
+    """One class of a ragged fleet: every member holds a sub-model with the
+    same pytree structure, leaf shapes and dtypes, so their parameters
+    stack along a leading member axis.
+
+    ``indices`` are the members' fleet positions (ascending): the rows
+    they occupy in the full-fleet aggregation canvas and the ids their
+    mask and quantization keys fold in, so grouped rounds equal the
+    per-client loop's.
+    """
+
+    signature: Tuple                 # (treedef, ((shape, dtype name), ...))
+    indices: Tuple[int, ...]         # fleet positions of the members
+
+    @property
+    def size(self) -> int:
+        return len(self.indices)
+
+
+def _dtype_name(leaf) -> str:
+    """``float32``, ``bfloat16``, ...: the JAX package's dtype strings."""
+    return str(leaf.dtype).rpartition(".")[2]
+
+
+def shape_signature(params) -> Tuple:
+    """Hashable identity of a pytree's structure, leaf shapes and dtypes
+    (``tree.flatten``'s treedef is nested tuples: equal structures give
+    equal, hashable treedefs)."""
+    leaves, treedef = tree.flatten(params)
+    return (treedef, tuple((tuple(l.shape), _dtype_name(l))
+                           for l in leaves))
+
+
+def group_by_shape(client_params: Sequence) -> List[ShapeGroup]:
+    """Partition a fleet by sub-model shape, the groups ordered by their
+    smallest member (a function of the fleet alone); a homogeneous fleet
+    is one group."""
+    members: dict = {}
+    for i, p in enumerate(client_params):
+        members.setdefault(shape_signature(p), []).append(i)
+    groups = [ShapeGroup(signature=sig, indices=tuple(idx))
+              for sig, idx in members.items()]
+    return sorted(groups, key=lambda g: g.indices[0])

@@ -1,24 +1,32 @@
-"""The paper's FL models (Table 2) as plain functions on tensors.
+"""The paper's FL models (Tables 2, 3, 6) as plain functions on tensors.
 
   MLP   FC(784,100)-ReLU-FC(100,64)-ReLU-FC(64,10)           (MNIST)
   CNN1  Conv(1,10,5)-pool-Conv(10,20,5)-pool-FC(320,50)-FC(50,10)   (FMNIST)
   CNN2  3xConv(16/32/64,k3)+pool-FC(1024,500)-FC(500,100)-FC(100,10) (CIFAR10)
+
+plus the five width-pruned VGG-style sub-models of Tables 3 (hetero-a)
+and 6 (hetero-b), the model-heterogeneous fleets of the paper's §6.4.
 
 Parameters are dicts of tensors in the JAX package's layout — dense
 ``(in, out)``, conv ``HWIO``, images NHWC — so FedDD's channel masks
 (channel_axis=-1) apply unchanged and both packages compare leaf for
 leaf; convolutions run as NCHW ``F.conv2d`` inside :func:`apply_spec`.
 
-float32 stays float32 on the card: :func:`make_local_train_fn` and
-:func:`make_eval_fn` switch off TF32 for matmuls and cuDNN convolutions
-(``torch.backends.cuda.matmul.allow_tf32`` /
-``torch.backends.cudnn.allow_tf32``), process-wide.
+float32 stays float32 on the card, and a run repeats bit for bit:
+:func:`make_local_train_fn` and :func:`make_eval_fn` switch off TF32 for
+matmuls and cuDNN convolutions (``torch.backends.cuda.matmul.allow_tf32``
+/ ``torch.backends.cudnn.allow_tf32``) and ask cuDNN for its
+deterministic convolution algorithms (``torch.backends.cudnn
+.deterministic``), process-wide.  Without the last, the backward passes
+of a VGG's convolutions may sum in another order each run, and no run of
+a conv model could be held to another (``scripts/conv_determinism.py``
+measures the drift between two equal runs on the card).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +47,45 @@ CNN2_SPEC = [("conv", 3, 16, 3), ("pool",), ("conv", 16, 32, 3), ("pool",),
              ("fc", 1024, 500), ("fc", 500, 100), ("fc", 100, 10)]
 
 
+def _vgg(widths: Sequence[int], fcs: Sequence[int]) -> List[Tuple]:
+    """3x3 conv + pool per width (32x32 through 5 pools -> 1x1), then the
+    fc layers ``fcs`` and a 10-way head."""
+    spec: List[Tuple] = []
+    cin = 3
+    for w in widths:
+        spec += [("conv", cin, w, 3), ("pool",)]
+        cin = w
+    dims = [widths[-1]] + list(fcs) + [10]
+    for i in range(len(dims) - 1):
+        spec.append(("fc", dims[i], dims[i + 1]))
+    return spec
+
+
+# Table 3 (model-heterogeneous-a): five VGG-ish sub-models
+HETERO_A_SPECS = [
+    _vgg([64, 128, 256, 512, 512], [100, 100]),   # full model
+    _vgg([64, 128, 256, 256, 512], [100, 100]),
+    _vgg([64, 128, 256, 256, 512], [80, 100]),
+    _vgg([32, 128, 256, 256, 512], [80, 100]),
+    _vgg([32, 128, 128, 256, 512], [80, 100]),
+]
+
+# Table 6 (model-heterogeneous-b): larger spread
+HETERO_B_SPECS = [
+    _vgg([64, 128, 256, 512, 512], [100, 100]),   # full model
+    _vgg([64, 128, 256, 256, 256], [100, 100]),
+    _vgg([64, 128, 256, 256, 256], [80, 80]),
+    _vgg([32, 96, 256, 256, 256], [80, 80]),
+    _vgg([32, 96, 128, 128, 256], [80, 80]),
+]
+
+
 def _full_fp32() -> None:
-    """float32 matmuls and convolutions in full float32 (no TF32)."""
+    """float32 matmuls and convolutions in full float32 (no TF32), and
+    cuDNN's deterministic convolution algorithms."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def init_cnn_spec(spec: Sequence[Tuple], key=None, *, seed: int = 0,
@@ -73,6 +116,18 @@ def init_cnn_spec(spec: Sequence[Tuple], key=None, *, seed: int = 0,
                 math.sqrt(din), dtype=torch.float32, device=dev)
             params[f"fc{li}"] = {"w": w, "b": torch.zeros(dout, device=dev)}
     return params
+
+
+def init_mlp(key=None, *, seed: int = 0, device: DeviceLike = None) -> Dict:
+    return init_cnn_spec(MLP_SPEC, key, seed=seed, device=device)
+
+
+def init_cnn(which: str, key=None, *, seed: int = 0,
+             device: DeviceLike = None) -> Dict:
+    """CNN1 (``which == "cnn1"``) or CNN2 (anything else), as the JAX
+    package's ``init_cnn``."""
+    return init_cnn_spec(CNN1_SPEC if which == "cnn1" else CNN2_SPEC, key,
+                         seed=seed, device=device)
 
 
 def apply_spec(params: Dict, spec: Sequence[Tuple],

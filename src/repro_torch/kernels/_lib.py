@@ -209,12 +209,16 @@ def split_at(shape, axis: int) -> Tuple[int, int, int]:
     return a, int(shape[axis]), b
 
 
-def mask_view(leaf_shape, mask_shape) -> Tuple[Tuple[int, int, int], int]:
-    """((A, C, B), C_m) for a channel-shaped mask against a leaf.
+def mask_view(leaf_shape, mask_shape, elementwise: bool = False
+              ) -> Tuple[Tuple[int, int, int], int]:
+    """((A, C, B), C_m) for a mask against a leaf.
 
-    ``mask_shape`` is the un-stacked mask shape: all ones except at most
-    one axis, which must equal the leaf's size there (the channel axis).
-    An all-ones mask shape (full uploads) gives C_m = 1.
+    ``mask_shape`` is the un-stacked mask shape.  A channel-shaped mask is
+    all ones except at most one axis, which must equal the leaf's size
+    there (the channel axis); an all-ones mask shape (full uploads) gives
+    C_m = 1.  With ``elementwise``, a mask shaped like the leaf that is
+    not channel-shaped is taken too: the leaf's view is then (A, C, 1)
+    around its last axis and C_m = A * C, one mask value per element.
     """
     if len(mask_shape) != len(leaf_shape):
         raise ValueError(f"mask shape {tuple(mask_shape)} does not match "
@@ -225,8 +229,11 @@ def mask_view(leaf_shape, mask_shape) -> Tuple[Tuple[int, int, int], int]:
         for s in leaf_shape:
             size *= int(s)
         return (1, 1, size), 1
-    if len(axes) > 1 or mask_shape[axes[0]] != leaf_shape[axes[0]]:
-        raise ValueError(f"mask shape {tuple(mask_shape)} is not "
-                         f"channel-shaped for leaf {tuple(leaf_shape)}")
-    acb = split_at(leaf_shape, axes[0])
-    return acb, acb[1]
+    if len(axes) == 1 and mask_shape[axes[0]] == leaf_shape[axes[0]]:
+        acb = split_at(leaf_shape, axes[0])
+        return acb, acb[1]
+    if elementwise and tuple(mask_shape) == tuple(leaf_shape):
+        a, c, _ = split_at(leaf_shape, len(leaf_shape) - 1)
+        return (a, c, 1), a * c
+    raise ValueError(f"mask shape {tuple(mask_shape)} is not "
+                     f"channel-shaped for leaf {tuple(leaf_shape)}")

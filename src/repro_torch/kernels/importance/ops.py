@@ -61,12 +61,18 @@ def sm_count(device: torch.device) -> int:
 
 def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
                                channel_axis: int = -1,
-                               coverage: Optional[torch.Tensor] = None
+                               coverage: Optional[torch.Tensor] = None,
+                               per_client_split: bool = False
                                ) -> torch.Tensor:
     """Client-stacked Eq. (20)/(21): (N, *leaf) x2 -> (N, C) fp32.
 
     ``channel_axis`` indexes the un-stacked leaf.  The leaf is read in
-    place as (N, A, C, B) around its channel axis.
+    place as (N, A, C, B) around its channel axis.  The fan-in split
+    fixes each score's summation order; ``per_client_split`` plans it as
+    for one client, so every row has the bits of a one-client launch (the
+    grouped engine, whose oracle is the per-client loop).  Launches count
+    by route, "coverage" where the Eq. (21) division runs and "plain"
+    otherwise (:func:`route_counts`).
     """
     if w_old.shape != w_new.shape or w_old.dtype != w_new.dtype:
         raise ValueError(f"w_old {tuple(w_old.shape)}/{w_old.dtype} and "
@@ -91,11 +97,19 @@ def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
         return channel_importance_ref(w_old.view(n, a, c, b),
                                       w_new.view(n, a, c, b), coverage)
     vec = _lib.vector_width(c, w_old, w_new) if b == 1 else 1
-    plan = work_plan(n, a, c, b, sm_count(w_old.device), vec)
+    plan = work_plan(1 if per_client_split else n, a, c, b,
+                     sm_count(w_old.device), vec)
     out = torch.empty((n, c), dtype=torch.float32, device=w_old.device)
     _lib.launch("importance", "feddd_importance", w_old.data_ptr(),
                 w_new.data_ptr(),
                 None if coverage is None else coverage.data_ptr(),
                 out.data_ptr(), n, a, c, b, plan.vec, plan.splits,
-                _lib.DTYPE_CODES[w_old.dtype], device=w_old.device)
+                _lib.DTYPE_CODES[w_old.dtype], device=w_old.device,
+                route="plain" if coverage is None else "coverage")
     return out
+
+
+def route_counts():
+    """Launches with and without the coverage division since
+    ``kernels.reset_launch_counts``."""
+    return _lib.route_launches("importance", ("plain", "coverage"))

@@ -1,5 +1,12 @@
 """Wrapper of the sparse aggregation kernel (``csrc/sparse_agg.cu``): the
-Eq. (4) partials, and the mean mode that finishes Eq. (4) in the kernel."""
+Eq. (4) partials, and the mean mode that finishes Eq. (4) in the kernel.
+
+Both modes take a channel-shaped mask (N, 1, ..., C, ..., 1), an all-ones
+one (N, 1, ..., 1), or an elementwise mask shaped like the values (the
+Pallas kernel's own contract; a ragged fleet's zero-padded canvas, whose
+padded input channels no channel mask can describe).  Launches count by
+mode and by mask: ``"mean"`` / ``"partials"`` for channel and all-ones
+masks, ``"mean:elementwise"`` / ``"partials:elementwise"`` otherwise."""
 
 from __future__ import annotations
 
@@ -15,15 +22,20 @@ PARTIALS, MEAN = 0, 1               # the kernel's modes
 MODES = ("partials", "mean")
 
 
+ELEMENTWISE = ":elementwise"        # the route suffix of a per-element mask
+
+
 def _leaf_view(stack_w: torch.Tensor, stack_m: torch.Tensor,
                weights: torch.Tensor):
-    """Check the operands -> (device type, n, (a, c, b), mask_c)."""
+    """Check the operands -> (device type, n, (a, c, b), mask_c); an
+    elementwise mask has mask_c == a * c * b."""
     n = stack_w.shape[0]
     if stack_m.shape[0] != n or tuple(weights.shape) != (n,):
         raise ValueError(f"values {tuple(stack_w.shape)}, mask "
                          f"{tuple(stack_m.shape)} and weights "
                          f"{tuple(weights.shape)} disagree on N")
-    acb, mask_c = _lib.mask_view(stack_w.shape[1:], stack_m.shape[1:])
+    acb, mask_c = _lib.mask_view(stack_w.shape[1:], stack_m.shape[1:],
+                                 elementwise=True)
     _lib.check_dtype("stack_w", stack_w, _lib.DTYPE_CODES)
     _lib.check_dtype("stack_m", stack_m, (stack_w.dtype,))
     _lib.check_dtype("weights", weights, (torch.float32,))
@@ -32,11 +44,24 @@ def _leaf_view(stack_w: torch.Tensor, stack_m: torch.Tensor,
     return dev, n, acb, mask_c
 
 
+def _elementwise(acb, mask_c) -> bool:
+    a, c, b = acb
+    return mask_c == a * c * b and a * b > 1
+
+
+def _mask_rows(stack_m: torch.Tensor, acb, mask_c) -> torch.Tensor:
+    """The mask as the plain version takes it: (N, C_m), or (N, A, C, B)
+    for an elementwise one."""
+    n = stack_m.shape[0]
+    return (stack_m.view(n, *acb) if _elementwise(acb, mask_c)
+            else stack_m.view(n, mask_c))
+
+
 def _launch(mode, stack_w, stack_m, weights, gprev, out, den, acb,
             mask_c) -> None:
     a, c, b = acb
     # V <= 4 elements per access: the values, the outputs and gprev, and a
-    # channel-last mask's rows, all aligned to V
+    # channel-last or elementwise mask's rows, all aligned to V
     vectors = [t for t in (out, den, gprev) if t is not None]
     if b == 1 and mask_c != 1:
         vectors.append(stack_m)
@@ -47,12 +72,25 @@ def _launch(mode, stack_w, stack_m, weights, gprev, out, den, acb,
                 None if den is None else den.data_ptr(), stack_w.shape[0], a,
                 c, b, mask_c, vec, mode, _lib.DTYPE_CODES[stack_w.dtype],
                 _lib.DTYPE_CODES[out.dtype], device=stack_w.device,
-                route=MODES[mode])
+                route=MODES[mode] + (ELEMENTWISE if _elementwise(acb, mask_c)
+                                     else ""))
+
+
+ROUTES = MODES + tuple(m + ELEMENTWISE for m in MODES)
+
+
+def route_counts() -> Dict[str, int]:
+    """Launches by mode and mask since ``kernels.reset_launch_counts``:
+    "partials" / "mean" with a channel or all-ones mask, and the same
+    with the ":elementwise" suffix with a per-element mask."""
+    return _lib.route_launches("sparse_agg", ROUTES)
 
 
 def mode_counts() -> Dict[str, int]:
-    """Launches by mode since ``kernels.reset_launch_counts``."""
-    return _lib.route_launches("sparse_agg", MODES)
+    """Launches by mode, whatever the mask, since
+    ``kernels.reset_launch_counts``."""
+    r = route_counts()
+    return {m: r[m] + r[m + ELEMENTWISE] for m in MODES}
 
 
 def masked_weighted_sum(stack_w: torch.Tensor, stack_m: torch.Tensor,
@@ -61,15 +99,16 @@ def masked_weighted_sum(stack_w: torch.Tensor, stack_m: torch.Tensor,
     """Eq. (4) partials of one client-stacked leaf.
 
     stack_w: (N, *leaf) values; stack_m: the channel-shaped mask
-    (N, 1, ..., C, ..., 1), or (N, 1, ..., 1) for full uploads, in the
-    values' dtype; weights: (N,) fp32.  Returns fp32 (num, den), each
-    shaped like the leaf.
+    (N, 1, ..., C, ..., 1), (N, 1, ..., 1) for full uploads, or an
+    elementwise (N, *leaf) mask, in the values' dtype; weights: (N,)
+    fp32.  Returns fp32 (num, den), each shaped like the leaf.
     """
     dev, n, (a, c, b), mask_c = _leaf_view(stack_w, stack_m, weights)
     leaf = stack_w.shape[1:]
     if dev == "cpu":
-        num, den = masked_weighted_sum_ref(stack_w.view(n, a, c, b),
-                                           stack_m.view(n, mask_c), weights)
+        num, den = masked_weighted_sum_ref(
+            stack_w.view(n, a, c, b), _mask_rows(stack_m, (a, c, b), mask_c),
+            weights)
         return num.reshape(leaf), den.reshape(leaf)
     num = torch.empty(leaf, dtype=torch.float32, device=stack_w.device)
     den = torch.empty(leaf, dtype=torch.float32, device=stack_w.device)
@@ -107,7 +146,8 @@ def masked_weighted_mean(stack_w: torch.Tensor, stack_m: torch.Tensor,
         _lib.check_contiguous(gprev=gprev)
     if dev == "cpu":
         return masked_weighted_mean_ref(
-            stack_w.view(n, a, c, b), stack_m.view(n, mask_c), weights,
+            stack_w.view(n, a, c, b), _mask_rows(stack_m, (a, c, b), mask_c),
+            weights,
             None if gprev is None else gprev.view(a, c, b),
             dtype).reshape(leaf)
     if gprev is not None and gprev.dtype != dtype:

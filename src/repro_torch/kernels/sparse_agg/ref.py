@@ -4,7 +4,9 @@ num[a,c,b] = sum_n (W[n,a,c,b] * M[n,c]) * w_n
 den[a,c,b] = sum_n  M[n,c] * w_n
 mean       = where(den > eps, num / max(den, eps), gprev)   (mean mode)
 
-The mask is channel-shaped, (N, C_m) with C_m == C or 1 (all-ones masks).
+The mask is channel-shaped, (N, C_m) with C_m == C or 1 (all-ones masks),
+or elementwise, (N, A, C, B) like the values (M[n,a,c,b] in place of
+M[n,c]: a ragged fleet's zero-padded canvas).
 """
 
 from __future__ import annotations
@@ -19,12 +21,15 @@ EPS = 1e-12
 def masked_weighted_sum_ref(stack_w: torch.Tensor, stack_m: torch.Tensor,
                             weights: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """stack_w: (N, A, C, B); stack_m: (N, C_m); weights: (N,).
+    """stack_w: (N, A, C, B); stack_m: (N, C_m) or (N, A, C, B);
+    weights: (N,).
 
     Returns fp32 (num, den), each (A, C, B).
     """
     n = stack_w.shape[0]
-    m = stack_m.float().view(n, 1, -1, 1)
+    m = stack_m.float()
+    if m.ndim == 2:
+        m = m.view(n, 1, -1, 1)
     wts = weights.float().view(n, 1, 1, 1)
     num = (stack_w.float() * m * wts).sum(0)
     den = (m * wts).expand(stack_w.shape).sum(0)

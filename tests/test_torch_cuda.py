@@ -920,3 +920,278 @@ def test_clip_aggregation_launches_the_partials_mode(cuda_device):
         w, prev_global=[p.to(cuda_device) for p in prev],
         robust="trimmed:0.2")
     assert kernels.launch_counts()["sparse_agg"] == 0
+
+
+# --- ragged fleets: sparse_agg's elementwise mask, the grouped engine ----
+
+EW_CASES = [(7, (257, 513)), (3, (3, 3)), (5, (1000, 7)),
+            (5, (3, 3, 64, 96)), (4, (20, 12, 6))]
+
+
+def _elementwise_case(gen, dev, n, leaf, dtype):
+    """Values, a ragged canvas mask (client i's leading box of the leaf
+    under a channel mask, the rest zero) and weights."""
+    x = torch.randn((n,) + leaf, generator=gen, device=dev).to(dtype)
+    chan = (torch.rand((n,) + (1,) * (len(leaf) - 1) + leaf[-1:],
+                       generator=gen, device=dev) > 0.4).to(dtype)
+    m = torch.zeros_like(x)
+    for i in range(n):
+        box = (i,) + tuple(slice(0, max(1, s - i % 3)) for s in leaf)
+        m[box] = chan[i].expand(leaf)[box[1:]]
+    w = torch.rand((n,), generator=gen, device=dev) + 0.5
+    return x, m, w
+
+
+@pytest.mark.parametrize("n,leaf", EW_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_agg_elementwise_on_card_matches_plain(n, leaf, dtype,
+                                                      cuda_device):
+    """Both modes with an elementwise mask against the plain version on
+    the same tensors (the CPU tests' tolerances; the mean mode bit for bit
+    against ``finish_masked_mean`` over the partials mode), one launch
+    each, counted under the elementwise routes."""
+    from repro_torch.kernels.sparse_agg.ref import (finish_masked_mean,
+                                                    masked_weighted_mean_ref)
+    gen = torch.Generator(device=cuda_device).manual_seed(len(leaf) + n)
+    x, m, w = _elementwise_case(gen, cuda_device, n, leaf, dtype)
+    gprev = torch.randn(leaf, generator=gen, device=cuda_device).to(dtype)
+    a = int(np.prod(leaf[:-1]))
+    c = leaf[-1]
+    kernels.reset_launch_counts()
+    num, den = agg_ops.masked_weighted_sum(x, m, w)
+    got = agg_ops.masked_weighted_mean(x, m, w, gprev, dtype)
+    torch.cuda.synchronize()
+    assert agg_ops.route_counts() == {
+        "partials": 0, "mean": 0, "partials:elementwise": 1,
+        "mean:elementwise": 1}
+    wnum, wden = masked_weighted_sum_ref(x.view(n, a, c, 1),
+                                         m.view(n, a, c, 1), w)
+    rtol = 5e-3 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(num, wnum.view(leaf), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(den, wden.view(leaf), rtol=3e-5, atol=1e-5)
+    want = masked_weighted_mean_ref(x.view(n, a, c, 1), m.view(n, a, c, 1),
+                                    w, gprev.view(a, c, 1), dtype)
+    torch.testing.assert_close(got.float(), want.view(leaf).float(),
+                               rtol=2.0 ** -7 if dtype == torch.bfloat16
+                               else 3e-5, atol=1e-4)
+    assert torch.equal(got, finish_masked_mean(num, den, gprev, dtype))
+
+
+def test_sparse_agg_elementwise_past_2_31_elements(cuda_device):
+    """A bf16 client leaf of (32769, 65536) = 2,147,549,184 elements, two
+    clients, an elementwise mask: the kernel indexes in 64 bits, so one
+    launch of each mode covers it (no split), equal to the plain version
+    in chunks of 2048 rows (the mean mode bit for bit against
+    ``finish_masked_mean`` over the partials)."""
+    from repro_torch.kernels.sparse_agg.ref import finish_masked_mean
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    n, leaf = 2, (32769, 65536)
+    x = torch.randn((n,) + leaf, generator=gen, device=cuda_device,
+                    dtype=torch.bfloat16)
+    m = (torch.rand((n,) + leaf, generator=gen, device=cuda_device)
+         > 0.5).to(torch.bfloat16)
+    w = torch.tensor([1.5, 0.75], device=cuda_device)
+    kernels.reset_launch_counts()
+    got = agg_ops.masked_weighted_mean(x, m, w, None, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert agg_ops.route_counts()["mean:elementwise"] == 1
+    rows = 2048
+    for r0 in range(0, leaf[0], rows):
+        xs, ms = x[:, r0:r0 + rows], m[:, r0:r0 + rows]
+        r = xs.shape[1]
+        num, den = masked_weighted_sum_ref(xs.reshape(n, r, leaf[1], 1),
+                                           ms.reshape(n, r, leaf[1], 1), w)
+        assert torch.equal(got[r0:r0 + r], finish_masked_mean(
+            num.view(r, leaf[1]), den.view(r, leaf[1]), None,
+            torch.bfloat16)), f"rows {r0}.."
+    del got
+    num, den = agg_ops.masked_weighted_sum(x, m, w)
+    torch.cuda.synchronize()
+    for r0 in range(0, leaf[0], 4 * rows):
+        xs, ms = x[:, r0:r0 + 4 * rows], m[:, r0:r0 + 4 * rows]
+        r = xs.shape[1]
+        wnum, wden = masked_weighted_sum_ref(xs.reshape(n, r, leaf[1], 1),
+                                             ms.reshape(n, r, leaf[1], 1), w)
+        assert torch.equal(num[r0:r0 + r], wnum.view(r, leaf[1]))
+        assert torch.equal(den[r0:r0 + r], wden.view(r, leaf[1]))
+
+
+def _ragged_groups(dev, seed=0, n=6, widths=(12, 8, 6)):
+    """A ragged MLP fleet (widths cycling) as grouped stacks on ``dev``:
+    (global, [(indices, stacked values, stacked channel masks)])."""
+    from repro_torch.fl.heterogeneity import group_by_shape
+    gen = torch.Generator().manual_seed(seed)
+
+    def mlp(w):
+        return {"fc0": {"w": torch.randn(20, w, generator=gen),
+                        "b": torch.randn(w, generator=gen)},
+                "fc1": {"w": torch.randn(w, 5, generator=gen),
+                        "b": torch.randn(5, generator=gen)}}
+
+    gp = mlp(max(widths))
+    clients = [mlp(widths[i % len(widths)]) for i in range(n)]
+    out = []
+    for g in group_by_shape(clients):
+        vals = tree.tree_map(lambda *ls: torch.stack(ls),
+                             *[clients[i] for i in g.indices])
+        masks = tree.tree_map(
+            lambda l: (torch.rand((l.shape[0],) + (1,) * (l.ndim - 2)
+                                  + l.shape[-1:], generator=gen)
+                       > 0.4).float(), vals)
+        out.append((np.asarray(g.indices), vals, masks))
+    return gp, out
+
+
+@pytest.mark.parametrize("robust", ["mean", "clip:1.5"])
+def test_aggregate_sparse_grouped_on_card_matches_cpu(robust, cuda_device):
+    """The grouped Eq. (4) canvas on the card against the same call on
+    the CPU (plain versions): within 3e-5; the mean launches sparse_agg
+    once a leaf, elementwise for the rank-2 leaves; clip its partials."""
+    from repro_torch.core import aggregation
+    gp, groups = _ragged_groups("cpu")
+    weights = np.asarray([1.0, 2.0, 0.0, 3.0, 1.5, 2.5])
+
+    def run(dev):
+        return aggregation.aggregate_sparse_grouped(
+            [tree.tree_map(lambda l: l.to(dev), v) for _, v, _ in groups],
+            [tree.tree_map(lambda l: l.to(dev), m) for _, _, m in groups],
+            [torch.as_tensor(i, device=dev) for i, _, _ in groups], weights,
+            tree.tree_map(lambda l: l.to(dev), gp),
+            prev_global=tree.tree_map(lambda l: l.to(dev), gp),
+            robust=robust)
+
+    want = run("cpu")
+    kernels.reset_launch_counts()
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    routes = agg_ops.route_counts()
+    if robust == "mean":
+        assert routes == {"partials": 0, "mean": 2, "partials:elementwise": 0,
+                          "mean:elementwise": 2}
+    else:
+        assert routes["partials"] + routes["partials:elementwise"] == 4
+    for g, w in zip(tree.leaves(got), tree.leaves(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=3e-5, atol=1e-6)
+
+
+def test_eq5_at_local_widths_from_a_sliced_global(cuda_device):
+    """Eq. (5) of a narrow group against the global sliced to its widths:
+    the merge kernel refuses the strided slice itself; ``slice_pytree``
+    hands it a contiguous copy, and the merge equals the select on the
+    CPU exactly."""
+    from repro_torch.core import aggregation, round_engine
+    gen = torch.Generator().manual_seed(2)
+    glob = {"w": torch.randn(3, 3, 32, 64, generator=gen),
+            "b": torch.randn(64, generator=gen)}
+    loc = {"w": torch.randn(4, 3, 3, 16, 40, generator=gen),
+           "b": torch.randn(4, 40, generator=gen)}
+    masks = {"w": (torch.rand(4, 1, 1, 1, 40, generator=gen) > 0.5).float(),
+             "b": (torch.rand(4, 40, generator=gen) > 0.5).float()}
+    g_dev = tree.tree_map(lambda l: l.to(cuda_device), glob)
+    l_dev = tree.tree_map(lambda l: l.to(cuda_device), loc)
+    m_dev = tree.tree_map(lambda l: l.to(cuda_device), masks)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm_ops.masked_merge(g_dev["w"][:, :, :16, :40], l_dev["w"],
+                            m_dev["w"])
+    template = tree.tree_map(lambda l: l[0], l_dev)
+    g_local = round_engine.slice_pytree(g_dev, template)
+    assert all(l.is_contiguous() for l in tree.leaves(g_local))
+    kernels.reset_launch_counts()
+    got = aggregation.client_update_sparse(g_local, l_dev, m_dev)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["masked_merge"] == 1
+    for key in ("w", "b"):
+        gs = glob[key][tuple(slice(0, s) for s in loc[key].shape[1:])]
+        want = torch.where(masks[key] > 0, gs[None], loc[key])
+        assert torch.equal(got[key].cpu(), want)
+
+
+def _ragged_fleet_run(dev, batched, rounds=3):
+    from repro_torch.core import protocol
+    from repro_torch.core.allocation import ClientTelemetry
+    gp, groups = _ragged_groups("cpu", seed=4)
+    clients = [None] * 6
+    for idx, vals, _ in groups:
+        for pos, i in enumerate(idx):
+            clients[i] = tree.tree_map(lambda l: l[pos].clone(), vals)
+    rng = np.random.default_rng(0)
+    tel = ClientTelemetry(
+        model_bytes=np.asarray([4.0 * sum(l.numel() for l in tree.leaves(c))
+                                for c in clients]),
+        uplink_rate=rng.uniform(1e3, 5e3, 6),
+        downlink_rate=rng.uniform(5e3, 2e4, 6),
+        compute_latency=rng.uniform(1.0, 5.0, 6),
+        num_samples=rng.integers(10, 50, 6).astype(float),
+        label_coverage=np.ones(6), train_loss=np.ones(6))
+
+    def ltf(p, idx, key):
+        g = torch.Generator().manual_seed(int(np.asarray(key)[1]))
+        return (tree.tree_map(lambda l: l * 0.99 + 0.01 * torch.randn(
+            l.shape, generator=g).to(l.device), p), 1.0 / (idx + 1.0))
+
+    srv = protocol.FedDDServer(
+        gp, protocol.ProtocolConfig(rounds=rounds, h=2, batched=batched),
+        tel, client_params=clients, device=dev)
+    return srv, srv.run(ltf)
+
+
+def test_grouped_run_equals_loop_on_card(cuda_device):
+    """A ragged fleet (3 groups of 2) for 3 rounds on the card: the
+    grouped engine and the per-client loop give the same global and
+    client params bit for bit and the same records; the grouped run
+    launches importance 4 times a group and round, all with coverage,
+    sparse_agg once a leaf and round (the two rank-2 leaves elementwise)
+    and masked_merge once a group and partial round."""
+    kernels.reset_launch_counts()
+    grp, rg = _ragged_fleet_run(cuda_device, True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert grp.executor_kind == "grouped"
+    assert counts == dict(importance=36, sparse_agg=12, masked_merge=6,
+                          flash_attention=0)
+    assert imp_ops.route_counts() == {"plain": 0, "coverage": 36}
+    assert agg_ops.route_counts()["mean:elementwise"] == 6
+    loop, rl = _ragged_fleet_run(cuda_device, False)
+    for a, b in zip(tree.leaves(rg.global_params),
+                    tree.leaves(rl.global_params)):
+        assert torch.equal(a, b)
+    for ca, cb in zip(grp.clients, loop.clients):
+        for a, b in zip(tree.leaves(ca.params), tree.leaves(cb.params)):
+            assert torch.equal(a, b)
+    for a, b in zip(rg.history, rl.history):
+        assert (a.sim_time, a.uploaded_bytes, a.mean_loss) == (
+            b.sim_time, b.uploaded_bytes, b.mean_loss)
+        np.testing.assert_array_equal(a.dropout_rates, b.dropout_rates)
+
+
+def test_grouped_step_makes_no_synchronising_call(cuda_device):
+    """``GroupedRoundEngine.step`` with staged inputs (device rows,
+    rates and weights) makes no synchronising CUDA call, after an
+    uncounted warm-up step."""
+    from repro_torch import prng
+    from repro_torch.core import coverage, round_engine
+    gp, groups = _ragged_groups("cpu", seed=6)
+    gp = tree.tree_map(lambda l: l.to(cuda_device), gp)
+    widths = coverage.coverage_rates(
+        [coverage.channel_widths(tree.tree_map(lambda l: l[0], v))
+         for _, v, _ in groups], coverage.channel_widths(gp))
+    batches = []
+    for idx, vals, _ in groups:
+        old = tree.tree_map(lambda l: l.to(cuda_device), vals)
+        new = tree.tree_map(lambda l: l * 1.01 + 0.01, old)
+        batches.append(round_engine.GroupBatch(
+            idx, old, new,
+            coverage.coverage_pytree(tree.tree_map(lambda l: l[0], old),
+                                     widths),
+            torch.linspace(0.1, 0.5, len(idx), device=cuda_device),
+            torch.as_tensor(idx, device=cuda_device)))
+    weights = torch.arange(1.0, 7.0, device=cuda_device)
+    engine = round_engine.GroupedRoundEngine()
+    counted = [{}, {}]
+    for c in counted:
+        torch.cuda.synchronize()
+        with _smoke()._count_syncs(c, cuda_device):
+            out = engine.step(batches, gp, weights, prng.PRNGKey(1),
+                              full_round=False)
+    assert counted[1] == {"syncs": 0, "where": {}}
+    assert torch.isfinite(out.densities).all()

@@ -60,7 +60,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.obs.metrics", "repro_torch.obs.recorder",
                  "repro_torch.obs.runlog", "repro_torch.obs.report",
                  "repro_torch.core.convergence",
-                 "repro_torch.core.coverage"):
+                 "repro_torch.core.coverage",
+                 "repro_torch.heterogeneous",
+                 "repro_torch.fl.heterogeneity"):
         assert must in res["modules"]
 
 

@@ -617,8 +617,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         with pytest.raises(ValueError, match="no kernel for device"):
             mm_ops.masked_merge(meta[0], meta, m.to("meta"))
     else:
+        # sparse_agg takes a channel-shaped, all-ones or elementwise mask
+        # (shaped like the values); masked_merge a channel-shaped one only
         with pytest.raises(ValueError, match="channel-shaped"):
-            agg_ops.masked_weighted_sum(x, torch.ones(2, 4, 3), w)
+            agg_ops.masked_weighted_sum(x, torch.ones(2, 2, 3), w)
+        with pytest.raises(ValueError, match="channel-shaped"):
+            mm_ops.masked_merge(x[0], x, torch.ones(2, 4, 3))
 
 
 @pytest.mark.parametrize("n,leaf", [(10, (64, 16)), (5, (3, 3, 4, 8)),
