@@ -138,6 +138,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -187,6 +188,35 @@ HETERO_PERF_WIDTHS = (128, 96, 64)
 HETERO_PERF_ROUNDS = 5
 FLEET_SPEC = [("fc", 64, 128), ("fc", 128, 64), ("fc", 64, 10)]
 FLEET_CLIENTS, FLEET_SHARD, FLEET_K, FLEET_ROUNDS = 64, 32, 8, 16
+SIM_FC0 = (16, (784, 100))  # the sim rows of the kernel checks: fc0 at
+                            # the fault grid's 16 clients
+SIM_ROUNDS = 10             # sim phase (a): the straggler demo's rounds
+SIM_CLIENTS = 8
+SIM_POLICIES = ("sync", "deadline", "async")
+SIM_ORDER = ("deadline", "async", "sync")   # final sim_time, ascending:
+                                            # the CPU's order at SIM_ROUNDS
+# launches of each policy's run: a FedDD step per round (async: per merge
+# of 2 clients, SIM_ROUNDS * 4 merges), masked_merge on the partial ones
+SIM_LAUNCHES = {
+    "sync": dict(importance=60, sparse_agg=60, masked_merge=8,
+                 merges={6: 8}),
+    "deadline": dict(importance=60, sparse_agg=60, masked_merge=8,
+                     merges={6: 8}),
+    "async": dict(importance=240, sparse_agg=240, masked_merge=32,
+                  merges={6: 32})}
+SIM_SPANS = ("local_train", "engine_step", "allocate")
+FAULT_CLIENTS = 16          # (c) the fault-tolerance grid at rate 0.35
+FAULT_ROUNDS = 6
+FAULT_KW = dict(crash_rate=0.175, loss_rate=0.35, corrupt_rate=0.0875,
+                corrupt_kind="mix", quorum=0.25, seed=0)
+POP_SIZE = 100_000          # (d) the population throughput demo
+POP_COHORT = 256
+POP_ROUNDS = 4
+POP_SHARDS = 16
+POP_STORE_BYTES = 1 << 30   # the sticky store's bound
+RESUME_ROUNDS = 6           # (e) crash-resume: snapshots every 2 rounds,
+RESUME_EVERY = 2            # SIGKILL in round 5
+RESUME_KILL = 5
 SCAN_SPANS = ("local_train", "engine_step", "host_transfer", "allocate",
               "chunk_dispatch")
 TIE_RTOL = 5e-5         # importance's rtol: closer to the k-th score is a tie
@@ -737,7 +767,89 @@ def kernel_checks(card: Card, flush, records: list, dev="cuda",
                                                    vec).splits)
     records.append(rec)
     main["importance_n1"] = rec
+
+    # ---- sparse_agg's mean mode on the simulator's new inputs
+    for rec in sim_kernel_checks(card, flush, dev, gen, timer):
+        records.append(rec)
+        main[rec["kernel"]] = rec
+        max_err["sparse_agg"] = max(max_err["sparse_agg"],
+                                    rec["max_abs_err"])
     return {"max_abs_err": max_err, "main": main}
+
+
+def sim_kernel_checks(card: Card, flush, dev, gen, timer) -> list:
+    """``sparse_agg``'s mean mode at fc0 of the fault grid's 16 clients
+    (fp32), held against its plain version on the two inputs the
+    simulator adds: (1) channel masks cut to each client's delivered
+    prefix (``aggregation.truncate_masks_to_prefix``: deadline partial
+    aggregation), and (2) uploads the validation screen let through with
+    NaN, +-Inf and an all-ones exponent (bitflip) at a kept and at a
+    dropped channel, one of the rows at weight 0 (``equal_nan``: the
+    kernel keeps ``W * M * w``, so NaN * 0 stays NaN)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import aggregation
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+
+    n, leaf = SIM_FC0
+    a, c, b = _lib.split_at(leaf, len(leaf) - 1)
+    elems = n * a * c * b
+    vals = torch.randn((n, *leaf), generator=gen, device=dev)
+    gprev = torch.randn(leaf, generator=gen, device=dev)
+    wts = torch.rand((n,), generator=gen, device=dev) + 0.5
+    keep = (torch.rand((n, 1, c), generator=gen, device=dev) > 0.4).float()
+    cut = np.full(n, np.iinfo(np.int32).max, np.int32)
+    cut[: n // 2] = np.arange(n // 2) * 5        # 0, 5, ..., 35 channels
+    prefix = aggregation.truncate_masks_to_prefix(
+        [keep], [torch.from_numpy(cut).to(dev)])[0]
+    rank = torch.cumsum(keep, dim=2)
+    if not torch.equal(prefix, keep * (rank <= torch.from_numpy(
+            cut.astype(np.float32)).to(dev).view(n, 1, 1))):
+        raise AssertionError("truncate_masks_to_prefix is not the prefix "
+                             "of each client's kept channels")
+    bad = vals.clone()
+    flat = bad.view(n, a, c)
+    for row, val in ((3, float("nan")), (5, float("inf")),
+                     (7, float("-inf"))):
+        kept = int(torch.nonzero(keep[row, 0])[0])
+        dropped = int(torch.nonzero(keep[row, 0] == 0)[0])
+        flat[row, 1, kept] = val
+        flat[row, 2, dropped] = val
+    bits = flat[9].view(torch.int32)
+    bits[0, int(torch.nonzero(keep[9, 0])[0])] |= 0x7F800000
+    w_bad = wts.clone()
+    w_bad[3] = 0.0
+    out = []
+    for name, v, m, w in (("eq4_prefix", vals, prefix, wts),
+                          ("eq4_nonfinite", bad, keep, w_bad)):
+        got = agg_ops.masked_weighted_mean(v, m, w, gprev, torch.float32)
+        want = masked_weighted_mean_ref(v.view(n, a, c, b), m.view(n, c), w,
+                                        gprev.view(a, c, b),
+                                        torch.float32).view(leaf)
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=1e-4,
+                                   equal_nan=True)
+        if name == "eq4_nonfinite" and not bool(
+                (~torch.isfinite(got)).any()):
+            raise AssertionError("a kept non-finite value did not reach "
+                                 "Eq. (4)")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        kern = lambda: agg_ops.masked_weighted_mean(  # noqa: E731
+            v, m, w, gprev, torch.float32)
+        plain = lambda: masked_weighted_mean_ref(     # noqa: E731
+            v.view(n, a, c, b), m.view(n, c), w, gprev.view(a, c, b),
+            torch.float32)
+        den = (m.view(n, 1, c) * w.view(n, 1, 1)).sum(0).expand(a, c)
+        filled = int((den <= 1e-12).sum())      # gprev elements read
+        rec = _timed(card, flush, timer, name, n, leaf, torch.float32, kern,
+                     plain, None, elems * 4 + n * c * 4 + n * 4 + a * c * 4
+                     + filled * 4, 5 * elems + a * c)
+        rec.update(mode="mean", max_abs_err=err,
+                   non_finite=int((~torch.isfinite(got)).sum()))
+        out.append(rec)
+    return out
 
 
 def ragged_canvas_mask(gen, dev, n, leaf, dtype):
@@ -2324,6 +2436,372 @@ def grouped_phase(dev="cuda") -> dict:
     return out
 
 
+def _launch_counts() -> dict:
+    """Every counter of the three FedDD kernels since the last reset."""
+    from repro_torch import kernels
+    from repro_torch.kernels.importance import ops as imp_ops
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    return dict(launches=kernels.launch_counts(),
+                importance=imp_ops.route_counts(),
+                sparse_agg=agg_ops.route_counts(),
+                merges=merge_ops.leaf_counts())
+
+
+def _want_sim_launches(got: dict, steps: int, partial: int,
+                       what: str) -> None:
+    """A FedDD step per round: importance and sparse_agg (mean mode,
+    channel masks) once a leaf, masked_merge once a partial round for all
+    six leaves, no flash attention."""
+    want = dict(importance=6 * steps, sparse_agg=6 * steps,
+                masked_merge=partial, flash_attention=0)
+    routes = dict(importance={"plain": 6 * steps, "coverage": 0},
+                  sparse_agg={"partials": 0, "mean": 6 * steps,
+                              "partials:elementwise": 0,
+                              "mean:elementwise": 0},
+                  merges={6: partial} if partial else {})
+    if got["launches"] != want or any(got[k] != v
+                                      for k, v in routes.items()):
+        raise AssertionError(f"{what}: launches {got}, expected {want} "
+                             f"by route {routes}")
+
+
+def _same_sim(a, b, what: str) -> None:
+    """Event traces (kind, client, time), records and global params equal
+    bit for bit."""
+    import torch
+    from repro_torch import tree
+    if a.event_trace != b.event_trace:
+        raise AssertionError(f"{what}: event traces differ")
+    for x, y in zip(a.history, b.history):
+        fx, fy = _record_fields(x), _record_fields(y)
+        if fx != fy:
+            raise AssertionError(f"{what}: round {x.round} records differ "
+                                 f"in {[k for k in fx if fx[k] != fy[k]]}")
+    if len(a.history) != len(b.history) or not all(
+            torch.equal(x, y) for x, y in zip(tree.leaves(a.global_params),
+                                              tree.leaves(b.global_params))):
+        raise AssertionError(f"{what}: global params differ")
+
+
+def sim_phase(dev="cuda") -> dict:
+    """The event-driven simulator, the fault layer, population serving and
+    crash-resume (``repro_torch.sim``, ``.population``, ``.checkpoint``) on
+    the card, counts set to 0 just before each counted run and read just
+    after:
+
+    (a) the straggler demo (``python -m repro_torch.straggler_sim``: the
+        paper's MLP at full width, synthetic MNIST 4000/1000 over 8
+        non-IID clients, the Markov fading network, A_server 0.6, h 5):
+        SIM_ROUNDS rounds of sync and deadline and SIM_ROUNDS * 4 async
+        merges, each run twice (the same event trace and parameters bit
+        for bit), launches as SIM_LAUNCHES, uploads within [0.55, 0.65]
+        from round 2 under sync, the final ``sim_time`` in SIM_ORDER;
+        host s per steady sync round and its span medians (a JSONL log in
+        ``build/``) printed;
+    (b) identities, bit for bit: sync over a static network against
+        ``FedDDServer`` (the MLP; and the hetero-a VGG fleet for 2 rounds
+        on the grouped wave fleet), a fleet-sized always-on population
+        against the plain fleet, zero-rate faults against fault-free;
+    (c) the fault-tolerance grid at rate 0.35 (crash 0.175, loss 0.35,
+        corrupt 0.0875 mix, quorum 1/4, deadline with partial
+        aggregation, 16 clients, the Markov network, FAULT_ROUNDS rounds):
+        quarantines, retransmits and partial rescues each > 0, launches a
+        step per committed round (``launches_sim``); a corrupted,
+        quarantined client gives the params of that client's crash;
+    (d) population serving: POP_SIZE clients, cohorts of POP_COHORT under
+        Bernoulli availability, POP_ROUNDS rounds, rounds/s against a
+        POP_COHORT-client fleet and the peak device memory printed, the
+        sticky store (copies, not views) under POP_STORE_BYTES;
+    (e) crash-resume: a subprocess runs the demo with faults, outages and
+        ``checkpoint_every=RESUME_EVERY`` and kills itself with SIGKILL in
+        round RESUME_KILL; a second one resumes from the snapshot and
+        prints the uninterrupted run's digest.
+    """
+    import os
+    import numpy as np
+    import torch
+    from repro_torch import kernels, sim, straggler_sim, tree
+    from repro_torch import heterogeneous
+    from repro_torch.core import aggregation, protocol
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.obs import ObsConfig, read_events
+    from repro_torch.population import Population
+    from repro_torch.sim import crash_resume
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def counted(fn):
+        _sync(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        return res, dict(_launch_counts(), wall=time.perf_counter() - t0)
+
+    # ---- (a) the straggler demo under three policies
+    params, tel, ltf, ef = straggler_sim.setup(SIM_CLIENTS, dev)
+
+    def demo(policy, log=None, **kw):
+        if log is not None:
+            kw["obs"] = ObsConfig(jsonl_path=str(log))
+        return sim.run_sim(
+            "feddd", params, tel, ltf, None,
+            sim=sim.SimConfig(policy=policy),
+            network=straggler_sim.network(tel),
+            rounds=straggler_sim.policy_rounds(policy, SIM_ROUNDS,
+                                               SIM_CLIENTS),
+            a_server=A_SERVER, h=5, seed=0, device=dev, **kw)
+
+    a = {}
+    log = ROOT / "build" / "sim_sync.jsonl"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    for policy in SIM_POLICIES:
+        res, cnt = counted(lambda: demo(
+            policy, log if policy == "sync" else None))
+        again = demo(policy)
+        _same_sim(res, again, f"{policy} run twice")
+        want = SIM_LAUNCHES[policy]
+        steps = len(res.history)
+        _want_sim_launches(cnt, steps, want["masked_merge"],
+                           f"straggler demo, {policy}")
+        if cnt["launches"]["importance"] != want["importance"]:
+            raise AssertionError(f"{policy}: {cnt}")
+        acc = ef(res.global_params)["accuracy"]
+        a[policy] = dict(sim_time=res.history[-1].sim_time, steps=steps,
+                         launches=cnt["launches"], wall_s=cnt["wall"],
+                         accuracy=acc,
+                         uploaded=[r.uploaded_fraction
+                                   for r in res.history],
+                         host_s=[r.host_wall_time for r in res.history])
+    for r in a["sync"]["uploaded"][1:]:
+        if not 0.55 <= r <= 0.65:
+            raise AssertionError(f"sync uploaded {r} outside [0.55, 0.65]")
+    order = tuple(sorted(a, key=lambda p: a[p]["sim_time"]))
+    if order != SIM_ORDER:
+        raise AssertionError(f"policies by final sim_time {order}, the "
+                             f"CPU's {SIM_ORDER}")
+    spans = [e for e in read_events(str(log)) if e["event"] == "span"]
+    medians = {k: 1e3 * statistics.median(
+        e["dur_s"] for e in spans if e["name"] == k and e["round"] >= 2)
+        for k in SIM_SPANS}
+    steady = statistics.median(a["sync"]["host_s"][1:])
+    print("  sim (a): final sim_time " + ", ".join(
+        f"{p} {a[p]['sim_time']:.1f} s ({a[p]['steps']} steps, acc "
+        f"{a[p]['accuracy']:.3f}, {a[p]['wall_s']:.2f} s wall)"
+        for p in SIM_POLICIES) + f"; order {order}; launches "
+        + "; ".join(f"{p} {a[p]['launches']}" for p in SIM_POLICIES),
+        flush=True)
+    print(f"  sim (a): host s per steady sync round {steady:.4f}; span "
+          "medians over rounds 2-10 (ms): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in medians.items()), flush=True)
+    out["a"] = dict(policies=a, order=list(order), span_medians_ms=medians,
+                    steady_host_s=steady, log=str(log.relative_to(ROOT)))
+
+    # ---- (b) identities, bit for bit
+    kw = dict(rounds=5, a_server=A_SERVER, h=5, seed=0, device=dev)
+    ref = protocol.run_scheme("feddd", params, tel, ltf, None, **kw)
+    got = sim.run_sim("feddd", params, tel, ltf, None,
+                      sim=sim.SimConfig(policy="sync"), **kw)
+    if [r.sim_time for r in ref.history] != [r.sim_time
+                                             for r in got.history]:
+        raise AssertionError("sync-static sim_time differs from the "
+                             "protocol's Eq. (12) clock")
+    if not all(torch.equal(x, y) for x, y in zip(
+            tree.leaves(ref.global_params), tree.leaves(got.global_params))):
+        raise AssertionError("sync-static sim params differ from the "
+                             "protocol's")
+    gp, clients, tel_h, ltf_h, _ = heterogeneous.setup(
+        5, num_train=3000, num_test=800, device=dev)
+    href = heterogeneous.server_for(gp, clients, tel_h, rounds=2,
+                                    device=dev).run(ltf_h)
+    hgot, hcnt = counted(lambda: sim.run_sim(
+        "feddd", gp, tel_h, ltf_h, None, client_params=clients,
+        sim=sim.SimConfig(policy="sync"), rounds=2, a_server=A_SERVER,
+        h=heterogeneous.H, seed=0, device=dev))
+    if [r.sim_time for r in href.history] != [r.sim_time
+                                              for r in hgot.history] or \
+            not all(torch.equal(x, y) for x, y in zip(
+                tree.leaves(href.global_params),
+                tree.leaves(hgot.global_params))):
+        raise AssertionError("hetero-a sync-static sim differs from the "
+                             "grouped protocol run")
+    if hcnt["sparse_agg"]["mean:elementwise"] <= 0:
+        raise AssertionError(f"the ragged sim did not run the grouped "
+                             f"canvas: {hcnt}")
+    plain = sim.run_sim("feddd", params, tel, ltf, None,
+                        network=straggler_sim.network(tel), rounds=3,
+                        a_server=A_SERVER, h=5, seed=0, device=dev)
+    pop_id = sim.run_sim("feddd", params, tel, ltf, None,
+                         network=straggler_sim.network(tel),
+                         population=Population(tel), rounds=3,
+                         a_server=A_SERVER, h=5, seed=0, device=dev)
+    _same_sim(plain, pop_id, "fleet-sized always-on population")
+    zero = sim.run_sim("feddd", params, tel, ltf, None,
+                       network=straggler_sim.network(tel),
+                       faults=sim.RandomFaults(), rounds=3,
+                       a_server=A_SERVER, h=5, seed=0, device=dev)
+    _same_sim(plain, zero, "zero-rate faults")
+    print(f"  sim (b): sync-static == protocol (MLP, 5 rounds; hetero-a, 2 "
+          f"rounds on the grouped wave fleet, launches {hcnt['launches']}, "
+          f"sparse_agg {hcnt['sparse_agg']}); population of the fleet == "
+          f"fleet; zero-rate faults == fault-free: all bit for bit",
+          flush=True)
+    out["b"] = dict(hetero_launches=hcnt["launches"],
+                    hetero_sparse_agg=hcnt["sparse_agg"])
+    del gp, clients, href, hgot
+
+    # ---- (c) the fault-tolerance grid at rate 0.35
+    p16, tel16, ltf16, _ = straggler_sim.setup(FAULT_CLIENTS, dev)
+    flog = ROOT / "build" / "sim_faults.jsonl"
+    cut_rows = []
+    truncate = aggregation.truncate_masks_to_prefix
+
+    def counting_truncate(masks, delivered):
+        cut_rows.append(int((delivered[0] < np.iinfo(np.int32).max)
+                            .sum()))
+        return truncate(masks, delivered)
+
+    aggregation.truncate_masks_to_prefix = counting_truncate
+    try:
+        fres, fcnt = counted(lambda: sim.run_sim(
+            "feddd", p16, tel16, ltf16, None,
+            sim=sim.SimConfig(policy=sim.DeadlinePolicy(partial=True)),
+            network=straggler_sim.network(tel16),
+            faults=sim.RandomFaults(**FAULT_KW), rounds=FAULT_ROUNDS,
+            a_server=A_SERVER, h=5, seed=0, device=dev,
+            obs=ObsConfig(jsonl_path=str(flog))))
+    finally:
+        aggregation.truncate_masks_to_prefix = truncate
+    events = [e for e in read_events(str(flog)) if e["event"] == "fault"]
+    kinds = collections.Counter(e["kind"] for e in events)
+    counts = dict(quarantines=kinds["quarantine"],
+                  retries=sum(r.retries for r in fres.history),
+                  partial_rescues=sum(cut_rows), crashes=kinds["crash"],
+                  aborts=kinds["abort"],
+                  skipped=sum(r.skipped for r in fres.history))
+    for k in ("quarantines", "retries", "partial_rescues"):
+        if counts[k] <= 0:
+            raise AssertionError(f"fault grid: no {k} in {FAULT_ROUNDS} "
+                                 f"rounds: {counts}")
+    steps = [r for r in fres.history if not r.skipped]
+    _want_sim_launches(fcnt, len(steps),
+                       sum(r.round % 5 != 0 for r in steps), "fault grid")
+    for leaf in tree.leaves(fres.global_params):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("the fault grid's global is not finite")
+    one = dict(rounds=1, a_server=A_SERVER, h=5, seed=0, device=dev,
+               sim=sim.SimConfig(policy="sync"))
+    corrupted = sim.run_sim("feddd", params, tel, ltf, None,
+                            faults=sim.ScriptedFaults(
+                                corrupt={(0, 0): "nan"}), **one)
+    crashed = sim.run_sim("feddd", params, tel, ltf, None,
+                          faults=sim.ScriptedFaults(crashes={(0, 0): 0.5}),
+                          **one)
+    if corrupted.history[0].participants != SIM_CLIENTS - 1 or not all(
+            torch.equal(x, y) for x, y in zip(
+                tree.leaves(corrupted.global_params),
+                tree.leaves(crashed.global_params))):
+        raise AssertionError("a corrupted, quarantined client is not the "
+                             "same as its crash")
+    print(f"  sim (c): fault grid over {FAULT_ROUNDS} rounds: {counts}; "
+          f"launches {fcnt['launches']}; quarantine == crash bit for bit",
+          flush=True)
+    out["c"] = dict(counts=counts, launches=fcnt["launches"],
+                    sparse_agg=fcnt["sparse_agg"], wall_s=fcnt["wall"],
+                    log=str(flog.relative_to(ROOT)))
+
+    # ---- (d) population serving: 100k clients, cohorts of 256
+    ps, ptel, pltf, _ = straggler_sim.setup(POP_SHARDS, dev)
+
+    def tiled(n):
+        return dataclasses.replace(ptel, **{
+            f.name: np.resize(np.asarray(getattr(ptel, f.name)), n)
+            for f in dataclasses.fields(ptel)})
+
+    def shard_ltf(p, gid, key):
+        return pltf(p, int(gid) % POP_SHARDS, key)
+
+    pkw = dict(sim=sim.SimConfig(policy="sync"), rounds=POP_ROUNDS,
+               a_server=A_SERVER, h=3, seed=0, device=dev)
+    _, fleet_cnt = counted(lambda: sim.run_sim(
+        "feddd", ps, tiled(POP_COHORT), shard_ltf, None, **pkw))
+    pop = Population(tiled(POP_SIZE), availability="bernoulli",
+                     sampler="uniform", seed=7)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    pres, pop_cnt = counted(lambda: sim.run_sim(
+        "feddd", ps, tiled(POP_SIZE), shard_ltf, None, population=pop,
+        cohort_size=POP_COHORT, **pkw))
+    peak = (torch.cuda.max_memory_allocated()
+            if torch.device(dev).type == "cuda" else 0)
+    store = sum(l.numel() * l.element_size() for p in pop._params.values()
+                for l in tree.leaves(p))
+    for p in pop._params.values():
+        for l in tree.leaves(p):
+            if l.untyped_storage().nbytes() != l.numel() * l.element_size():
+                raise AssertionError("the population store kept a view")
+    served = int(pop.seen.sum())
+    if not POP_COHORT < served <= POP_COHORT * POP_ROUNDS or \
+            store > POP_STORE_BYTES:
+        raise AssertionError(f"population: served {served}, store {store}")
+    _want_sim_launches(pop_cnt, POP_ROUNDS,
+                       sum(t % 3 != 0 for t in range(1, POP_ROUNDS + 1)),
+                       "population")
+    rps = {k: POP_ROUNDS / c["wall"] for k, c in (("fleet", fleet_cnt),
+                                                  ("population", pop_cnt))}
+    print(f"  sim (d): {POP_SIZE} clients, cohorts of {POP_COHORT}: "
+          f"{rps['population']:.3f} rounds/s against the {POP_COHORT}-"
+          f"client fleet's {rps['fleet']:.3f} (ratio "
+          f"{rps['population'] / rps['fleet']:.3f}); served {served}; store "
+          f"{store / 2**20:.1f} MiB; peak device memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    out["d"] = dict(rounds_per_s=rps, served=served, store_bytes=store,
+                    peak_bytes=peak, launches=pop_cnt["launches"])
+    del pop, pres
+
+    # ---- (e) crash-resume across a SIGKILL
+    ck = ROOT / "build" / "sim_resume.npz"
+    for f in (ck, Path(str(ck) + ".meta")):
+        if f.exists():
+            f.unlink()
+    rkw = dict(rounds=RESUME_ROUNDS, clients=SIM_CLIENTS,
+               every=RESUME_EVERY, kill_round=RESUME_KILL)
+    full = crash_resume.digest(crash_resume.run("full", str(ck), device=dev,
+                                                **rkw))
+    cmd = [sys.executable, "-m", "repro_torch.sim.crash_resume", None,
+           str(ck), "--rounds", str(RESUME_ROUNDS), "--clients",
+           str(SIM_CLIENTS), "--every", str(RESUME_EVERY), "--kill-round",
+           str(RESUME_KILL), "--device", str(dev)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for mode in ("crash", "resume"):
+        cmd[3] = mode
+        procs[mode] = subprocess.run(cmd, capture_output=True, text=True,
+                                     env=env, timeout=600, check=False)
+        if mode == "crash":
+            if procs[mode].returncode != -9:
+                raise AssertionError(f"the crash run was not killed: rc "
+                                     f"{procs[mode].returncode}\n"
+                                     f"{procs[mode].stderr[-2000:]}")
+            snap = ckpt_io.decode_meta(Path(str(ck) + ".meta")
+                                       .read_bytes())["round"]
+            if snap != RESUME_KILL - 1:
+                raise AssertionError(f"last snapshot at round {snap}")
+    resumed = procs["resume"]
+    if resumed.returncode != 0 or resumed.stdout.strip() != full:
+        raise AssertionError(f"resume digest {resumed.stdout.strip()!r} != "
+                             f"{full!r}\n{resumed.stderr[-2000:]}")
+    print(f"  sim (e): SIGKILL in round {RESUME_KILL} after the round-"
+          f"{snap} snapshot; the resumed process's digest equals the "
+          f"uninterrupted run's ({full[:16]}...)", flush=True)
+    out["e"] = dict(digest=full, snapshot_round=snap)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  sim phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _profile_ops(fn, dev) -> dict:
     """Device operations of one call of ``fn`` under torch.profiler:
     CUDA kernels, memsets and copies, and the aten ops the host issued
@@ -2559,6 +3037,7 @@ def main(argv=None) -> int:
         obs_out = obs_phase()
         scan_out = scan_phase()
         grouped_out = grouped_phase()
+        sim_out = sim_phase()
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -2612,7 +3091,11 @@ def main(argv=None) -> int:
                 launches_grouped=grouped_out["a"]["launches"]["grouped"][
                     name],
                 launches_grouped_loop=grouped_out["a"]["launches"]["loop"][
-                    name])
+                    name],
+                launches_sim=sim_out["c"]["launches"][name],
+                launches_sim_policies={
+                    p: v["launches"][name]
+                    for p, v in sim_out["a"]["policies"].items()})
         if name == "importance":
             n1 = checks["main"]["importance_n1"]
             line_kernels[-1]["n1"] = {k: n1[k] for k in (
@@ -2638,7 +3121,8 @@ def main(argv=None) -> int:
             card=line, build_s=secs, prng=prng_out, kernels=records,
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
-            grouped=grouped_out, serving=serve_out, summary=line_kernels),
+            grouped=grouped_out, sim=sim_out, serving=serve_out,
+            summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
               if r["scheme"] == "feddd" and r["round"] > 1]
@@ -2651,8 +3135,9 @@ def main(argv=None) -> int:
           + "; fused/scanned (scan phase): " + ", ".join(
               f"{k} {v:.4f}" for k, v in scan_out["steady_host_s"].items())
           + "; hetero-a grouped / loop (grouped phase): " + ", ".join(
-              f"{v:.4f}" for v in grouped_out["a"]["steady_host_s"].values()),
-          flush=True)
+              f"{v:.4f}" for v in grouped_out["a"]["steady_host_s"].values())
+          + f"; straggler demo sync (sim phase): "
+          f"{sim_out['a']['steady_host_s']:.4f}", flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

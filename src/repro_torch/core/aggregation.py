@@ -30,9 +30,13 @@ Byzantine-robust variants (``robust=`` on the stacked entry point, from
   the Eq. (4) partials through the ``sparse_agg`` kernel's partials mode
   and the eager finish.  Requires ``prev_global``.
 
-``"mean"`` (the default) is the kernel's mean mode, unchanged.  The
-deadline-prefix masks (``truncate_masks_to_prefix``) wait for the fault
-layer, ROADMAP.md queue A item 13.
+``"mean"`` (the default) is the kernel's mean mode, unchanged.
+
+Deadline partial aggregation (the simulator's ``DeadlinePolicy(partial=
+True)``) cuts a client's channel mask to the prefix of kept channels
+whose bytes landed before the deadline
+(:func:`truncate_masks_to_prefix`); the cut masks go to the same mean
+mode, while Eq. (5) keeps the full masks.
 """
 
 from __future__ import annotations
@@ -304,6 +308,38 @@ def aggregate_sparse(client_params: Sequence, client_masks: Sequence,
         tree.tree_map(lambda *ls: torch.stack(ls), *client_params),
         tree.tree_map(lambda *ms: torch.stack(ms), *client_masks),
         client_weights, prev_global=prev_global)
+
+
+def truncate_masks_to_prefix(stacked_masks, delivered):
+    """Keep only each client's first ``delivered[leaf][n]`` kept channels.
+
+    Kept channels serialize in ascending channel index
+    (``comm.payload.delivered_prefix_counts``), so the bytes of a cut
+    upload are, per leaf, the prefix of the mask's kept set.
+    ``stacked_masks`` leaves are channel-shaped (N, 1, ..., C, ..., 1);
+    ``delivered`` is one (N,) integer vector per mask leaf (flatten
+    order), a tensor on the masks' device or a host array.  A count at
+    or above the leaf's kept total (``iinfo(int32).max``: everything
+    arrived) leaves that client's mask as it was.  The rank is a float32
+    cumulative sum compared with ``k`` cast to float32, as the JAX
+    package computes it: exact for C < 2^24.  A scalar or one-channel
+    leaf keeps its mask where ``k >= 1``.
+    """
+    mleaves, treedef = tree.flatten(stacked_masks)
+    if len(delivered) != len(mleaves):
+        raise ValueError("delivered counts / mask leaves mismatch")
+    out = []
+    for m, k in zip(mleaves, delivered):
+        k = torch.as_tensor(k, device=m.device).to(torch.float32)
+        if m.ndim <= 1:                      # scalar leaf: one channel
+            out.append(m * (k >= 1.0).to(m.dtype).view(m.shape))
+            continue
+        ax = next((a for a in range(1, m.ndim) if m.shape[a] > 1),
+                  m.ndim - 1)
+        rank = torch.cumsum(m, dim=ax, dtype=torch.float32)
+        kb = k.view((-1,) + (1,) * (m.ndim - 1))
+        out.append(m * (rank <= kb).to(m.dtype))
+    return tree.unflatten(treedef, out)
 
 
 def client_update_sparse(global_params, local_params, masks):

@@ -68,6 +68,18 @@ class ClientTelemetry:
     def num_clients(self) -> int:
         return len(self.model_bytes)
 
+    def subset(self, indices) -> "ClientTelemetry":
+        """Telemetry restricted to a client subset (boolean mask or index
+        array): the survivor-only LP re-solves of the simulator's fault
+        layer and a population's cohort rows."""
+        idx = np.asarray(indices)
+        if idx.dtype == bool:
+            idx = np.flatnonzero(idx)
+        return ClientTelemetry(**{
+            f.name: np.asarray(getattr(self, f.name))[idx]
+            for f in dataclasses.fields(self)
+        })
+
 
 def regularizer(tel: ClientTelemetry, global_model_bytes: float) -> np.ndarray:
     """``re_n`` of Eq. (13): (m_n/m) * coverage * (U_n/U) * loss_n."""

@@ -63,9 +63,16 @@ event a round.  The default ``ObsConfig()`` is inert; spans read the
 host clock only, so a run with obs on makes the same device syncs.
 
 ``robust_agg`` ("trimmed[:beta]", "clip[:factor]") hardens Eq. (4) on
-the engine and grouped paths.  Not ported yet, each raising with a
-pointer to ROADMAP.md queue A: the event-driven simulator with faults,
-checkpoints and population serving, and the client-sharded mesh.
+the engine and grouped paths.
+
+Crash-resume (``checkpoint_every=K`` + ``checkpoint_path``, and
+``resume_from``; :mod:`repro_torch.checkpoint`): the engine and loop
+executors snapshot everything round t+1 reads every K completed rounds,
+atomically, and a resumed run continues bit for bit; the grouped and
+scanned paths raise, as the JAX package's do.  ``run_scheme`` with
+``sim=`` / ``network=`` / ``faults=`` / ``population=`` routes to the
+event-driven simulator (:mod:`repro_torch.sim`).  The client-sharded mesh
+(``mesh=``) is not ported yet and raises (ROADMAP.md queue A item 14).
 """
 
 from __future__ import annotations
@@ -97,12 +104,7 @@ SCHEMES = ("feddd", "fedavg", "fedcs", "oort")
 # fields of the JAX package's ProtocolConfig whose paths are not ported:
 # (field, its inert default, ROADMAP.md queue A item, what it drives)
 _UNPORTED = (
-    ("mesh", None, 14, "the client-sharded mesh"),
-    ("checkpoint_every", None, 13, "crash-resume checkpoints"),
-    ("checkpoint_path", None, 13, "crash-resume checkpoints"),
-    ("resume_from", None, 13, "crash-resume checkpoints"),
-    ("population", None, 13, "population serving"),
-    ("cohort_size", None, 13, "population serving"))
+    ("mesh", None, 14, "the client-sharded mesh (A14)"),)
 
 
 @dataclasses.dataclass
@@ -133,14 +135,23 @@ class ProtocolConfig:
                                      # allocator="jax")
     robust_agg: str = "mean"         # Eq. (4) variant: "mean",
                                      # "trimmed[:beta]", "clip[:factor]"
-    mesh: object = None              # the fields below drive paths not
-                                     # ported yet: anything but the
-                                     # default raises
+    mesh: object = None              # the client-sharded mesh, not
+                                     # ported yet: anything but None raises
     checkpoint_every: Optional[int] = None
+                                     # crash-resume: snapshot the run every
+                                     # K completed rounds (None: never)
     checkpoint_path: Optional[str] = None
+                                     # where the snapshot lands (one file
+                                     # pair, replaced atomically each save)
     resume_from: Optional[str] = None
+                                     # a snapshot to continue from, at its
+                                     # round + 1, bit for bit
     population: Optional[int] = None
+                                     # population serving: the size of the
+                                     # population the simulator samples
+                                     # cohorts from (None: the fleet is it)
     cohort_size: Optional[int] = None
+                                     # clients per round in population mode
 
     def __post_init__(self):
         if self.scheme not in SCHEMES:
@@ -162,6 +173,31 @@ class ProtocolConfig:
                 "around the numpy LP; it requires allocator='numpy' (and "
                 "therefore cannot ride rounds_per_dispatch > 1)")
         aggregation.parse_robust_agg(self.robust_agg)    # validate the spec
+        if self.checkpoint_every is not None:
+            if self.checkpoint_every < 1:
+                raise ValueError("checkpoint_every must be >= 1 (or None "
+                                 f"to disable), got {self.checkpoint_every}")
+            if not self.checkpoint_path:
+                raise ValueError("checkpoint_every requires "
+                                 "checkpoint_path: somewhere for the "
+                                 "RunState snapshot to land")
+        if ((self.checkpoint_every is not None or self.resume_from)
+                and self.rounds_per_dispatch > 1):
+            raise ValueError(
+                "checkpointing / resume operates at per-round dispatch "
+                "boundaries; rounds_per_dispatch > 1 keeps rounds on the "
+                "device in one chunk and has no boundary to snapshot at")
+        if self.cohort_size is not None and self.population is None:
+            raise ValueError("cohort_size requires population= (the "
+                             "fleet IS the cohort otherwise)")
+        if self.population is not None:
+            if self.population < 1:
+                raise ValueError(f"population must be >= 1, got "
+                                 f"{self.population}")
+            k = self.cohort_size
+            if k is not None and not 1 <= k <= self.population:
+                raise ValueError(f"cohort_size {k} outside [1, "
+                                 f"{self.population}]")
         for name, default, item, what in _UNPORTED:
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -251,6 +287,18 @@ class _RoundExecutor:
 
     def finalize(self) -> None:
         """Sync executor-held client state back into ``server.clients``."""
+
+    # -- crash-resume hooks (repro_torch.checkpoint) ------------------------
+
+    def snapshot_arrays(self):
+        """The executor-held client state as a checkpointable pytree."""
+        raise NotImplementedError(
+            "checkpointing / resume supports the batched-engine and "
+            "reference-loop executors; grouped runs hold per-group device "
+            "state this snapshot does not capture")
+
+    def restore_arrays(self, arrays) -> None:
+        raise NotImplementedError
 
 
 class _EngineExecutor(_RoundExecutor):
@@ -375,6 +423,12 @@ class _EngineExecutor(_RoundExecutor):
                 self.stacked, self.srv.tel.num_clients)):
             cs.params = p
 
+    def snapshot_arrays(self):
+        return {"stacked": self.stacked}
+
+    def restore_arrays(self, arrays) -> None:
+        self.stacked = convert.to_torch(arrays["stacked"], self.srv.device)
+
 
 class _GroupedEngineExecutor(_RoundExecutor):
     """Ragged fleets: one GroupedRoundEngine step a round.  Clients are
@@ -444,6 +498,13 @@ class _ReferenceLoopExecutor(_RoundExecutor):
     (broadcast to its values) are zero-padded to global widths for
     Eq. (4), and Eq. (5)/(6) run against the global sliced to its widths.
     """
+
+    def snapshot_arrays(self):
+        return {"clients": [cs.params for cs in self.srv.clients]}
+
+    def restore_arrays(self, arrays) -> None:
+        for cs, p in zip(self.srv.clients, arrays["clients"]):
+            cs.params = convert.to_torch(p, self.srv.device)
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
                   d_used: np.ndarray) -> _RoundData:
@@ -707,6 +768,17 @@ class FedDDServer:
                     "per-round eval")
         executor = self._EXECUTORS[kind](self, local_train_fn,
                                          batched_train_fn)
+        # crash-resume: restore a snapshot before the loop, save one every
+        # checkpoint_every completed rounds; None for both touches nothing
+        start_t = 1
+        if cfg.resume_from:
+            from repro_torch import checkpoint as ckpt_mod
+            st = ckpt_mod.load_run_state(
+                cfg.resume_from, self._snapshot_arrays(executor, losses))
+            losses = self._restore_arrays(executor, st.arrays)
+            history = st.history
+            sim_time = float(st.extra.get("sim_time", 0.0))
+            start_t = st.round + 1
         self.obs = obs_mod.make_recorder(
             cfg.obs, driver="protocol", scheme=cfg.scheme,
             executor="scanned" if scanned else kind, clients=n,
@@ -716,7 +788,7 @@ class FedDDServer:
                 self._run_scanned(executor, rounds, history, full_bytes)
                 executor.finalize()
                 return RunResult(history, self.global_params)
-            for t in range(1, rounds + 1):
+            for t in range(start_t, rounds + 1):
                 t0 = time.perf_counter()
                 self.rng, rk = prng.split(self.rng)
                 d_used = self.dropout.copy()  # D_t: what uploads use
@@ -745,11 +817,41 @@ class FedDDServer:
                     self.obs.round(
                         history[-1], path=kind, scheme=cfg.scheme,
                         client_times=np.where(rd.active, t_all, np.nan))
+                if (cfg.checkpoint_every is not None
+                        and t % cfg.checkpoint_every == 0):
+                    from repro_torch import checkpoint as ckpt_mod
+                    ckpt_mod.save_run_state(
+                        cfg.checkpoint_path, ckpt_mod.RunState(
+                            round=t,
+                            arrays=self._snapshot_arrays(executor, losses),
+                            history=history, extra={"sim_time": sim_time}))
             executor.finalize()
             return RunResult(history, self.global_params)
         finally:
             self.obs.close()
             self.obs = obs_mod.NULL_RECORDER
+
+    # -- crash-resume snapshot plumbing (repro_torch.checkpoint) ------------
+
+    def _snapshot_arrays(self, executor: _RoundExecutor,
+                         losses: np.ndarray) -> Dict:
+        """Everything round t+1 reads, as one checkpointable pytree: the
+        executor's client state, the global params, the protocol key
+        (uint32, exact), the loss view and the allocated D_{t+1}."""
+        return {"executor": executor.snapshot_arrays(),
+                "global": self.global_params,
+                "rng": np.asarray(self.rng),
+                "losses": np.asarray(losses, np.float64),
+                "dropout": np.asarray(self.dropout, np.float64)}
+
+    def _restore_arrays(self, executor: _RoundExecutor,
+                        arrays: Dict) -> np.ndarray:
+        """Inverse of :meth:`_snapshot_arrays`; returns the loss view."""
+        executor.restore_arrays(arrays["executor"])
+        self.global_params = convert.to_torch(arrays["global"], self.device)
+        self.rng = np.asarray(arrays["rng"], np.uint32)
+        self.dropout = np.asarray(arrays["dropout"], np.float64)
+        return np.asarray(arrays["losses"], np.float64)
 
     def _run_scanned(self, executor: _EngineExecutor, rounds: int,
                      history: List[RoundRecord], full_bytes: float) -> None:
@@ -849,23 +951,35 @@ def run_scheme(scheme: str, global_params, telemetry, local_train_fn,
     ``device`` defaults to ``cuda`` and raises without a card; pass
     ``device="cpu"`` for a CPU run.  ``batched=False`` or
     ``track_epsilon=True`` runs the per-client reference loop,
-    ``robust_agg`` picks the Eq. (4) variant, and ``obs=ObsConfig(...)``
-    records spans, metrics and a JSONL log.  Ragged ``client_params``
-    run the grouped engine (the loop with ``batched=False``).  The fused
-    and scanned paths take a ``batched_train_fn``: call
-    ``FedDDServer.run`` for them.  The
-    simulator (``sim`` / ``network`` / ``faults``) and population serving
-    are not ported yet; neither are the ``ProtocolConfig`` fields that
-    drive other unported paths (``mesh``, checkpoints, ...).
+    ``robust_agg`` picks the Eq. (4) variant, ``obs=ObsConfig(...)``
+    records spans, metrics and a JSONL log, and ``checkpoint_every`` /
+    ``checkpoint_path`` / ``resume_from`` drive crash-resume.  Ragged
+    ``client_params`` run the grouped engine (the loop with
+    ``batched=False``).  The fused and scanned paths take a
+    ``batched_train_fn``: call ``FedDDServer.run`` for them.
+
+    ``sim`` (a :class:`repro_torch.sim.runner.SimConfig`, or ``True`` for
+    the defaults), ``network``, ``faults`` or ``population`` (with
+    ``cohort_size``) route the run through the event-driven simulator
+    (:func:`repro_torch.sim.runner.run_sim`): per-epoch network
+    conditions, observed-telemetry LP re-solves, sync / deadline / retry /
+    async policies, crashes, lossy uplinks, corrupted payloads with the
+    quarantine and quorum, and population serving.
     """
-    if sim is not None or network is not None or faults is not None:
-        raise NotImplementedError(
-            "the event-driven simulator and fault layer are not ported yet "
-            "(ROADMAP.md queue A item 13)")
-    if population is not None or cohort_size is not None:
-        raise NotImplementedError(
-            "population serving is not ported yet (ROADMAP.md queue A "
-            "item 13)")
+    if cohort_size is not None and population is None:
+        raise ValueError("cohort_size requires population=")
+    if (sim is not None or network is not None or faults is not None
+            or population is not None):
+        from repro_torch.sim import runner as sim_runner
+        if sim is None or sim is True:
+            sim = sim_runner.SimConfig()
+        return sim_runner.run_sim(scheme, global_params, telemetry,
+                                  local_train_fn, eval_fn, sim=sim,
+                                  network=network, faults=faults,
+                                  client_params=client_params,
+                                  population=population,
+                                  cohort_size=cohort_size, device=device,
+                                  **cfg_kw)
     cfg = ProtocolConfig(scheme=scheme, **cfg_kw)
     server = FedDDServer(global_params, cfg, telemetry, client_params,
                          device=device)

@@ -30,9 +30,15 @@ sync: a Python loop over the rounds that issues the same operations the
 per-round path issues, so the two agree bit for bit, and returns the K
 rounds' telemetry as one device-resident :class:`ScanTrace` the caller
 fetches in one transfer.  Round keys stay host numpy (``prng``); their
-split chain does not depend on device data.  Fault injection
-(``stacked_upload`` / ``delivered``) is not ported yet (ROADMAP.md queue
-A item 13).
+split chain does not depend on device data.
+
+Fault injection (the simulator, :mod:`repro_torch.sim`): ``stacked_upload``
+is what the server decoded off the wire — corrupted rows the validation
+screen let through — and feeds the aggregation, while Eq. (5) keeps the
+clients' clean ``stacked_new``; ``delivered`` cuts deadline-truncated
+uploads to the per-leaf prefix of kept channels that landed
+(``aggregation.truncate_masks_to_prefix``), for Eq. (4) only.  With both
+None a step issues exactly the operations of a fault-free one.
 
 Ragged fleets (:class:`GroupedRoundEngine`): clients holding width-pruned
 sub-models are partitioned by shape (``fl.heterogeneity.group_by_shape``)
@@ -185,6 +191,13 @@ def unstack_pytree(stacked, n: int) -> List:
     return [tree.tree_map(lambda l: l[i], stacked) for i in range(n)]
 
 
+def unstack_pytree_copies(stacked, n: int) -> List:
+    """:func:`unstack_pytree` as copies: rows kept across rounds never pin
+    (or alias) the whole stack."""
+    return [tree.tree_map(lambda l: l[i].clone(), stacked)
+            for i in range(n)]
+
+
 def _adopt_global(new_global, stacked):
     """Eq. (6): every client adopts the fresh global model (materialised,
     so the next round's kernels read contiguous client stacks)."""
@@ -230,7 +243,8 @@ def _wire_overhead(masks, stacked_new, comm: CommConfig, channel_axis: int,
 
 
 def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
-                weights, rng, *, sel_cfg: selection.SelectionConfig,
+                weights, rng, stacked_upload=None, delivered=None, *,
+                sel_cfg: selection.SelectionConfig,
                 full_round: bool, dense_masks: bool = False,
                 comm: CommConfig = CommConfig(),
                 robust: str = "mean") -> RoundOutputs:
@@ -249,16 +263,20 @@ def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
             masks, density = selection.build_masks_batched(
                 stacked_old, stacked_new, dropout_rates, config=sel_cfg,
                 rng=rng)
-    # the server aggregates what it decoded; Eq. (5) below keeps the
-    # clients' own full-precision values
+    # the server aggregates what it decoded (the corrupted rows of a
+    # faulty wire, when given) cut to the delivered prefixes; Eq. (5)
+    # below keeps the clients' own full-precision values and full masks
+    upload_src = stacked_new if stacked_upload is None else stacked_upload
     with profiler_scope("feddd_encode_wire"):
         stacked_agg = wire_quant.quantize_dequantize_stacked(
-            stacked_new, rng, comm.qbits)
+            upload_src, rng, comm.qbits)
         wire_oh = _wire_overhead(masks, stacked_new, comm,
                                  sel_cfg.channel_axis, dense_masks)
+        agg_masks = (masks if delivered is None else
+                     aggregation.truncate_masks_to_prefix(masks, delivered))
     with profiler_scope("feddd_aggregate"):
         new_global = aggregation.aggregate_sparse_stacked(
-            stacked_agg, masks, weights, prev_global=global_params,
+            stacked_agg, agg_masks, weights, prev_global=global_params,
             robust=robust)
     with profiler_scope("feddd_client_update"):
         if full_round:
@@ -284,7 +302,8 @@ class BatchedRoundEngine:
 
     def step(self, stacked_old, stacked_new, global_params, dropout_rates,
              weights, rng=None, *, full_round: bool,
-             dense_masks: bool = False) -> RoundOutputs:
+             dense_masks: bool = False, stacked_upload=None,
+             delivered=None) -> RoundOutputs:
         """Run one round's server side.
 
         Args:
@@ -299,13 +318,19 @@ class BatchedRoundEngine:
           full_round: t mod h == 0 — every client adopts the new global.
           dense_masks: all-ones masks / full uploads (FedAvg); skips the
             importance scoring.
+          stacked_upload: optional stacked pytree the aggregation reads
+            instead of ``stacked_new`` (the wire's corrupted rendering);
+            Eq. (5) keeps ``stacked_new``.
+          delivered: optional per-mask-leaf (N,) delivered-channel counts
+            (int32 device tensors, or host arrays); cuts each client's
+            aggregation mask to its delivered prefix.
         """
         dev = tree.leaves(stacked_new)[0].device
         return _round_step(
             stacked_old, stacked_new, global_params,
             torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev),
             torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
-            sel_cfg=self.selection_cfg, full_round=bool(full_round),
+            stacked_upload, delivered, sel_cfg=self.selection_cfg, full_round=bool(full_round),
             dense_masks=bool(dense_masks), comm=self.comm,
             robust=str(self.robust_agg))
 

@@ -1195,3 +1195,122 @@ def test_grouped_step_makes_no_synchronising_call(cuda_device):
                               full_round=False)
     assert counted[1] == {"syncs": 0, "where": {}}
     assert torch.isfinite(out.densities).all()
+
+
+# --- the simulator, the fault layer and crash-resume on the card -----------
+
+def _sim_fixture(dev, n=6, width=12, seed=0):
+    gen = np.random.default_rng(seed)
+    params = {"fc0": {"w": torch.from_numpy(gen.normal(size=(20, width))
+                                            .astype(np.float32)).to(dev),
+                      "b": torch.zeros(width, device=dev)},
+              "fc1": {"w": torch.from_numpy(gen.normal(size=(width, 5))
+                                            .astype(np.float32)).to(dev),
+                      "b": torch.zeros(5, device=dev)}}
+    from repro_torch.core.allocation import ClientTelemetry
+    nbytes = float(sum(l.numel() * 4 for l in tree.leaves(params)))
+    tel = ClientTelemetry(
+        model_bytes=np.full(n, nbytes), uplink_rate=gen.uniform(1e3, 5e3, n),
+        downlink_rate=gen.uniform(5e3, 2e4, n),
+        compute_latency=gen.uniform(1.0, 5.0, n),
+        num_samples=gen.integers(10, 50, n).astype(float),
+        label_coverage=gen.uniform(0.5, 1.0, n), train_loss=np.ones(n))
+
+    def ltf(p, i, key):
+        rng = np.random.default_rng(np.asarray(key).tolist())
+        leaves, td = tree.flatten(p)
+        return tree.unflatten(td, [
+            l * 0.99 + torch.from_numpy(rng.normal(0, 0.01, tuple(l.shape))
+                                        .astype(np.float32)).to(l.device)
+            for l in leaves]), 1.0 / (i + 1.0)
+
+    return params, tel, ltf
+
+
+def test_sim_sync_static_equals_protocol_on_card(cuda_device):
+    """Sync over a static network equals the protocol driver bit for bit
+    on the card (Eq. (12) clock and global params), and every FedDD round
+    launches the three kernels."""
+    from repro_torch import sim
+    from repro_torch.core import protocol
+    params, tel, ltf = _sim_fixture(cuda_device)
+    kw = dict(rounds=4, a_server=0.6, h=3, seed=0, device=cuda_device)
+    ref = protocol.run_scheme("feddd", params, tel, ltf, None, **kw)
+    kernels.reset_launch_counts()
+    got = sim.run_sim("feddd", params, tel, ltf, None,
+                      sim=sim.SimConfig(policy="sync"), **kw)
+    counts = kernels.launch_counts()
+    assert counts["importance"] == counts["sparse_agg"] == 4 * 4
+    assert counts["masked_merge"] == 3
+    assert [r.sim_time for r in ref.history] == \
+        [r.sim_time for r in got.history]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(ref.global_params), tree.leaves(got.global_params)))
+
+
+@pytest.mark.parametrize("case", ["prefix", "nonfinite"])
+def test_sparse_agg_on_sim_inputs_matches_plain(case, cuda_device):
+    """The mean mode on the simulator's new inputs at fc0 of 16 clients:
+    channel masks cut to delivered prefixes, and uploads with NaN / Inf /
+    an all-ones exponent at kept and dropped channels (one such row at
+    weight 0), against the plain version with ``equal_nan``."""
+    from repro_torch.core import aggregation
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    n, a, c = 16, 784, 100
+    vals = torch.randn((n, a, c), generator=gen, device=cuda_device)
+    gprev = torch.randn((a, c), generator=gen, device=cuda_device)
+    w = torch.rand((n,), generator=gen, device=cuda_device) + 0.5
+    keep = (torch.rand((n, 1, c), generator=gen, device=cuda_device)
+            > 0.4).float()
+    if case == "prefix":
+        cut = torch.full((n,), np.iinfo(np.int32).max, dtype=torch.int32,
+                         device=cuda_device)
+        cut[:8] = torch.arange(8, device=cuda_device, dtype=torch.int32) * 5
+        mask = aggregation.truncate_masks_to_prefix([keep], [cut])[0]
+        assert int(mask.sum()) < int(keep.sum())
+    else:
+        mask = keep
+        for row, val in ((3, float("nan")), (5, float("inf")),
+                         (7, float("-inf"))):
+            vals[row, 1, int(torch.nonzero(keep[row, 0])[0])] = val
+            vals[row, 2, int(torch.nonzero(keep[row, 0] == 0)[0])] = val
+        vals[9].view(torch.int32)[0, int(torch.nonzero(keep[9, 0])[0])] |= \
+            0x7F800000
+        w[3] = 0.0
+    before = kernels.launch_counts()["sparse_agg"]
+    got = agg_ops.masked_weighted_mean(vals, mask, w, gprev, torch.float32)
+    assert kernels.launch_counts()["sparse_agg"] == before + 1
+    want = masked_weighted_mean_ref(vals.view(n, a, c, 1), mask.view(n, c),
+                                    w, gprev.view(a, c, 1),
+                                    torch.float32).view(a, c)
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=1e-4,
+                               equal_nan=True)
+    if case == "nonfinite":
+        assert bool((~torch.isfinite(got)).any())
+
+
+def test_sim_resume_digest_on_card(cuda_device, tmp_path):
+    """A faulty sync run checkpointed every round and resumed from its
+    round-2 snapshot equals the uninterrupted run on the card: event
+    trace, records and global params bit for bit."""
+    from repro_torch import sim
+    params, tel, ltf = _sim_fixture(cuda_device, n=5)
+    path = str(tmp_path / "ck.npz")
+    kw = dict(sim=sim.SimConfig(policy="sync"),
+              faults=sim.CellOutageModel(
+                  5, sim.OutageConfig(cells=2, p_out=0.3, seed=3),
+                  inner=sim.RandomFaults(crash_rate=0.15, loss_rate=0.1,
+                                         seed=5)),
+              a_server=0.6, h=2, seed=0, device=cuda_device)
+    full = sim.run_sim("feddd", params, tel, ltf, None, rounds=5, **kw)
+    sim.run_sim("feddd", params, tel, ltf, None, rounds=2,
+                checkpoint_every=1, checkpoint_path=path, **kw)
+    resumed = sim.run_sim("feddd", params, tel, ltf, None, rounds=5,
+                          checkpoint_every=1, checkpoint_path=path,
+                          resume_from=path, **kw)
+    assert full.event_trace == resumed.event_trace
+    assert [r.sim_time for r in full.history] == \
+        [r.sim_time for r in resumed.history]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree.leaves(full.global_params), tree.leaves(resumed.global_params)))

@@ -62,7 +62,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.core.convergence",
                  "repro_torch.core.coverage",
                  "repro_torch.heterogeneous",
-                 "repro_torch.fl.heterogeneity"):
+                 "repro_torch.fl.heterogeneity",
+                 "repro_torch.sim", "repro_torch.sim.engine",
+                 "repro_torch.sim.network", "repro_torch.sim.policies",
+                 "repro_torch.sim.faults", "repro_torch.sim.outages",
+                 "repro_torch.sim.runner", "repro_torch.sim.crash_resume",
+                 "repro_torch.straggler_sim", "repro_torch.population",
+                 "repro_torch.population.availability",
+                 "repro_torch.population.sampler",
+                 "repro_torch.population.store", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.io",
+                 "repro_torch.checkpoint.run_state"):
         assert must in res["modules"]
 
 
@@ -95,25 +105,51 @@ def test_random_selection_raises():
             config=selection.SelectionConfig(scheme="random"))
 
 
-@pytest.mark.parametrize("kw", [dict(sim=True), dict(faults=object()),
-                                dict(population=object()), dict(mesh=2),
+@pytest.mark.parametrize("kw", [dict(sim=True), dict(faults="random"),
+                                dict(population="always"), dict(mesh=2),
                                 dict(checkpoint_every=1),
                                 dict(resume_from="state.npz")])
-def test_unported_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_run(device="cpu", **kw)
+def test_unported_paths_raise(kw, tmp_path):
+    """Only the client-sharded mesh is not ported: it raises with a
+    pointer to ROADMAP.md.  The simulator, the fault layer, population
+    serving and crash-resume run (a checkpoint needs a path, a resume an
+    existing snapshot)."""
+    from repro_torch import sim
+    from repro_torch.population import Population
+    from repro_torch.fl import sample_system_telemetry
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+            _tiny_run(device="cpu", **kw)
+    elif "checkpoint_every" in kw:
+        with pytest.raises(ValueError, match="checkpoint_path"):
+            _tiny_run(device="cpu", **kw)
+        res = _tiny_run(device="cpu", checkpoint_path=str(tmp_path / "c"),
+                        **kw)
+        assert (tmp_path / "c.meta").exists() and len(res.history) == 1
+    elif "resume_from" in kw:
+        with pytest.raises(FileNotFoundError):
+            _tiny_run(device="cpu", resume_from=str(tmp_path / "none.npz"))
+    else:
+        if "faults" in kw:
+            kw = dict(faults=sim.RandomFaults(crash_rate=0.5))
+        if "population" in kw:
+            kw = dict(population=Population(sample_system_telemetry(
+                2, [1e5, 1e5], [10, 10], [1.0, 1.0])))
+        assert isinstance(_tiny_run(device="cpu", **kw), sim.SimResult)
 
 
 def test_unported_schemes_and_codecs_raise():
     """Every scheme and wire format is ported: an unknown scheme, codec or
     value width raises as in the JAX package; a config field of a path not
-    ported yet (population serving) raises with a pointer to ROADMAP."""
+    ported yet (the client-sharded mesh) raises with a pointer to
+    ROADMAP."""
     for scheme in ("feddd", "fedavg", "fedcs", "oort"):
         assert protocol.ProtocolConfig(scheme=scheme).scheme == scheme
     with pytest.raises(ValueError, match="scheme"):
         protocol.ProtocolConfig(scheme="fedprox")
-    with pytest.raises(NotImplementedError, match="queue A item 13"):
-        protocol.ProtocolConfig(population=100)
+    with pytest.raises(NotImplementedError, match="queue A item 14"):
+        protocol.ProtocolConfig(mesh=2)
+    assert protocol.ProtocolConfig(population=100).population == 100
     with pytest.raises(ValueError, match="codec"):
         CommConfig(codec="gzip")
     with pytest.raises(ValueError, match="qbits"):
