@@ -101,7 +101,15 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    partial round); no synchronising call inside
    ``GroupedRoundEngine.step``; and, printed only, the reference
    benchmark's ragged 64-client MLP fleet in rounds/s, grouped against
-   the loop;
+   the loop.  Then the simulator (``sim_phase``) and the client-sharded
+   mesh (``sharded_phase``): the quickstart on one shard (bit-equal to
+   the engine) and on 4 virtual shards of the card (within 2e-6, dense
+   and sparse collectives, launches per shard, no sync and no device
+   copy inside a step), the reference's 256-client sharded fleet in
+   rounds/s, hetero-a grouped on virtual shards (each step against the
+   unsharded step), the simulator with ``mesh=1`` (bit-equal), the
+   sparse collectives against a float64 oracle, and ``sparse_agg``'s
+   ``select`` flag against its plain version, timed at fc0;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -119,7 +127,9 @@ launches of its own path: the auto/8 FedDD run for the three FedDD
 kernels, with the default-comm, random and loop runs' beside them
 (``launches_loop``), the scanned K = 5 run's (``launches_scan``) and
 the hetero-a run's on the grouped engine and the loop
-(``launches_grouped``, ``launches_grouped_loop``), and importance's N = 1
+(``launches_grouped``, ``launches_grouped_loop``), the sharded
+quickstart's (``launches_sharded`` on 4 virtual shards,
+``launches_sharded_one``, ``launches_sharded_grouped``), and importance's N = 1
 row under ``n1``, ``sparse_agg``'s elementwise mode under
 ``elementwise``, the prefill
 for flash attention; ``sparse_agg``'s times are its mean mode's, named by
@@ -217,6 +227,51 @@ POP_STORE_BYTES = 1 << 30   # the sticky store's bound
 RESUME_ROUNDS = 6           # (e) crash-resume: snapshots every 2 rounds,
 RESUME_EVERY = 2            # SIGKILL in round 5
 RESUME_KILL = 5
+SHARD_ROUNDS = 5            # sharded phase (a): the quickstart's rounds
+SHARD_VIRTUAL = 4           # virtual shards of the multi-shard mesh
+SHARD_TOL = 2e-6            # rtol = atol against the unsharded run
+SHARD_DROP = 0.75           # (a) the keep-0.8 step's uniform dropout
+SHARD_KEEP = 0.8
+SHARD_FLEET = 256           # (b) benchmarks/perf_federated.py sharded_ab
+SHARD_FLEET_SAMPLES = 8
+SHARD_FLEET_ROUNDS, SHARD_FLEET_WARM = 6, 2
+SHARD_HETERO_ROUNDS, SHARD_HETERO_SHARDS = 2, 2     # (c)
+SHARD_SIM_ROUNDS = 3        # (d)
+_SHARD_LEAVES = len(MLP_LEAVES)
+_SHARD_BIASES = sum(len(s) == 1 for s in MLP_LEAVES)
+
+
+def _shard_launches(shards: int, mode: str) -> dict:
+    """The FedDD kernels' launches over SHARD_ROUNDS quickstart rounds
+    (h = 5: rounds 1-4 partial) on ``shards`` shards: importance and
+    sparse_agg once a shard and leaf a round (the engine: its mean mode,
+    a shard: the partials mode), masked_merge once a shard and partial
+    round for all six leaves, sparse_agg's select flag at the 1-D
+    leaves."""
+    per = shards * _SHARD_LEAVES * SHARD_ROUNDS
+    partial = shards * (SHARD_ROUNDS - 1)
+    routes = {"partials": 0, "mean": 0, "partials:elementwise": 0,
+              "mean:elementwise": 0}
+    routes[mode] = per
+    return dict(launches=dict(importance=per, sparse_agg=per,
+                              masked_merge=partial, flash_attention=0),
+                sparse_agg=routes, merges={_SHARD_LEAVES: partial},
+                select=shards * _SHARD_BIASES * SHARD_ROUNDS)
+
+
+SHARD_LAUNCHES = {"engine": _shard_launches(1, "mean"),
+                  "one": _shard_launches(1, "partials"),
+                  "four": _shard_launches(SHARD_VIRTUAL, "partials"),
+                  "four_sparse": _shard_launches(SHARD_VIRTUAL, "partials")}
+# (c) hetero-a: 5 groups of one, each padded to a row a shard; 16 leaves
+# (8 of them 1-D), 2 partial rounds
+_HET = 5 * SHARD_HETERO_SHARDS * SHARD_HETERO_ROUNDS
+SHARD_HETERO_LAUNCHES = dict(
+    launches=dict(importance=16 * _HET, sparse_agg=16 * _HET,
+                  masked_merge=_HET, flash_attention=0),
+    sparse_agg={"partials": 16 * _HET, "mean": 0,
+                "partials:elementwise": 0, "mean:elementwise": 0},
+    select=8 * _HET)
 SCAN_SPANS = ("local_train", "engine_step", "host_transfer", "allocate",
               "chunk_dispatch")
 TIE_RTOL = 5e-5         # importance's rtol: closer to the k-th score is a tie
@@ -1842,11 +1897,11 @@ def _scan_setup(dev, spec=None, clients=MLP_N):
     return params, tel, make_batched_train_fn(client_epoch, (xs, ys)), ef
 
 
-def _fleet_setup(dev):
+def _fleet_setup(dev, n=None, shard=None):
     """The reference benchmark's fleet (``benchmarks/perf_federated.py``
-    ``make_setup``): spec 64-128-64-10, FLEET_CLIENTS clients with
-    FLEET_SHARD seeded normal samples each, one full-shard SGD step at lr
-    0.05 a round."""
+    ``make_setup``): spec 64-128-64-10, ``n`` clients (FLEET_CLIENTS) with
+    ``shard`` (FLEET_SHARD) seeded normal samples each, one full-shard SGD
+    step at lr 0.05 a round."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1856,13 +1911,14 @@ def _fleet_setup(dev):
                                 sample_system_telemetry)
 
     rng = np.random.default_rng(0)
-    n = FLEET_CLIENTS
-    xs = torch.from_numpy(rng.normal(size=(n, FLEET_SHARD, 64))
+    n = FLEET_CLIENTS if n is None else n
+    shard = FLEET_SHARD if shard is None else shard
+    xs = torch.from_numpy(rng.normal(size=(n, shard, 64))
                           .astype(np.float32)).to(dev)
-    ys = torch.from_numpy(rng.integers(0, 10, (n, FLEET_SHARD))).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 10, (n, shard))).to(dev)
     params = init_cnn_spec(FLEET_SPEC, prng.PRNGKey(0), device=dev)
     tel = sample_system_telemetry(n, [model_bytes(params)] * n,
-                                  [FLEET_SHARD] * n, [1.0] * n, seed=0)
+                                  [shard] * n, [1.0] * n, seed=0)
 
     def step(p, x, y):
         g, l = torch.func.grad_and_value(
@@ -2802,6 +2858,544 @@ def sim_phase(dev="cuda") -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _step_densities(out: list):
+    """Record the (N,) densities of every round engine step (the engine,
+    the sharded engine and the grouped engine) into ``out``, on the
+    device (a clone each: no sync)."""
+    from repro_torch.core import round_engine as re_
+    classes = (re_.BatchedRoundEngine, re_.ShardedRoundEngine,
+               re_.GroupedRoundEngine)
+    originals = {cls: cls.step for cls in classes}
+
+    def wrap(f):
+        def step(self, *a, **k):
+            o = f(self, *a, **k)
+            out.append(o.densities.clone())
+            return o
+        return step
+
+    for cls, f in originals.items():
+        cls.step = wrap(f)
+    try:
+        yield out
+    finally:
+        for cls, f in originals.items():
+            cls.step = f
+
+
+@contextlib.contextmanager
+def _count_moves(out: dict):
+    """Count ``Tensor.to`` calls whose result lies on another device than
+    the tensor (a copy between devices) into ``out["moves"]``."""
+    import torch
+    orig = torch.Tensor.to
+    out["moves"] = 0
+
+    def to(self, *a, **k):
+        r = orig(self, *a, **k)
+        if isinstance(r, torch.Tensor) and r.device != self.device:
+            out["moves"] += 1
+        return r
+
+    torch.Tensor.to = to
+    try:
+        yield out
+    finally:
+        torch.Tensor.to = orig
+
+
+def _trees_within(a, b, tol: float, what: str) -> float:
+    """Every leaf of ``a`` within rtol = atol = ``tol`` of ``b``; returns
+    the largest absolute difference."""
+    import torch
+    from repro_torch import tree
+    worst = 0.0
+    for x, y in zip(tree.leaves(a), tree.leaves(b)):
+        torch.testing.assert_close(x, y, rtol=tol, atol=tol,
+                                   msg=lambda m: f"{what}: {m}")
+        worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def _same_trees(a, b, what: str) -> None:
+    import torch
+    from repro_torch import tree
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb) or not all(torch.equal(x, y)
+                                     for x, y in zip(la, lb)):
+        raise AssertionError(f"{what}: not bit-equal")
+
+
+def _want_counts(got: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        if got.get(k) != v:
+            raise AssertionError(f"{what}: {k} {got.get(k)}, expected {v} "
+                                 f"(all counts {got})")
+
+
+def sharded_phase(card: Card, dev="cuda", timer=time_ms) -> dict:
+    """The client-sharded mesh (``repro_torch.launch.mesh``,
+    ``ShardedRoundEngine``, ``GroupedRoundEngine(mesh=)``, the protocol's
+    and the simulator's ``mesh=``) on the card, counts set to 0 just
+    before each counted run and read just after.  A mesh that repeats the
+    one card is a mesh of virtual shards: the whole multi-shard step runs
+    on it, no copy between shards.
+
+    (a) the quickstart (synthetic MNIST 6000/1500, 10 non-IID clients, the
+        paper's MLP 784-100-64-10, A_server 0.6, h 5, SHARD_ROUNDS FedDD
+        rounds) through ``FedDDServer`` on the engine, on a one-shard mesh
+        (bit-equal: globals, client params, every round's densities and
+        records) and on SHARD_VIRTUAL virtual shards, 10 -> 12 rows
+        (densities equal, params within SHARD_TOL) with the dense and the
+        keep-1.0 sparse collective; launches as SHARD_LAUNCHES predicts;
+        then one step on the round-1 fleet at uniform D = SHARD_DROP with
+        the keep-SHARD_KEEP sparse collective (overflow 0, within
+        SHARD_TOL of the engine) and at D = 0 (overflow > 0), with no
+        synchronising call inside the step and no ``.to()`` copy;
+    (b) the reference's sharded fleet (``benchmarks/perf_federated.py``
+        ``sharded_ab``: spec 64-128-64-10, SHARD_FLEET clients x
+        SHARD_FLEET_SAMPLES samples, one SGD step at lr 0.05 a round,
+        ``allocator="jax"``): rounds/s of the fused engine, one shard and
+        SHARD_VIRTUAL virtual shards after a warm-up (printed; on one
+        card virtual shards measure launch serialisation, not scaling),
+        the one shard bit-equal to fused;
+    (c) the hetero-a VGG fleet (five Table 3 sub-models), 2 rounds grouped
+        with ``mesh`` of SHARD_HETERO_SHARDS virtual shards: launches as
+        SHARD_HETERO_LAUNCHES, round 1's densities equal to the unsharded
+        grouped run's, and every sharded step against the unsharded
+        grouped step on the same inputs (densities equal, params within
+        SHARD_TOL); the two runs' distance after 2 rounds printed;
+    (d) the straggler demo's sync policy over a static network,
+        SHARD_SIM_ROUNDS rounds with ``mesh=1``: bit-equal to the run
+        without a mesh, sim_time and event trace included;
+    (e) ``sparse_numden_allreduce`` over SHARD_VIRTUAL virtual shards
+        against a float64 oracle: lossless (overflow 0), lossy (overflow
+        > 0), ragged ``k_local``; two runs bit-equal;
+    (f) C5: ``sparse_agg`` at fc0 of 16 clients with the ``select`` flag,
+        both modes, equal to the plain version (``equal_nan``) on a
+        poisoned input; the mean mode timed with the flag off and on, the
+        partials mode with it on.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import heterogeneous, kernels, prng, quickstart, sim
+    from repro_torch import straggler_sim, tree
+    from repro_torch.core import round_engine, sparse_collective
+    from repro_torch.core.protocol import FedDDServer, ProtocolConfig
+    from repro_torch.heterogeneous import server_for
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sparse_agg import ops as agg_ops
+    from repro_torch.kernels.sparse_agg.ref import (masked_weighted_mean_ref,
+                                                    masked_weighted_sum_ref)
+    from repro_torch.launch.mesh import ClientMesh
+
+    t_phase = time.perf_counter()
+    card_dev = torch.device(dev)
+    if card_dev.type == "cuda" and card_dev.index is None:
+        card_dev = torch.device("cuda", torch.cuda.current_device())
+    one, four = ClientMesh((card_dev,)), ClientMesh(
+        (card_dev,) * SHARD_VIRTUAL)
+    out = {}
+
+    def counts():
+        c = _launch_counts()
+        c["select"] = agg_ops.select_counts()["select"]
+        return c
+
+    # ---- (a) the quickstart on the engine, one shard and virtual shards
+    params, tel, ltf, ef = quickstart.setup(MLP_N, dev)
+
+    def qs(mesh=None, **kw):
+        srv = FedDDServer(params, ProtocolConfig(
+            rounds=SHARD_ROUNDS, a_server=A_SERVER, h=quickstart.FEDDD_H,
+            mesh=mesh, **kw), tel, device=dev)
+        dens = []
+        _sync(dev)
+        kernels.reset_launch_counts()
+        with _step_densities(dens):
+            t0 = time.perf_counter()
+            res = srv.run(ltf, ef)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+        return dict(srv=srv, res=res, dens=dens, counts=counts(), wall=wall)
+
+    runs = {"engine": qs(), "one": qs(one), "four": qs(four),
+            "four_sparse": qs(four, mesh_collective="sparse",
+                              mesh_keep_fraction=1.0)}
+    eng = runs["engine"]
+    a = dict(launches={}, max_abs_diff={}, wall_s={}, accuracy={})
+    for name, r in runs.items():
+        want = SHARD_LAUNCHES[name]
+        _want_counts(r["counts"]["launches"], want["launches"],
+                     f"sharded (a) {name}")
+        _want_counts(r["counts"]["sparse_agg"], want["sparse_agg"],
+                     f"sharded (a) {name}")
+        _want_counts(r["counts"]["merges"], want["merges"],
+                     f"sharded (a) {name}")
+        if r["counts"]["select"] != want["select"]:
+            raise AssertionError(f"sharded (a) {name}: select launches "
+                                 f"{r['counts']['select']}")
+        a["launches"][name] = dict(r["counts"]["launches"],
+                                   select=r["counts"]["select"],
+                                   sparse_agg_routes=r["counts"][
+                                       "sparse_agg"])
+        a["wall_s"][name] = r["wall"]
+        a["accuracy"][name] = r["res"].history[-1].metrics["accuracy"]
+        if len(r["dens"]) != SHARD_ROUNDS or not all(
+                torch.equal(x, y) for x, y in zip(r["dens"], eng["dens"])):
+            raise AssertionError(f"sharded (a) {name}: densities differ "
+                                 "from the engine's")
+        if name == "engine":
+            continue
+        if name == "one":
+            _same_trees(r["res"].global_params, eng["res"].global_params,
+                        "one shard, global")
+            for c1, c0 in zip(r["srv"].clients, eng["srv"].clients):
+                _same_trees(c1.params, c0.params, "one shard, clients")
+            for x, y in zip(r["res"].history, eng["res"].history):
+                if (x.sim_time, x.uploaded_bytes, x.mean_loss) != (
+                        y.sim_time, y.uploaded_bytes, y.mean_loss) or \
+                        not np.array_equal(x.dropout_rates, y.dropout_rates):
+                    raise AssertionError("one shard: records differ")
+            a["max_abs_diff"][name] = 0.0
+            continue
+        diff = _trees_within(r["res"].global_params,
+                             eng["res"].global_params, SHARD_TOL,
+                             f"{name}, global")
+        for c1, c0 in zip(r["srv"].clients, eng["srv"].clients):
+            diff = max(diff, _trees_within(c1.params, c0.params, SHARD_TOL,
+                                           f"{name}, clients"))
+        a["max_abs_diff"][name] = diff
+    # one step on the round-1 fleet: the keep-0.8 buffer at uniform D
+    rk = prng.split(prng.PRNGKey(0))[1]
+    old = round_engine.stack_pytrees([params] * MLP_N)
+    new = round_engine.stack_pytrees([ltf(params, i, prng.fold_in(rk, i))[0]
+                                      for i in range(MLP_N)])
+    w = torch.as_tensor(np.asarray(tel.num_samples, np.float32), device=dev)
+    sparse = round_engine.ShardedRoundEngine(
+        mesh=four, collective="sparse", keep_fraction=SHARD_KEEP)
+    steps = {}
+    for d in (SHARD_DROP, 0.0):
+        dd = torch.full((MLP_N,), d, dtype=torch.float32, device=dev)
+        base = round_engine.BatchedRoundEngine().step(
+            old, new, params, dd, w, rk, full_round=False)
+        got = sparse.step(old, new, params, dd, w, rk, full_round=False)
+        steps[d] = dict(overflow=float(got.collective_overflow))
+        if d:
+            if steps[d]["overflow"] != 0.0:
+                raise AssertionError(f"keep {SHARD_KEEP} at D = {d}: "
+                                     f"overflow {steps[d]['overflow']}")
+            if not torch.equal(base.densities, got.densities):
+                raise AssertionError("keep-0.8 step: densities differ")
+            steps[d]["max_abs_diff"] = _trees_within(
+                got.global_params, base.global_params, SHARD_TOL,
+                "keep-0.8 step")
+            sync_counts = [{}, {}]
+            moves = {}
+            for c in sync_counts:
+                _sync(dev)
+                with _count_syncs(c, dev), _count_moves(moves):
+                    sparse.step(old, new, params, dd, w, rk,
+                                full_round=False)
+            if sync_counts[1]["syncs"] or moves["moves"]:
+                raise AssertionError(
+                    f"sharded step on the virtual mesh: syncs "
+                    f"{sync_counts[1]}, device copies {moves['moves']}")
+            steps[d].update(syncs=sync_counts[1]["syncs"],
+                            moves=moves["moves"])
+        elif steps[d]["overflow"] <= 0.0:
+            raise AssertionError("zero dropout at keep 0.8 did not "
+                                 "overflow")
+    a["steps"] = {str(k): v for k, v in steps.items()}
+    print(f"  sharded (a): quickstart {SHARD_ROUNDS} rounds, launches "
+          + "; ".join(f"{k} {v}" for k, v in a["launches"].items())
+          + "; max |diff| vs engine " + ", ".join(
+              f"{k} {v:.3g}" for k, v in a["max_abs_diff"].items())
+          + f"; accuracy {a['accuracy']}; wall s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in a["wall_s"].items())
+          + f"; keep-{SHARD_KEEP} step at D {SHARD_DROP}: "
+          f"{steps[SHARD_DROP]}, at D 0: overflow {steps[0.0]['overflow']}",
+          flush=True)
+    out["a"] = a
+
+    # ---- (b) the reference's sharded fleet: rounds/s
+    fparams, ftel, btf = _fleet_setup(dev, n=SHARD_FLEET,
+                                      shard=SHARD_FLEET_SAMPLES)
+
+    def fleet(rounds, mesh):
+        srv = FedDDServer(fparams, ProtocolConfig(
+            scheme="feddd", rounds=rounds, a_server=A_SERVER, h=5, seed=0,
+            allocator="jax", mesh=mesh), ftel, device=dev)
+        return srv.run(batched_train_fn=btf)
+
+    b = dict(rounds_per_s={})
+    fleet_params = {}
+    for name, mesh in (("fused", None), ("one shard", one),
+                       (f"{SHARD_VIRTUAL} virtual shards", four)):
+        fleet(SHARD_FLEET_WARM, mesh)
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fleet(SHARD_FLEET_ROUNDS, mesh)
+        _sync(dev)
+        b["rounds_per_s"][name] = SHARD_FLEET_ROUNDS / (time.perf_counter()
+                                                        - t0)
+        fleet_params[name] = res.global_params
+    _same_trees(fleet_params["one shard"], fleet_params["fused"],
+                "(b) one shard against fused")
+    b["max_abs_diff_virtual"] = max(
+        float((x - y).abs().max()) for x, y in zip(
+            tree.leaves(fleet_params[f"{SHARD_VIRTUAL} virtual shards"]),
+            tree.leaves(fleet_params["fused"])))
+    print(f"  sharded (b): {SHARD_FLEET} clients x {SHARD_FLEET_SAMPLES} "
+          f"(64-128-64-10), {SHARD_FLEET_ROUNDS} rounds after "
+          f"{SHARD_FLEET_WARM}: " + ", ".join(
+              f"{k} {v:.3f} rounds/s" for k, v in b["rounds_per_s"].items())
+          + " (virtual shards on one card measure launch serialisation, "
+          f"not scaling); one shard == fused; virtual max |diff| "
+          f"{b['max_abs_diff_virtual']:.3g}", flush=True)
+    out["b"] = b
+
+    # ---- (c) the hetero-a VGG fleet on a mesh of virtual shards
+    gp, clients, tel_h, ltf_h, _ = heterogeneous.setup(
+        5, num_train=3000, num_test=800, device=dev)
+    hmesh = ClientMesh((card_dev,) * SHARD_HETERO_SHARDS)
+
+    def hetero(mesh):
+        dens = []
+        srv = server_for(gp, clients, tel_h, rounds=SHARD_HETERO_ROUNDS,
+                         device=dev, mesh=mesh)
+        _sync(dev)
+        kernels.reset_launch_counts()
+        with _step_densities(dens):
+            res = srv.run(ltf_h)
+            _sync(dev)
+        return srv, res, dens, counts()
+
+    h0, hr0, hd0, _ = hetero(None)
+    h1, hr1, hd1, hc = hetero(hmesh)
+    if len(hd1) != SHARD_HETERO_ROUNDS or not torch.equal(hd0[0], hd1[0]):
+        raise AssertionError("(c) round-1 densities differ from the "
+                             "grouped run's")
+    # each sharded step against the unsharded grouped step on the same
+    # inputs (an uncounted third run): densities equal, params within
+    # SHARD_TOL.  Across rounds the two runs are not held to SHARD_TOL:
+    # round 2 trains on globals an ulp apart, and the VGG's SGD moves
+    # scores across near-ties of the k-th (printed below).
+    shadow = []
+    orig_step = round_engine.GroupedRoundEngine.step
+
+    def checked(self, groups, global_params, weights, rng, **kw):
+        got = orig_step(self, groups, global_params, weights, rng, **kw)
+        if self.mesh is not None:
+            want = round_engine._grouped_round_step(
+                tuple(groups), global_params, torch.as_tensor(
+                    weights, dtype=torch.float32, device=dev), rng,
+                sel_cfg=self.selection_cfg, comm=self.comm, **{
+                    "full_round": kw["full_round"],
+                    "dense_masks": kw.get("dense_masks", False)})
+            if not torch.equal(got.densities, want.densities):
+                raise AssertionError("(c) a sharded grouped step's "
+                                     "densities differ")
+            d = _trees_within(got.global_params, want.global_params,
+                              SHARD_TOL, "(c) step global")
+            for x, y in zip(got.group_client_params,
+                            want.group_client_params):
+                d = max(d, _trees_within(x, y, SHARD_TOL,
+                                         "(c) step clients"))
+            shadow.append(d)
+        return got
+
+    round_engine.GroupedRoundEngine.step = checked
+    try:
+        server_for(gp, clients, tel_h, rounds=SHARD_HETERO_ROUNDS,
+                   device=dev, mesh=hmesh).run(ltf_h)
+    finally:
+        round_engine.GroupedRoundEngine.step = orig_step
+    if len(shadow) != SHARD_HETERO_ROUNDS:
+        raise AssertionError(f"(c) {len(shadow)} checked steps")
+    hdiff = max(float((x - y).abs().max()) for x, y in zip(
+        tree.leaves(hr1.global_params), tree.leaves(hr0.global_params)))
+    dens_equal = [bool(torch.equal(x, y)) for x, y in zip(hd0, hd1)]
+    want = SHARD_HETERO_LAUNCHES
+    _want_counts(hc["launches"], want["launches"], "(c)")
+    _want_counts(hc["sparse_agg"], want["sparse_agg"], "(c)")
+    if hc["select"] != want["select"]:
+        raise AssertionError(f"(c) select launches {hc['select']}")
+    print(f"  sharded (c): hetero-a, {SHARD_HETERO_ROUNDS} rounds grouped "
+          f"on {SHARD_HETERO_SHARDS} virtual shards: each step against the "
+          f"unsharded step on its inputs, max |diff| "
+          + ", ".join(f"{d:.3g}" for d in shadow)
+          + f"; the two runs after {SHARD_HETERO_ROUNDS} rounds: max "
+          f"|diff| {hdiff:.3g}, densities equal by round {dens_equal}; "
+          f"launches {hc['launches']}, sparse_agg {hc['sparse_agg']}, "
+          f"select {hc['select']}", flush=True)
+    out["c"] = dict(step_max_abs_diff=shadow, run_max_abs_diff=hdiff,
+                    run_densities_equal=dens_equal,
+                    launches=dict(hc["launches"], select=hc["select"]))
+
+    # ---- (d) the simulator with mesh=1
+    sparams, stel, sltf, _ = straggler_sim.setup(SIM_CLIENTS, dev)
+
+    def demo(**kw):
+        return sim.run_sim("feddd", sparams, stel, sltf, None,
+                           sim=sim.SimConfig(policy="sync"),
+                           rounds=SHARD_SIM_ROUNDS, a_server=A_SERVER, h=5,
+                           seed=0, device=dev, **kw)
+
+    s0 = demo()
+    _sync(dev)
+    kernels.reset_launch_counts()
+    s1 = demo(mesh=1)
+    _sync(dev)
+    scnt = counts()
+    _same_trees(s1.global_params, s0.global_params, "(d) sim mesh=1")
+    if [r.sim_time for r in s1.history] != [r.sim_time for r in s0.history] \
+            or s1.event_trace != s0.event_trace:
+        raise AssertionError("(d) sim_time or event trace differ")
+    n_leaves = len(MLP_LEAVES)
+    _want_counts(scnt["launches"], dict(
+        importance=n_leaves * SHARD_SIM_ROUNDS,
+        sparse_agg=n_leaves * SHARD_SIM_ROUNDS,
+        masked_merge=SHARD_SIM_ROUNDS), "(d)")
+    print(f"  sharded (d): sync sim {SHARD_SIM_ROUNDS} rounds, mesh=1 "
+          f"bit-equal (sim_time {s1.history[-1].sim_time:.3f} s); launches "
+          f"{scnt['launches']}", flush=True)
+    out["d"] = dict(sim_time=[r.sim_time for r in s1.history],
+                    launches=scnt["launches"])
+
+    # ---- (e) the sparse collectives against a float64 oracle
+    rng = np.random.default_rng(7)
+    p_, c_, f_ = SHARD_VIRTUAL, 100, 784
+    e = {}
+
+    def reduce(num, den, k, k_local=None):
+        return sparse_collective.sparse_numden_allreduce(
+            [torch.from_numpy(x).to(dev) for x in num],
+            [torch.from_numpy(x).to(dev) for x in den], k, four,
+            k_local=k_local)
+
+    def oracle(num, den, keep_rows=None):
+        on = np.zeros((c_, f_), np.float64)
+        od = np.zeros((c_,), np.float64)
+        for s in range(p_):
+            rows = (np.flatnonzero(den[s] > 0) if keep_rows is None
+                    else keep_rows[s])
+            on[rows] += num[s, rows]
+            od[rows] += den[s, rows]
+        return on, od
+
+    num = np.zeros((p_, c_, f_), np.float32)
+    den = np.zeros((p_, c_), np.float32)
+    for s in range(p_):
+        keep = rng.choice(c_, size=rng.integers(10, 31), replace=False)
+        den[s, keep] = rng.uniform(0.5, 2.0, keep.size)
+        num[s, keep] = rng.normal(size=(keep.size, f_)) * den[s, keep][:,
+                                                                      None]
+    cases = {"lossless": (num, den, 32, None)}
+    full = rng.normal(size=(p_, c_, f_)).astype(np.float32)
+    cases["lossy"] = (full, np.ones((p_, c_), np.float32), 30, None)
+    dr = rng.uniform(0.5, 2.0, size=(p_, c_)).astype(np.float32)
+    cases["ragged"] = (full, dr, 40, [10 * (s + 1) for s in range(p_)])
+    for name, (nm, dn, k, kl) in cases.items():
+        got = reduce(nm, dn, k, None if kl is None else
+                     [torch.tensor(x, device=dev) for x in kl])
+        again = reduce(nm, dn, k, None if kl is None else
+                       [torch.tensor(x, device=dev) for x in kl])
+        if not all(torch.equal(x[0], y[0]) for x, y in zip(got, again)):
+            raise AssertionError(f"(e) {name}: two runs differ")
+        if not all(t is got[0][0] for t in got[0]):
+            raise AssertionError(f"(e) {name}: a copy per virtual shard")
+        ovf = float(got[2][0])
+        if name == "lossy":
+            if ovf != p_ * (c_ - k):
+                raise AssertionError(f"(e) lossy overflow {ovf}")
+            e[name] = dict(overflow=ovf)
+            continue
+        keep_rows = (None if kl is None else
+                     [np.argsort(-dn[s], kind="stable")[:kl[s]]
+                      for s in range(p_)])
+        on, od = oracle(nm, dn, keep_rows)
+        if name == "lossless" and ovf != 0.0:
+            raise AssertionError(f"(e) lossless overflow {ovf}")
+        err = max(float(np.abs(got[0][0].cpu().numpy() - on).max()),
+                  float(np.abs(got[1][0].cpu().numpy() - od).max()))
+        np.testing.assert_allclose(got[0][0].cpu().numpy(), on, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[1][0].cpu().numpy(), od, rtol=1e-5,
+                                   atol=1e-5)
+        e[name] = dict(overflow=ovf, max_abs_err=err)
+    print(f"  sharded (e): sparse_numden_allreduce over {p_} virtual "
+          f"shards, ({c_}, {f_}) partials: {e}", flush=True)
+    out["e"] = e
+
+    # ---- (f) C5: sparse_agg's select flag at fc0 of 16 clients
+    n, leaf = SIM_FC0
+    a_, cc, b_ = _lib.split_at(leaf, len(leaf) - 1)
+    gen = torch.Generator(device=card_dev).manual_seed(21)
+    vals = torch.randn((n, *leaf), generator=gen, device=dev)
+    keep = (torch.rand((n, 1, cc), generator=gen, device=dev) > 0.4).float()
+    wts = torch.rand((n,), generator=gen, device=dev) + 0.5
+    bad = vals.clone()
+    flat = bad.view(n, a_, cc)
+    for row, val in ((3, float("nan")), (5, float("inf")),
+                     (7, float("-inf"))):
+        flat[row, 1, int(torch.nonzero(keep[row, 0])[0])] = val
+        flat[row, 2, int(torch.nonzero(keep[row, 0] == 0)[0])] = val
+    f = {}
+    kernels.reset_launch_counts()
+    for sel in (True, False):
+        got_m = agg_ops.masked_weighted_mean(bad, keep, wts, None,
+                                             torch.float32, select=sel)
+        want_m = masked_weighted_mean_ref(bad.view(n, a_, cc, b_),
+                                          keep.view(n, cc), wts, None,
+                                          torch.float32, sel).view(leaf)
+        got_n, got_d = agg_ops.masked_weighted_sum(bad, keep, wts,
+                                                   select=sel)
+        want_n, want_d = masked_weighted_sum_ref(
+            bad.view(n, a_, cc, b_), keep.view(n, cc), wts, sel)
+        torch.testing.assert_close(got_m, want_m, rtol=3e-5, atol=1e-4,
+                                   equal_nan=True)
+        torch.testing.assert_close(got_n, want_n.view(leaf), rtol=3e-5,
+                                   atol=1e-4, equal_nan=True)
+        torch.testing.assert_close(got_d, want_d.view(leaf), rtol=3e-5,
+                                   atol=1e-5)
+        fin = torch.isfinite(want_m)
+        f["on" if sel else "off"] = dict(
+            non_finite=int((~torch.isfinite(got_m)).sum()),
+            max_abs_err=float((got_m[fin] - want_m[fin]).abs().max()))
+    if f["on"]["non_finite"] >= f["off"]["non_finite"]:
+        raise AssertionError(f"(f) select skipped nothing: {f}")
+    _sync(dev)
+    if agg_ops.select_counts()["select"] != 2:
+        raise AssertionError(f"(f) select launches "
+                             f"{agg_ops.select_counts()}")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    elems = n * a_ * cc * b_
+    rec = _timed(
+        card, flush, timer, "eq4_select", n, leaf, torch.float32,
+        lambda: agg_ops.masked_weighted_mean(vals, keep, wts, None,
+                                             torch.float32, select=True),
+        lambda: masked_weighted_mean_ref(vals.view(n, a_, cc, b_),
+                                         keep.view(n, cc), wts, None,
+                                         torch.float32, True),
+        None, elems * 4 + n * cc * 4 + n * 4 + a_ * cc * 4,
+        2 * elems + a_ * cc,
+        extra=dict(mean_off=lambda: agg_ops.masked_weighted_mean(
+                       vals, keep, wts, None, torch.float32),
+                   partials_on=lambda: agg_ops.masked_weighted_sum(
+                       vals, keep, wts, select=True),
+                   partials_off=lambda: agg_ops.masked_weighted_sum(
+                       vals, keep, wts)))
+    del flush
+    rec.update(mode="mean", select=f)
+    out["f"] = rec
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  sharded (f): select on/off {f}; sharded phase "
+          f"{out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def _profile_ops(fn, dev) -> dict:
     """Device operations of one call of ``fn`` under torch.profiler:
     CUDA kernels, memsets and copies, and the aten ops the host issued
@@ -3038,6 +3632,7 @@ def main(argv=None) -> int:
         scan_out = scan_phase()
         grouped_out = grouped_phase()
         sim_out = sim_phase()
+        shard_out = sharded_phase(card)
         serve_out = serving_phase()
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -3081,7 +3676,22 @@ def main(argv=None) -> int:
                     plain_ms=ew["plain_ms"], bound_ms=ew["bound_ms"],
                     bound_by=ew["bound_by"], max_abs_err=ew["max_abs_err"]),
                 routes_grouped=grouped_out["a"]["sparse_agg_routes"][
-                    "grouped"])
+                    "grouped"],
+                routes_sharded=shard_out["a"]["launches"]["four"][
+                    "sparse_agg_routes"],
+                launches_select=dict(
+                    engine=shard_out["a"]["launches"]["engine"]["select"],
+                    sharded=shard_out["a"]["launches"]["four"]["select"]),
+                select=dict(shape=shard_out["f"]["shape"],
+                            mean_ms=shard_out["f"]["ms"],
+                            mean_off_ms=shard_out["f"]["mean_off_ms"],
+                            partials_ms=shard_out["f"]["partials_on_ms"],
+                            partials_off_ms=shard_out["f"][
+                                "partials_off_ms"],
+                            plain_ms=shard_out["f"]["plain_ms"],
+                            bound_ms=shard_out["f"]["bound_ms"],
+                            max_abs_err=shard_out["f"]["select"]["on"][
+                                "max_abs_err"]))
         if name in FEDDD_KERNELS:
             line_kernels[-1].update(
                 launches_default_comm=path_out["launches"][name],
@@ -3093,6 +3703,10 @@ def main(argv=None) -> int:
                 launches_grouped_loop=grouped_out["a"]["launches"]["loop"][
                     name],
                 launches_sim=sim_out["c"]["launches"][name],
+                launches_sharded=shard_out["a"]["launches"]["four"][name],
+                launches_sharded_one=shard_out["a"]["launches"]["one"][
+                    name],
+                launches_sharded_grouped=shard_out["c"]["launches"][name],
                 launches_sim_policies={
                     p: v["launches"][name]
                     for p, v in sim_out["a"]["policies"].items()})
@@ -3121,7 +3735,8 @@ def main(argv=None) -> int:
             card=line, build_s=secs, prng=prng_out, kernels=records,
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
-            grouped=grouped_out, sim=sim_out, serving=serve_out,
+            grouped=grouped_out, sim=sim_out, sharded=shard_out,
+            serving=serve_out,
             summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
@@ -3137,7 +3752,10 @@ def main(argv=None) -> int:
           + "; hetero-a grouped / loop (grouped phase): " + ", ".join(
               f"{v:.4f}" for v in grouped_out["a"]["steady_host_s"].values())
           + f"; straggler demo sync (sim phase): "
-          f"{sim_out['a']['steady_host_s']:.4f}", flush=True)
+          f"{sim_out['a']['steady_host_s']:.4f}; sharded fleet (sharded "
+          "phase) rounds/s: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in shard_out["b"][
+                  "rounds_per_s"].items()), flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,9 @@ checkout's).
   MLP with N = 10 clients in fp32, as the FedDD round calls them, and at
   ``chip_smoke.LARGE`` (the VGG conv and CNN2's fc) in fp32 and bf16;
 - Eq. (4) of fc0 ``(10, 784, 100)`` both ways: the partials plus the
-  eager ``finish_masked_mean``, and the mean mode (one launch);
+  eager ``finish_masked_mean``, and the mean mode (one launch); and
+  ``sparse_agg`` at fc0 of 16 clients (``chip_smoke.SIM_FC0``), where
+  the package has the ``select`` flag also with it on (both modes);
 - ``masked_merge_where`` at every row: ``torch.where`` on the same
   operands, the yardstick of one PyTorch call (the port never calls it);
 - Eq. (5) of the MLP's six leaves (fp32, N = 10) both ways: six
@@ -43,6 +45,7 @@ the card; without a card it raises.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import sys
@@ -109,6 +112,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     has_mean = hasattr(agg_ops, "masked_weighted_mean")
     has_many = hasattr(merge_ops, "masked_merge_many")
+    has_select = "select" in inspect.signature(
+        agg_ops.masked_weighted_sum).parameters
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
@@ -118,6 +123,7 @@ def main(argv=None) -> int:
 
     fp32, bf16 = torch.float32, torch.bfloat16
     shapes = ([(N, leaf, fp32) for leaf in smoke.MLP_LEAVES]
+              + [(*smoke.SIM_FC0, fp32)]
               + [(n, leaf, dt) for n, leaf in smoke.LARGE
                  for dt in (fp32, bf16)])
 
@@ -141,6 +147,12 @@ def main(argv=None) -> int:
                     wn, mask, wts)),
                 sparse_agg_mean=ms(lambda: agg_ops.masked_weighted_mean(
                     wn, mask, wts, g, dt)) if has_mean else None,
+                sparse_agg_select=ms(lambda: agg_ops.masked_weighted_sum(
+                    wn, mask, wts, select=True)) if has_select else None,
+                sparse_agg_mean_select=ms(
+                    lambda: agg_ops.masked_weighted_mean(
+                        wn, mask, wts, g, dt, select=True))
+                if has_select else None,
                 masked_merge=ms(lambda: merge_ops.masked_merge(g, wn,
                                                                mask)),
                 masked_merge_where=ms(lambda: torch.where(take_g, g[None],

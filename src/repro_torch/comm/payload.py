@@ -270,13 +270,17 @@ def collective_payload_bytes(spec: WireSpec, *, mode: str = "dense",
 
 
 def account_collective(spec: WireSpec, num_shards: int, *,
-                       mode: str = "dense", k_fraction: float = 1.0
-                       ) -> Tuple[float, float]:
+                       mode: str = "dense", k_fraction: float = 1.0,
+                       obs=None) -> Tuple[float, float]:
     """(dense_bytes, actual_bytes) of one round's Eq. (4) reduction summed
-    over the shards; equal for ``mode="dense"``."""
+    over the shards; equal for ``mode="dense"``.  ``obs`` (a
+    :mod:`repro_torch.obs` recorder) gets both through ``obs.collective``,
+    as :func:`account_uplink` hands it the uplink leg."""
     dense = collective_payload_bytes(spec, mode="dense") * num_shards
     actual = collective_payload_bytes(
         spec, mode=mode, k_fraction=k_fraction) * num_shards
+    if obs is not None and obs.active:
+        obs.collective(dense, actual)
     return dense, actual
 
 

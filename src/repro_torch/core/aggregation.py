@@ -55,15 +55,28 @@ from repro_torch.kernels.sparse_agg.ref import (  # noqa: F401
 
 
 def leaf_masked_partials(stack_w: torch.Tensor, stack_m: torch.Tensor,
-                         w: torch.Tensor):
+                         w: torch.Tensor, select: bool = False):
     """Eq. (4) numerator/denominator of one client-stacked leaf.
 
     (N, *leaf) values, channel-shaped mask, (N,) fp32 weights ->
     (num, den), each (*leaf) fp32; :func:`finish_masked_mean` turns them
     into the mean (kept apart for a client-sharded engine, which reduces
-    the partials across shards first).
+    the partials across shards first).  ``select``: a masked-out term adds
+    nothing to num (:func:`select_leaf`).
     """
-    return agg_ops.masked_weighted_sum(stack_w, stack_m, w)
+    return agg_ops.masked_weighted_sum(stack_w, stack_m, w, select=select)
+
+
+def select_leaf(stack_w: torch.Tensor, compiled: bool) -> bool:
+    """Whether Eq. (4) of this client-stacked leaf skips its masked-out
+    terms, as the JAX package computes it: its compiled engine steps
+    (``BatchedRoundEngine`` and the sharded steps, with masks straight
+    from the top-k compare, i.e. no delivered prefixes: ``compiled``)
+    see XLA rewrite ``W * convert(mask)`` into a select at the 1-D leaves,
+    whose (N, C) mask is not broadcast; every other leaf, and every eager
+    path, computes ``W * M * w`` and lets a NaN * 0 through
+    (``scripts/c5_select_rule.py`` finds this on the MLP, CNN1 and VGG)."""
+    return bool(compiled) and stack_w.ndim == 2
 
 
 ROBUST_AGGS = ("mean", "trimmed", "clip")
@@ -153,12 +166,15 @@ def _clip_scales(deltas, w: torch.Tensor, factor: float) -> torch.Tensor:
 
 
 def robust_leaf_stacks(stacks_w, stacks_m, w: torch.Tensor, gleaves,
-                       kind: str, arg: float):
+                       kind: str, arg: float, compiled: bool = False):
     """Eq. (4) of each (N, *leaf) stack with its channel-shaped mask under
     the variant ``kind`` (the clip variant needs the whole tree at once
-    for its per-client norms)."""
+    for its per-client norms); ``compiled``: the mean skips masked-out
+    terms where :func:`select_leaf` says."""
     if kind == "mean":
-        return [agg_ops.masked_weighted_mean(sw, sm, w, gp, sw.dtype)
+        return [agg_ops.masked_weighted_mean(
+                    sw, sm, w, gp, sw.dtype,
+                    select=select_leaf(sw, compiled))
                 for sw, sm, gp in zip(stacks_w, stacks_m, gleaves)]
     if kind == "trimmed":
         return [finish_masked_mean(*leaf_trimmed_partials(sw, sm, w, arg),
@@ -181,13 +197,17 @@ def robust_leaf_stacks(stacks_w, stacks_m, w: torch.Tensor, gleaves,
 
 
 def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
-                             *, prev_global=None, robust: str = "mean"):
+                             *, prev_global=None, robust: str = "mean",
+                             compiled: bool = False):
     """Eq. (4) over client-stacked pytrees (leaves shaped (N, *leaf)).
 
     ``stacked_masks`` leaves are channel-shaped (N, 1, ..., C, ..., 1) or
     all-ones (N, 1, ..., 1); ``client_weights`` are the (N,) m_n — a zero
     weight leaves that client out of both sums.  ``robust`` picks the
     variant (module docstring); ``"mean"`` is the kernel's mean mode.
+    ``compiled``: Eq. (4) as the JAX package's compiled engine step
+    computes it (:func:`select_leaf`); False, the literal ``W * M * w``
+    of its eager code.
     """
     kind, arg = parse_robust_agg(robust)
     leaves, treedef = tree.flatten(stacked_params)
@@ -200,7 +220,7 @@ def aggregate_sparse_stacked(stacked_params, stacked_masks, client_weights,
     if w.shape != (n,):
         raise ValueError("weights count mismatch")
     return tree.unflatten(treedef, robust_leaf_stacks(
-        leaves, mleaves, w, gleaves, kind, arg))
+        leaves, mleaves, w, gleaves, kind, arg, compiled))
 
 
 def pad_to(x: torch.Tensor, shape) -> torch.Tensor:

@@ -33,6 +33,15 @@ Round execution is a strategy behind one executor interface
   round runs coverage-aware masks per group (Eq. (21)), Eq. (4) on the
   full-width canvas and Eq. (5) per group at local widths.  It equals
   the loop on the same fleet bit for bit.
+* **sharded** (``mesh=``, a homogeneous fleet): the engine's flow with a
+  ``ShardedRoundEngine`` step a round over a 1-D client mesh
+  (:mod:`repro_torch.launch.mesh`: an int or ``True`` clamps to the
+  visible devices of the server's type, one on the CPU; a ``ClientMesh``
+  may repeat one device as virtual shards).  The shards exchange only
+  the Eq. (4) partials, densely or compacted (``mesh_collective``,
+  ``mesh_keep_fraction``), and ``account_collective`` counts those bytes
+  once a round.  A ragged fleet with ``mesh=`` shards each group's
+  member axis in the grouped engine.
 * **loop** (``batched=False``, or ``track_epsilon=True``): the per-client
   reference loop, Algorithm 1 written out client by client — the oracle
   every engine is held to, and the only path that gives
@@ -71,8 +80,7 @@ executors snapshot everything round t+1 reads every K completed rounds,
 atomically, and a resumed run continues bit for bit; the grouped and
 scanned paths raise, as the JAX package's do.  ``run_scheme`` with
 ``sim=`` / ``network=`` / ``faults=`` / ``population=`` routes to the
-event-driven simulator (:mod:`repro_torch.sim`).  The client-sharded mesh
-(``mesh=``) is not ported yet and raises (ROADMAP.md queue A item 14).
+event-driven simulator (:mod:`repro_torch.sim`).
 """
 
 from __future__ import annotations
@@ -88,7 +96,8 @@ from repro_torch import convert, prng, tree
 from repro_torch import obs as obs_mod
 from repro_torch.comm import codecs as wire_codecs
 from repro_torch.comm import quantize as wire_quant
-from repro_torch.comm.payload import (CommConfig, WireSpec, account_uplink,
+from repro_torch.comm.payload import (CommConfig, WireSpec,
+                                      account_collective, account_uplink,
                                       analytic_uplink_vector)
 from repro_torch.core import (aggregation, allocation, baselines,
                               round_engine, selection)
@@ -98,13 +107,9 @@ from repro_torch.core.allocation import (ALLOCATORS, AllocationResult,
                                          solve_dropout_rates_with)
 from repro_torch.core.convergence import estimate_epsilon
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import resolve_client_mesh
 
 SCHEMES = ("feddd", "fedavg", "fedcs", "oort")
-
-# fields of the JAX package's ProtocolConfig whose paths are not ported:
-# (field, its inert default, ROADMAP.md queue A item, what it drives)
-_UNPORTED = (
-    ("mesh", None, 14, "the client-sharded mesh (A14)"),)
 
 
 @dataclasses.dataclass
@@ -135,8 +140,18 @@ class ProtocolConfig:
                                      # allocator="jax")
     robust_agg: str = "mean"         # Eq. (4) variant: "mean",
                                      # "trimmed[:beta]", "clip[:factor]"
-    mesh: object = None              # the client-sharded mesh, not
-                                     # ported yet: anything but None raises
+    mesh: object = None              # client-sharded rounds: an int
+                                     # device count, True (every visible
+                                     # device of the server's type), or a
+                                     # launch.mesh.ClientMesh with a
+                                     # "clients" axis; None: one device
+    mesh_collective: str = "dense"   # cross-shard Eq. (4) reduction:
+                                     # "dense" sum (exact) or "sparse"
+                                     # compacted top-K channel exchange
+                                     # (core/sparse_collective.py)
+    mesh_keep_fraction: float = 1.0  # sparse collective buffer:
+                                     # K = ceil(C * fraction) channels per
+                                     # shard
     checkpoint_every: Optional[int] = None
                                      # crash-resume: snapshot the run every
                                      # K completed rounds (None: never)
@@ -172,6 +187,17 @@ class ProtocolConfig:
                 "comm.overhead_aware_allocation is a host-side fixed point "
                 "around the numpy LP; it requires allocator='numpy' (and "
                 "therefore cannot ride rounds_per_dispatch > 1)")
+        if self.mesh is not None and self.rounds_per_dispatch > 1:
+            raise ValueError(
+                "mesh (client-sharded rounds) and rounds_per_dispatch > 1 "
+                "are mutually exclusive: the multi-round chunk carries "
+                "single-device state")
+        if self.mesh_collective not in ("dense", "sparse"):
+            raise ValueError(f"mesh_collective must be 'dense' or "
+                             f"'sparse', got {self.mesh_collective!r}")
+        if not 0.0 < self.mesh_keep_fraction <= 1.0:
+            raise ValueError(f"mesh_keep_fraction must be in (0,1], got "
+                             f"{self.mesh_keep_fraction}")
         aggregation.parse_robust_agg(self.robust_agg)    # validate the spec
         if self.checkpoint_every is not None:
             if self.checkpoint_every < 1:
@@ -198,11 +224,6 @@ class ProtocolConfig:
             if k is not None and not 1 <= k <= self.population:
                 raise ValueError(f"cohort_size {k} outside [1, "
                                  f"{self.population}]")
-        for name, default, item, what in _UNPORTED:
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
-                    f"yet (ROADMAP.md queue A item {item})")
 
 
 @dataclasses.dataclass
@@ -430,6 +451,43 @@ class _EngineExecutor(_RoundExecutor):
         self.stacked = convert.to_torch(arrays["stacked"], self.srv.device)
 
 
+class _ShardedEngineExecutor(_EngineExecutor):
+    """Homogeneous fleets over a client mesh: one ShardedRoundEngine step
+    a round, with the engine executor's flow (it inherits ``run_round``).
+    Each shard runs its rows' masks, partials and Eq. (5); the Eq. (4)
+    reduction is the one exchange between shards, and its bytes are
+    counted once a round (``account_collective``, host arithmetic only).
+    The stacked state stays on the server's device between rounds; a
+    shard on another card gets its rows by non-blocking copies."""
+
+    def __init__(self, server: "FedDDServer", local_train_fn,
+                 batched_train_fn=None):
+        super().__init__(server, local_train_fn, batched_train_fn)
+        cfg = server.cfg
+        self.engine = round_engine.ShardedRoundEngine(
+            cfg.selection, cfg.comm,
+            mesh=resolve_client_mesh(cfg.mesh, server.device),
+            collective=cfg.mesh_collective,
+            keep_fraction=cfg.mesh_keep_fraction,
+            robust_agg=cfg.robust_agg)
+        self._spec = WireSpec.from_params(server.global_params,
+                                          cfg.selection.channel_axis)
+
+    def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
+                  d_used: np.ndarray) -> _RoundData:
+        data = super().run_round(t, rk, losses, d_used)
+        account_collective(
+            self._spec, self.engine.num_shards,
+            mode=self.srv.cfg.mesh_collective,
+            k_fraction=self.srv.cfg.mesh_keep_fraction, obs=self.srv.obs)
+        return data
+
+    def snapshot_arrays(self):
+        # the JAX package's sharded state would need re-sharding on
+        # restore; its executor refuses, and so does this one
+        return _RoundExecutor.snapshot_arrays(self)
+
+
 class _GroupedEngineExecutor(_RoundExecutor):
     """Ragged fleets: one GroupedRoundEngine step a round.  Clients are
     partitioned by sub-model shape and each group stays stacked across
@@ -450,9 +508,18 @@ class _GroupedEngineExecutor(_RoundExecutor):
                                             server.cr,
                                             cfg.selection.channel_axis)
                     for g in groups]
+        mesh = None
+        if cfg.mesh is not None:
+            if cfg.mesh_collective != "dense":
+                raise ValueError(
+                    "sparse cross-device compaction rides the homogeneous "
+                    "sharded engine; ragged (grouped) fleets reduce with "
+                    "the dense collective")
+            mesh = resolve_client_mesh(cfg.mesh, server.device)
         self.fleet = round_engine.GroupedFleetState(
             groups, coverage, client_params, cfg.selection,
-            server.tel.num_clients, cfg.comm, robust_agg=cfg.robust_agg)
+            server.tel.num_clients, cfg.comm, mesh=mesh,
+            robust_agg=cfg.robust_agg)
 
     def run_round(self, t: int, rk: np.ndarray, losses: np.ndarray,
                   d_used: np.ndarray) -> _RoundData:
@@ -699,7 +766,18 @@ class FedDDServer:
             kind = "grouped"
         else:
             kind = "engine"
-        if batched_train_fn is not None and kind != "engine":
+        if self.cfg.mesh is not None:
+            if kind == "loop":
+                raise ValueError(
+                    "mesh (client-sharded rounds) requires engine-backed "
+                    "execution; track_epsilon / batched=False route to "
+                    "the per-client reference loop, which does not shard")
+            if kind == "engine":
+                kind = "sharded"
+            # grouped: the GroupedRoundEngine shards each group's member
+            # axis itself (_GroupedEngineExecutor)
+        if batched_train_fn is not None and kind not in ("engine",
+                                                         "sharded"):
             raise ValueError(
                 "batched_train_fn requires a homogeneous run with "
                 "batched=True and track_epsilon=False")
@@ -712,13 +790,15 @@ class FedDDServer:
         return kind
 
     _EXECUTORS = {"engine": _EngineExecutor,
+                  "sharded": _ShardedEngineExecutor,
                   "grouped": _GroupedEngineExecutor,
                   "loop": _ReferenceLoopExecutor}
 
     @property
     def executor_kind(self) -> str:
         """The executor a plain ``run(local_train_fn)`` routes to:
-        "engine" (homogeneous), "grouped" (ragged fleet) or "loop"."""
+        "engine" (homogeneous), "sharded" (homogeneous with ``mesh=``),
+        "grouped" (ragged fleet, with or without a mesh) or "loop"."""
         return self._executor_kind()
 
     def run(self, local_train_fn: Optional[Callable] = None,

@@ -49,13 +49,23 @@ once over the full-width canvas of every client (the sparse_agg
 kernel's elementwise-mask mode, one launch per leaf), then Eq. (5) per
 group at local widths (one masked_merge launch per group).  Its oracle is
 the per-client loop (``protocol``'s loop executor on a ragged fleet): the
-same masks, parameters and clock bit for bit.  The client-sharded grouped
-step (``mesh=``) is not ported yet (ROADMAP.md queue A item 14).
+same masks, parameters and clock bit for bit.
+
+Client-sharded rounds (:class:`ShardedRoundEngine`, and
+``GroupedRoundEngine(mesh=)``): the client axis (a group's member axis)
+splits into contiguous blocks over the shards of a
+:class:`~repro_torch.launch.mesh.ClientMesh`, one process driving every
+shard as the JAX package's ``shard_map`` does.  Each shard runs the
+round's phases on its rows — importance and masks with the rows' global
+fleet ids, ``sparse_agg``'s partials mode, Eq. (5) through
+``masked_merge`` — and the shards exchange only the Eq. (4) (num, den)
+partials, summed or compacted (:mod:`repro_torch.core.sparse_collective`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,8 +76,10 @@ from repro_torch.comm import codecs as wire_codecs
 from repro_torch.comm import quantize as wire_quant
 from repro_torch.comm.payload import (CommConfig, WireSpec,
                                       analytic_wire_bytes)
-from repro_torch.core import aggregation, allocation, baselines, selection
+from repro_torch.core import (aggregation, allocation, baselines, selection,
+                              sparse_collective)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import ClientMesh
 from repro_torch.obs.recorder import profiler_scope
 
 
@@ -80,6 +92,12 @@ class RoundOutputs(NamedTuple):
     wire_overhead: Optional[torch.Tensor] = None
                                # (N,) int32 measured mask/scale bytes;
                                # None with the default CommConfig
+    collective_overflow: Optional[torch.Tensor] = None
+                               # () float32 channels that missed the
+                               # compacted cross-shard buffer
+                               # (ShardedRoundEngine; 0 certifies the
+                               # compaction lossless, and is always 0 for
+                               # the dense collective)
 
 
 class GroupBatch(NamedTuple):
@@ -274,10 +292,13 @@ def _round_step(stacked_old, stacked_new, global_params, dropout_rates,
                                  sel_cfg.channel_axis, dense_masks)
         agg_masks = (masks if delivered is None else
                      aggregation.truncate_masks_to_prefix(masks, delivered))
+    # masks straight from the top-k compare: Eq. (4) as the JAX engine's
+    # compiled step computes it (a masked-out term of a 1-D leaf adds
+    # nothing); cut masks are a product there, the literal W * M * w
     with profiler_scope("feddd_aggregate"):
         new_global = aggregation.aggregate_sparse_stacked(
             stacked_agg, agg_masks, weights, prev_global=global_params,
-            robust=robust)
+            robust=robust, compiled=delivered is None)
     with profiler_scope("feddd_client_update"):
         if full_round:
             new_clients = _adopt_global(new_global, stacked_new)
@@ -462,6 +483,271 @@ def _device_round_time(tel: ScanTelemetry, d_time: torch.Tensor,
     return torch.max(torch.where(part, t_all, -torch.inf))
 
 
+# ------------------------------------------- client-sharded engine (mesh)
+
+def _check_mesh(mesh) -> ClientMesh:
+    """``mesh`` as a ClientMesh with a ``clients`` axis, or raise."""
+    names = getattr(mesh, "axis_names", ())
+    if "clients" not in names:
+        raise ValueError(f"mesh must carry a 'clients' axis; got {names}")
+    return mesh
+
+
+def _shard_bounds(n: int, p: int) -> Tuple[int, List[Tuple[int, int]]]:
+    """``(b, [(lo, hi), ...])``: shard s holds fleet rows [lo, hi) of a
+    contiguous block of ``b = ceil(n / p)`` rows, zero padding taking the
+    place of rows past ``n`` on the trailing shards (the JAX package's
+    layout)."""
+    b = -(-n // p)
+    return b, [(min(s * b, n), min((s + 1) * b, n)) for s in range(p)]
+
+
+def _cut_rows(t: torch.Tensor, lo: int, hi: int, rows: int,
+              dev: torch.device) -> torch.Tensor:
+    """Rows [lo, hi) of ``t`` padded with zero rows up to ``rows``, on
+    ``dev`` (a view where nothing pads and ``t`` is there already)."""
+    part = t[lo:hi]
+    if hi - lo < rows:
+        part = torch.cat([part, torch.zeros((rows - (hi - lo),)
+                                            + tuple(t.shape[1:]),
+                                            dtype=t.dtype, device=t.device)])
+    return sparse_collective.on_device(part, dev)
+
+
+def _shard_tree(stacked, b: int, bounds, mesh: ClientMesh) -> List:
+    """A stacked pytree as one block of ``b`` rows per shard, each on its
+    shard's device."""
+    return [tree.tree_map(lambda l, lo=lo, hi=hi, d=d:
+                          _cut_rows(l, lo, hi, b, d), stacked)
+            for (lo, hi), d in zip(bounds, mesh.devices)]
+
+
+def _gather_rows(parts: Sequence[torch.Tensor], n: int,
+                 dev: torch.device) -> torch.Tensor:
+    """The shards' row blocks back as one (n, ...) tensor on ``dev`` (the
+    one shard's block itself where nothing padded)."""
+    if len(parts) == 1 and parts[0].shape[0] == n and parts[0].device == dev:
+        return parts[0]
+    return torch.cat([sparse_collective.on_device(x, dev) for x in parts])[:n]
+
+
+def _gather_tree(parts: Sequence, n: int, dev: torch.device):
+    leaves = [tree.leaves(p) for p in parts]
+    treedef = tree.flatten(parts[0])[1]
+    return tree.unflatten(treedef, [
+        _gather_rows([lv[i] for lv in leaves], n, dev)
+        for i in range(len(leaves[0]))])
+
+
+def _leaf_sharded_reduce(nums: Sequence[torch.Tensor],
+                         dens: Sequence[torch.Tensor], gprev, dtype, *,
+                         channel_axis: int, collective: str,
+                         keep_fraction: float, mesh: ClientMesh):
+    """The cross-shard Eq. (4) reduction of one leaf's per-shard (num, den)
+    partials -> (the aggregated leaf, () float32 overflow), both on the
+    mesh's first device.
+
+    ``collective="dense"``: the partials summed in shard order (one shard:
+    the identity, no add, which makes the one-shard engine equal the
+    single-device one bit for bit).  ``"sparse"``: the channel axis to the
+    front, den collapsed to its (C,) channel profile (a channel mask makes
+    den constant along every other axis), and
+    :func:`sparse_collective.sparse_numden_allreduce` with each shard's
+    nonzero-channel count as its ``k_local``: each shard ships its
+    top-``K = ceil(C * keep_fraction)`` channels by den mass.
+    """
+    num0 = nums[0]
+    ndim = num0.ndim
+    ax = channel_axis % ndim if ndim else 0
+    c = num0.shape[ax] if ndim else 1
+    if collective == "sparse" and ndim >= 1 and c > 1:
+        nums_cm = [torch.movedim(x, ax, 0) for x in nums]
+        den_chs = [torch.movedim(d, ax, 0).reshape(c, -1)[:, 0]
+                   for d in dens]
+        k = max(1, min(c, int(math.ceil(c * keep_fraction))))
+        nnz = [(d > 0).sum(dtype=torch.int32) for d in den_chs]
+        num_tot, den_ch_tot, ovf = sparse_collective.sparse_numden_allreduce(
+            nums_cm, den_chs, k, mesh, k_local=nnz)
+        num_tot = torch.movedim(num_tot[0], 0, ax)
+        dshape = [1] * ndim
+        dshape[ax] = c
+        den_tot = den_ch_tot[0].reshape(dshape).expand(num0.shape)
+        return (aggregation.finish_masked_mean(num_tot, den_tot, gprev,
+                                               dtype).contiguous(), ovf[0])
+    zero = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
+    return (aggregation.finish_masked_mean(
+        sparse_collective.dense_sum(nums, mesh),
+        sparse_collective.dense_sum(dens, mesh), gprev, dtype), zero)
+
+
+def _sharded_round_step(stacked_old, stacked_new, global_params,
+                        dropout_rates: torch.Tensor, weights: torch.Tensor,
+                        rng, *, mesh: ClientMesh,
+                        sel_cfg: selection.SelectionConfig,
+                        full_round: bool, dense_masks: bool,
+                        comm: CommConfig, collective: str,
+                        keep_fraction: float,
+                        robust: str = "mean") -> RoundOutputs:
+    """:func:`_round_step` with the client axis over the shards of
+    ``mesh``: shard s holds rows [s·B, (s+1)·B) (B = ceil(N / P); the
+    trailing shard zero-padded with weight-0 rows).
+
+    The shard-local phases are the calls ``_round_step`` makes — masks and
+    the wire encoding with the rows' GLOBAL fleet ids (so every client's
+    streams are independent of the layout), Eq. (4) partials through
+    ``sparse_agg``'s partials mode (skipping masked-out terms at the 1-D
+    leaves, as the JAX package's compiled sharded step does), Eq. (5)/(6)
+    with the replicated global — and the one cross-shard exchange is the
+    Eq. (4) reduction (:func:`_leaf_sharded_reduce`).  Non-``mean``
+    ``robust`` gathers every shard's rows onto the first device and runs
+    the single-device robust reduction there, as the JAX package's
+    all-gather fallback.  Outputs land on the first device, in fleet
+    order."""
+    n = tree.leaves(stacked_new)[0].shape[0]
+    dev0 = mesh.devices[0]
+    b, bounds = _shard_bounds(n, mesh.num_shards)
+    olds = _shard_tree(stacked_old, b, bounds, mesh)
+    news = _shard_tree(stacked_new, b, bounds, mesh)
+    ds = [_cut_rows(dropout_rates, lo, hi, b, dv)
+          for (lo, hi), dv in zip(bounds, mesh.devices)]
+    ws = [_cut_rows(weights, lo, hi, b, dv)
+          for (lo, hi), dv in zip(bounds, mesh.devices)]
+    ids = [np.arange(s * b, (s + 1) * b) for s in range(mesh.num_shards)]
+    r_kind, r_arg = aggregation.parse_robust_agg(robust)
+    masks, dens, aggs, ohs = [], [], [], []
+    with profiler_scope("feddd_encode_masks"):
+        for o, nw, dd, i in zip(olds, news, ds, ids):
+            if dense_masks:
+                m, de = _dense_masks(nw, b)
+            else:
+                m, de = selection.build_masks_batched(
+                    o, nw, dd, config=sel_cfg, rng=rng, client_indices=i)
+            masks.append(m)
+            dens.append(de)
+    with profiler_scope("feddd_encode_wire"):
+        for nw, m, i in zip(news, masks, ids):
+            aggs.append(wire_quant.quantize_dequantize_stacked(
+                nw, rng, comm.qbits, client_indices=i))
+            ohs.append(_wire_overhead(m, nw, comm, sel_cfg.channel_axis,
+                                      dense_masks))
+    with profiler_scope("feddd_aggregate"):
+        g_leaves, treedef = tree.flatten(global_params)
+        overflow = torch.zeros((), dtype=torch.float32, device=dev0)
+        if r_kind != "mean":
+            sw_full = [_gather_rows(list(ls), b * len(ls), dev0)
+                       for ls in zip(*[tree.leaves(a) for a in aggs])]
+            sm_full = [_gather_rows(list(ls), b * len(ls), dev0)
+                       for ls in zip(*[tree.leaves(m) for m in masks])]
+            out_leaves = aggregation.robust_leaf_stacks(
+                sw_full, sm_full, _gather_rows(ws, b * len(ws), dev0),
+                g_leaves, r_kind, r_arg)
+        else:
+            out_leaves = []
+            a_leaves = [tree.leaves(a) for a in aggs]
+            m_leaves = [tree.leaves(m) for m in masks]
+            for li, gl in enumerate(g_leaves):
+                nums, dns = [], []
+                for s in range(mesh.num_shards):
+                    sw = a_leaves[s][li]
+                    num, den = aggregation.leaf_masked_partials(
+                        sw, m_leaves[s][li], ws[s],
+                        select=aggregation.select_leaf(sw, True))
+                    nums.append(num)
+                    dns.append(den)
+                agg, ovf = _leaf_sharded_reduce(
+                    nums, dns, gl, a_leaves[0][li].dtype,
+                    channel_axis=sel_cfg.channel_axis,
+                    collective=collective, keep_fraction=keep_fraction,
+                    mesh=mesh)
+                overflow = overflow + ovf
+                out_leaves.append(agg)
+        new_global = tree.unflatten(treedef, out_leaves)
+    with profiler_scope("feddd_client_update"):
+        clients = []
+        for nw, m, dv in zip(news, masks, mesh.devices):
+            g_s = tree.tree_map(lambda g: sparse_collective.on_device(g, dv),
+                                new_global)
+            clients.append(_adopt_global(g_s, nw) if full_round else
+                           aggregation.client_update_sparse(g_s, nw, m))
+    return RoundOutputs(
+        _gather_tree(clients, n, dev0), new_global,
+        _gather_rows(dens, n, dev0),
+        None if comm.is_default else _gather_rows(ohs, n, dev0), overflow)
+
+
+@dataclasses.dataclass
+class ShardedRoundEngine:
+    """Client-sharded FedDD rounds over a 1-D ``clients`` mesh
+    (:class:`~repro_torch.launch.mesh.ClientMesh`).
+
+    Each shard's rows run the shard-local phases of a round (masks, wire
+    encoding, Eq. (4) partials, Eq. (5)/(6)) on its device; the one
+    cross-shard exchange is the Eq. (4) (num, den) reduction — the dense
+    sum by default, or the compacted top-K channel exchange of
+    :mod:`~repro_torch.core.sparse_collective` (``collective="sparse"``),
+    whose bytes scale with (1-D).  One process drives every shard, as the
+    JAX package's ``shard_map`` does; a mesh that repeats one device
+    (virtual shards) runs the whole multi-shard step on it with no copy
+    between shards.
+
+    Contracts (``tests/test_torch_sharded.py``): on one shard with the
+    dense collective a step equals :class:`BatchedRoundEngine`'s bit for
+    bit; on several it is within 2e-6 (the partial sums add in another
+    order) with equal densities; ``collective_overflow`` counts the
+    channels that missed a shard's buffer (0: lossless).  Clients need
+    not divide the mesh: the trailing shard pads with weight-0 rows.
+    """
+
+    selection_cfg: selection.SelectionConfig = dataclasses.field(
+        default_factory=selection.SelectionConfig)
+    comm: CommConfig = dataclasses.field(default_factory=CommConfig)
+    mesh: Optional[ClientMesh] = None
+    collective: str = "dense"      # dense sum | sparse compacted top-K
+    keep_fraction: float = 1.0     # sparse buffer: K = ceil(C * fraction)
+    robust_agg: str = "mean"       # non-mean gathers every shard's rows
+
+    def __post_init__(self):
+        if self.mesh is None:
+            raise ValueError("ShardedRoundEngine requires a mesh (see "
+                             "repro_torch.launch.mesh.make_client_mesh)")
+        _check_mesh(self.mesh)
+        if self.collective not in ("dense", "sparse"):
+            raise ValueError(f"collective must be 'dense' or 'sparse', "
+                             f"got {self.collective!r}")
+        if not 0.0 < self.keep_fraction <= 1.0:
+            raise ValueError(f"keep_fraction must be in (0,1], got "
+                             f"{self.keep_fraction}")
+        aggregation.parse_robust_agg(self.robust_agg)
+
+    @property
+    def num_shards(self) -> int:
+        return self.mesh.num_shards
+
+    def step(self, stacked_old, stacked_new, global_params, dropout_rates,
+             weights, rng=None, *, full_round: bool,
+             dense_masks: bool = False, stacked_upload=None,
+             delivered=None) -> RoundOutputs:
+        """One sharded round; the arguments and outputs of
+        :meth:`BatchedRoundEngine.step` (the outputs on the mesh's first
+        device), plus ``collective_overflow``.  Upload overrides and
+        delivered prefixes are single-device features and raise."""
+        if stacked_upload is not None or delivered is not None:
+            raise NotImplementedError(
+                "upload overrides / delivered prefixes are single-device "
+                "engine features (fault corruption and deadline partial "
+                "aggregation do not shard)")
+        dev = tree.leaves(stacked_new)[0].device
+        return _sharded_round_step(
+            stacked_old, stacked_new, global_params,
+            torch.as_tensor(dropout_rates, dtype=torch.float32, device=dev),
+            torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
+            mesh=self.mesh, sel_cfg=self.selection_cfg,
+            full_round=bool(full_round), dense_masks=bool(dense_masks),
+            comm=self.comm, collective=self.collective,
+            keep_fraction=float(self.keep_fraction),
+            robust=str(self.robust_agg))
+
+
 # --------------------------------------------------- shape-grouped engine
 
 def _slice_leaf(g: torch.Tensor, local_shape) -> torch.Tensor:
@@ -542,24 +828,135 @@ def _grouped_round_step(groups: Sequence[GroupBatch], global_params,
                                densities, wire_oh)
 
 
+def _sharded_grouped_round_step(groups: Sequence[GroupBatch], global_params,
+                                weights: torch.Tensor, rng, *,
+                                mesh: ClientMesh,
+                                sel_cfg: selection.SelectionConfig,
+                                full_round: bool, dense_masks: bool = False,
+                                comm: CommConfig = CommConfig()
+                                ) -> GroupedRoundOutputs:
+    """:func:`_grouped_round_step` with every group's MEMBER axis over the
+    shards of ``mesh`` (each group laid out as :func:`_sharded_round_step`
+    lays out the fleet, its padded rows at weight 0 with the id N).
+
+    Per group and shard: the coverage-aware masks at the group's widths
+    (planned and divided as the unsharded grouped step's, so the
+    densities are its own), the decoded uploads, and the Eq. (4) partials
+    at local widths through ``sparse_agg``'s partials mode with the
+    channel mask (skipping masked-out terms at the 1-D leaves, as the JAX
+    package's compiled sharded grouped step does), zero-padded to the
+    global widths.  The partials sum across shards, then across groups
+    (Eq. (4)'s sums are linear), before one shared
+    ``finish_masked_mean``; Eq. (5)/(6) per group and shard at local
+    widths.  Allclose to the unsharded step, which reduces every row in
+    one canvas in another order."""
+    n = weights.shape[0]
+    dev0 = mesh.devices[0]
+    g_leaves, treedef = tree.flatten(global_params)
+    num_tot = [torch.zeros(gl.shape, dtype=torch.float32, device=dev0)
+               for gl in g_leaves]
+    den_tot = [torch.zeros(gl.shape, dtype=torch.float32, device=dev0)
+               for gl in g_leaves]
+    densities = torch.zeros((n,), dtype=torch.float32, device=dev0)
+    wire_oh = (None if comm.is_default else
+               torch.zeros((n,), dtype=torch.int32, device=dev0))
+    staged = []
+    for g in groups:
+        n_g = len(g.indices)
+        rows = g.rows if g.rows is not None else torch.as_tensor(
+            g.indices, dtype=torch.long, device=weights.device)
+        b, bounds = _shard_bounds(n_g, mesh.num_shards)
+        w_rows = weights.index_select(0, rows)
+        ids = np.concatenate([np.asarray(g.indices, np.int64),
+                              np.full(b * mesh.num_shards - n_g, n,
+                                      np.int64)])
+        olds = _shard_tree(g.stacked_old, b, bounds, mesh)
+        news = _shard_tree(g.stacked_new, b, bounds, mesh)
+        masks, dens, ohs = [], [], []
+        parts = [[] for _ in g_leaves]
+        for s, ((lo, hi), dv) in enumerate(zip(bounds, mesh.devices)):
+            sl = slice(s * b, (s + 1) * b)
+            ws = _cut_rows(w_rows, lo, hi, b, dv)
+            with profiler_scope("feddd_encode_masks"):
+                if dense_masks:
+                    m, de = _dense_masks(news[s], b)
+                else:
+                    cov = (None if g.coverage is None else tree.tree_map(
+                        lambda c: sparse_collective.on_device(c, dv), g.coverage))
+                    m, de = selection.build_masks_batched(
+                        olds[s], news[s],
+                        _cut_rows(g.dropout, lo, hi, b, dv),
+                        config=sel_cfg, rng=rng, coverage=cov,
+                        client_indices=ids[sl], match_loop=True)
+            with profiler_scope("feddd_encode_wire"):
+                agg = wire_quant.quantize_dequantize_stacked(
+                    news[s], rng, comm.qbits, client_indices=ids[sl])
+                ohs.append(_wire_overhead(m, news[s], comm,
+                                          sel_cfg.channel_axis, dense_masks))
+            masks.append(m)
+            dens.append(de)
+            with profiler_scope("feddd_aggregate"):
+                for li, (sw, sm, gl) in enumerate(zip(
+                        tree.leaves(agg), tree.leaves(m), g_leaves)):
+                    num, den = aggregation.leaf_masked_partials(
+                        sw, sm, ws, select=aggregation.select_leaf(sw, True))
+                    parts[li].append((aggregation.pad_to(num, gl.shape),
+                                      aggregation.pad_to(den, gl.shape)))
+        with profiler_scope("feddd_aggregate"):
+            for li, pl in enumerate(parts):
+                num_tot[li] = num_tot[li] + sparse_collective.dense_sum(
+                    [x for x, _ in pl], mesh)
+                den_tot[li] = den_tot[li] + sparse_collective.dense_sum(
+                    [y for _, y in pl], mesh)
+        densities.index_copy_(0, rows, _gather_rows(dens, n_g, dev0))
+        if wire_oh is not None:
+            wire_oh.index_copy_(0, rows, _gather_rows(ohs, n_g, dev0))
+        staged.append((g, news, masks, n_g))
+    with profiler_scope("feddd_aggregate"):
+        new_global = tree.unflatten(treedef, [
+            aggregation.finish_masked_mean(num, den, gl, gl.dtype)
+            for num, den, gl in zip(num_tot, den_tot, g_leaves)])
+    with profiler_scope("feddd_client_update"):
+        new_group_params = []
+        for g, news, masks, n_g in staged:
+            template = unstack_pytree(g.stacked_new, 1)[0]
+            outs = []
+            for nw, m, dv in zip(news, masks, mesh.devices):
+                g_local = tree.tree_map(
+                    lambda x: sparse_collective.on_device(x, dv),
+                    slice_pytree(new_global, template))
+                outs.append(_adopt_global(g_local, nw) if full_round else
+                            aggregation.client_update_sparse(g_local, nw, m))
+            new_group_params.append(_gather_tree(outs, n_g, dev0))
+    return GroupedRoundOutputs(tuple(new_group_params), new_global,
+                               densities, wire_oh)
+
+
 @dataclasses.dataclass
 class GroupedRoundEngine:
     """FedDD rounds over a shape-grouped ragged fleet — the heterogeneous
-    counterpart of :class:`BatchedRoundEngine`.  ``mesh`` (the
-    client-sharded grouped step) is not ported yet and raises."""
+    counterpart of :class:`BatchedRoundEngine`.  With ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ClientMesh`) each group's member axis
+    shards over it (:func:`_sharded_grouped_round_step`): allclose to the
+    unsharded step, densities equal; ``robust_agg`` other than "mean"
+    does not compose with per-shard partials and raises there."""
 
     selection_cfg: selection.SelectionConfig = dataclasses.field(
         default_factory=selection.SelectionConfig)
     comm: CommConfig = dataclasses.field(default_factory=CommConfig)
-    mesh: object = None
+    mesh: Optional[ClientMesh] = None
     robust_agg: str = "mean"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the client-sharded grouped step (mesh=) is not ported yet "
-                "(ROADMAP.md queue A item 14, A14)")
         aggregation.parse_robust_agg(self.robust_agg)
+        if self.mesh is not None:
+            _check_mesh(self.mesh)
+            if str(self.robust_agg) != "mean":
+                raise NotImplementedError(
+                    "robust_agg is a single-device grouped-engine feature: "
+                    "the sharded grouped step sums per-group (num, den) "
+                    "partials across shards, which trimmed/clip "
+                    "aggregation cannot compose with")
 
     def step(self, groups: Sequence[GroupBatch], global_params, weights,
              rng, *, full_round: bool,
@@ -578,9 +975,14 @@ class GroupedRoundEngine:
           full_round / dense_masks: as :meth:`BatchedRoundEngine.step`.
         """
         dev = tree.leaves(global_params)[0].device
+        w = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        if self.mesh is not None:
+            return _sharded_grouped_round_step(
+                tuple(groups), global_params, w, rng, mesh=self.mesh,
+                sel_cfg=self.selection_cfg, full_round=bool(full_round),
+                dense_masks=bool(dense_masks), comm=self.comm)
         return _grouped_round_step(
-            tuple(groups), global_params,
-            torch.as_tensor(weights, dtype=torch.float32, device=dev), rng,
+            tuple(groups), global_params, w, rng,
             sel_cfg=self.selection_cfg, full_round=bool(full_round),
             dense_masks=bool(dense_masks), comm=self.comm,
             robust=str(self.robust_agg))

@@ -9,6 +9,11 @@
 //
 //   num[e] = sum_n W[n, e] * (M[n, ch(e)] * w_n)
 //   den[e] = sum_n  M[n, ch(e)] * w_n
+//   with `select`, a term whose mask is 0 adds nothing to num (a NaN or
+//   Inf on a masked-out entry does not reach it), as the JAX package's
+//   compiled engine step computes Eq. (4) where XLA rewrites
+//   W * convert(mask) into a select; without it NaN * 0 stays NaN, as in
+//   the literal Eq. (4)
 //   mean mode: out[e] = den[e] > eps ? num[e] / max(den[e], eps) : gprev[e]
 //              (num / max(den, eps) where gprev is null), in out's dtype
 //
@@ -52,7 +57,7 @@ constexpr float kEps = 1e-12f;
 
 enum Mode { kPartials = 0, kMean = 1 };
 
-template <typename T, typename TO, int V, int MODE>
+template <typename T, typename TO, int V, int MODE, bool SELECT>
 __global__ void __launch_bounds__(kThreads)
     sparse_agg_kernel(const T* __restrict__ vals, const T* __restrict__ mask,
                       const float* __restrict__ weights,
@@ -98,8 +103,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < V; ++j) {
           const T mj = mask_vec ? m[u].v[j] : m[u].v[0];
-          const float mw = feddd::to_f32(mj) * w[u];
-          num[j] = fmaf(feddd::to_f32(x[u].v[j]), mw, num[j]);
+          const float mf = feddd::to_f32(mj);
+          const float mw = mf * w[u];
+          if (!SELECT || mf != 0.f)
+            num[j] = fmaf(feddd::to_f32(x[u].v[j]), mw, num[j]);
           den[j] += mw;
         }
       }
@@ -128,7 +135,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename TO, int V, int MODE>
+template <typename T, typename TO, int V, int MODE, bool SELECT>
 cudaError_t launch(const void* vals, const void* mask, const float* weights,
                    const void* gprev, void* out, float* den, int64_t n,
                    int64_t a, int64_t c, int64_t b, int64_t mask_c,
@@ -136,50 +143,62 @@ cudaError_t launch(const void* vals, const void* mask, const float* weights,
   const int64_t size = a * c * b;
   const int64_t blocks = (size / V + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  sparse_agg_kernel<T, TO, V, MODE>
+  sparse_agg_kernel<T, TO, V, MODE, SELECT>
       <<<static_cast<unsigned int>(blocks), kThreads, 0, s>>>(
           static_cast<const T*>(vals), static_cast<const T*>(mask), weights,
           static_cast<const TO*>(gprev), out, den, n, size, c, b, mask_c);
   return cudaSuccess;
 }
 
-template <typename T, typename TO, int MODE>
+template <typename T, typename TO, int MODE, bool SELECT>
 cudaError_t launch_vec(int vec, const void* vals, const void* mask,
                        const float* weights, const void* gprev, void* out,
                        float* den, int64_t n, int64_t a, int64_t c, int64_t b,
                        int64_t mask_c, cudaStream_t s) {
   switch (vec) {
     case 1:
-      return launch<T, TO, 1, MODE>(vals, mask, weights, gprev, out, den, n,
-                                    a, c, b, mask_c, s);
+      return launch<T, TO, 1, MODE, SELECT>(vals, mask, weights, gprev, out,
+                                            den, n, a, c, b, mask_c, s);
     case 2:
-      return launch<T, TO, 2, MODE>(vals, mask, weights, gprev, out, den, n,
-                                    a, c, b, mask_c, s);
+      return launch<T, TO, 2, MODE, SELECT>(vals, mask, weights, gprev, out,
+                                            den, n, a, c, b, mask_c, s);
     case 4:
-      return launch<T, TO, 4, MODE>(vals, mask, weights, gprev, out, den, n,
-                                    a, c, b, mask_c, s);
+      return launch<T, TO, 4, MODE, SELECT>(vals, mask, weights, gprev, out,
+                                            den, n, a, c, b, mask_c, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool SELECT>
 cudaError_t launch_mode(int mode, int out_dtype, int vec, const void* vals,
                         const void* mask, const float* weights,
                         const void* gprev, void* out, float* den, int64_t n,
                         int64_t a, int64_t c, int64_t b, int64_t mask_c,
                         cudaStream_t s) {
   if (mode == kPartials)
-    return launch_vec<T, float, kPartials>(vec, vals, mask, weights, nullptr,
-                                           out, den, n, a, c, b, mask_c, s);
+    return launch_vec<T, float, kPartials, SELECT>(
+        vec, vals, mask, weights, nullptr, out, den, n, a, c, b, mask_c, s);
   if (mode != kMean) return cudaErrorInvalidValue;
   if (out_dtype == feddd::kFloat32)
-    return launch_vec<T, float, kMean>(vec, vals, mask, weights, gprev, out,
-                                       nullptr, n, a, c, b, mask_c, s);
+    return launch_vec<T, float, kMean, SELECT>(
+        vec, vals, mask, weights, gprev, out, nullptr, n, a, c, b, mask_c, s);
   if (out_dtype == feddd::kBFloat16)
-    return launch_vec<T, __nv_bfloat16, kMean>(vec, vals, mask, weights,
-                                               gprev, out, nullptr, n, a, c,
-                                               b, mask_c, s);
+    return launch_vec<T, __nv_bfloat16, kMean, SELECT>(
+        vec, vals, mask, weights, gprev, out, nullptr, n, a, c, b, mask_c, s);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_select(int select, int mode, int out_dtype, int vec,
+                          const void* vals, const void* mask,
+                          const float* weights, const void* gprev, void* out,
+                          float* den, int64_t n, int64_t a, int64_t c,
+                          int64_t b, int64_t mask_c, cudaStream_t s) {
+  if (select)
+    return launch_mode<T, true>(mode, out_dtype, vec, vals, mask, weights,
+                                gprev, out, den, n, a, c, b, mask_c, s);
+  return launch_mode<T, false>(mode, out_dtype, vec, vals, mask, weights,
+                               gprev, out, den, n, a, c, b, mask_c, s);
 }
 
 }  // namespace
@@ -192,12 +211,13 @@ cudaError_t launch_mode(int mode, int out_dtype, int vec, const void* vals,
 // mode 0 (partials): out = num and den, (A, C, B) fp32; gprev unused.
 // mode 1 (mean): out (A, C, B) in `out_dtype`; gprev (A, C, B) in
 // `out_dtype` or null; den unused.
+// select != 0: a term whose mask is 0 adds nothing to num (both modes).
 extern "C" int feddd_sparse_agg(const void* vals, const void* mask,
                                 const void* weights, const void* gprev,
                                 void* out, void* den, int64_t n, int64_t a,
                                 int64_t c, int64_t b, int64_t mask_c,
-                                int vec, int mode, int dtype, int out_dtype,
-                                void* stream) {
+                                int vec, int mode, int select, int dtype,
+                                int out_dtype, void* stream) {
   const int64_t inner = b == 1 ? c : b;
   const int64_t size = a * c * b;
   const bool elementwise = mask_c == size && size != c && size != 1;
@@ -210,11 +230,12 @@ extern "C" int feddd_sparse_agg(const void* vals, const void* mask,
   float* d = static_cast<float*>(den);
   cudaError_t err;
   if (dtype == feddd::kFloat32) {
-    err = launch_mode<float>(mode, out_dtype, vec, vals, mask, w, gprev, out,
-                             d, n, a, c, b, mask_c, s);
+    err = launch_select<float>(select, mode, out_dtype, vec, vals, mask, w,
+                               gprev, out, d, n, a, c, b, mask_c, s);
   } else if (dtype == feddd::kBFloat16) {
-    err = launch_mode<__nv_bfloat16>(mode, out_dtype, vec, vals, mask, w,
-                                     gprev, out, d, n, a, c, b, mask_c, s);
+    err = launch_select<__nv_bfloat16>(select, mode, out_dtype, vec, vals,
+                                       mask, w, gprev, out, d, n, a, c, b,
+                                       mask_c, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention")
 _launches: Dict[str, int] = collections.Counter()
 _routes: Dict[Tuple[str, object], int] = collections.Counter()
+_flags: Dict[Tuple[str, str], int] = collections.Counter()
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
@@ -41,8 +42,8 @@ _SIGNATURES = {
     "feddd_importance": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32,
                          _I32, _P),
     # vals, mask, weights, gprev, out, den, n, a, c, b, mask_c, vec, mode,
-    # dtype, out_dtype, stream
-    "feddd_sparse_agg": (_P,) * 6 + (_I64,) * 5 + (_I32,) * 4 + (_P,),
+    # select, dtype, out_dtype, stream
+    "feddd_sparse_agg": (_P,) * 6 + (_I64,) * 5 + (_I32,) * 5 + (_P,),
     # table (leaves x 18 int64, kernels/masked_merge/ops.plan), leaves,
     # dtype, stream
     "feddd_masked_merge_group": (ctypes.POINTER(_I64), _I32, _I32, _P),
@@ -145,9 +146,20 @@ def route_launches(kernel: str, routes=None) -> Dict:
     return {r: _routes[kernel, r] for r in routes}
 
 
+def count_flag(kernel: str, flag: str) -> None:
+    """Count a launch of ``kernel`` just made with the option ``flag``."""
+    _flags[kernel, flag] += 1
+
+
+def flag_launches(kernel: str, flag: str) -> int:
+    """Launches of ``kernel`` with ``flag`` since ``reset_launch_counts``."""
+    return _flags[kernel, flag]
+
+
 def reset_launch_counts() -> None:
     _launches.clear()
     _routes.clear()
+    _flags.clear()
 
 
 # --------------------------------------------------------- wrapper helpers

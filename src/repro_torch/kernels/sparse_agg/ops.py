@@ -6,7 +6,14 @@ one (N, 1, ..., 1), or an elementwise mask shaped like the values (the
 Pallas kernel's own contract; a ragged fleet's zero-padded canvas, whose
 padded input channels no channel mask can describe).  Launches count by
 mode and by mask: ``"mean"`` / ``"partials"`` for channel and all-ones
-masks, ``"mean:elementwise"`` / ``"partials:elementwise"`` otherwise."""
+masks, ``"mean:elementwise"`` / ``"partials:elementwise"`` otherwise.
+
+``select=True`` (either mode) makes a term whose mask is 0 add nothing to
+the numerator, so a NaN or Inf on a masked-out entry stays out of Eq. (4):
+the JAX package's compiled engine step, where XLA rewrites
+``W * convert(mask)`` into a select (at the 1-D leaves of a step without
+delivered prefixes; ``core/round_engine.py``).  Off, NaN * 0 stays NaN,
+the literal Eq. (4).  :func:`select_counts` counts the launches with it."""
 
 from __future__ import annotations
 
@@ -58,7 +65,7 @@ def _mask_rows(stack_m: torch.Tensor, acb, mask_c) -> torch.Tensor:
 
 
 def _launch(mode, stack_w, stack_m, weights, gprev, out, den, acb,
-            mask_c) -> None:
+            mask_c, select) -> None:
     a, c, b = acb
     # V <= 4 elements per access: the values, the outputs and gprev, and a
     # channel-last or elementwise mask's rows, all aligned to V
@@ -70,10 +77,13 @@ def _launch(mode, stack_w, stack_m, weights, gprev, out, den, acb,
                 stack_m.data_ptr(), weights.data_ptr(),
                 None if gprev is None else gprev.data_ptr(), out.data_ptr(),
                 None if den is None else den.data_ptr(), stack_w.shape[0], a,
-                c, b, mask_c, vec, mode, _lib.DTYPE_CODES[stack_w.dtype],
-                _lib.DTYPE_CODES[out.dtype], device=stack_w.device,
+                c, b, mask_c, vec, mode, int(bool(select)),
+                _lib.DTYPE_CODES[stack_w.dtype], _lib.DTYPE_CODES[out.dtype],
+                device=stack_w.device,
                 route=MODES[mode] + (ELEMENTWISE if _elementwise(acb, mask_c)
                                      else ""))
+    if select:
+        _lib.count_flag("sparse_agg", "select")
 
 
 ROUTES = MODES + tuple(m + ELEMENTWISE for m in MODES)
@@ -86,6 +96,12 @@ def route_counts() -> Dict[str, int]:
     return _lib.route_launches("sparse_agg", ROUTES)
 
 
+def select_counts() -> Dict[str, int]:
+    """Launches with ``select=True`` since
+    ``kernels.reset_launch_counts``."""
+    return {"select": _lib.flag_launches("sparse_agg", "select")}
+
+
 def mode_counts() -> Dict[str, int]:
     """Launches by mode, whatever the mask, since
     ``kernels.reset_launch_counts``."""
@@ -94,40 +110,42 @@ def mode_counts() -> Dict[str, int]:
 
 
 def masked_weighted_sum(stack_w: torch.Tensor, stack_m: torch.Tensor,
-                        weights: torch.Tensor
+                        weights: torch.Tensor, select: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. (4) partials of one client-stacked leaf.
 
     stack_w: (N, *leaf) values; stack_m: the channel-shaped mask
     (N, 1, ..., C, ..., 1), (N, 1, ..., 1) for full uploads, or an
     elementwise (N, *leaf) mask, in the values' dtype; weights: (N,)
-    fp32.  Returns fp32 (num, den), each shaped like the leaf.
+    fp32; ``select``: masked-out terms add nothing (module docstring).
+    Returns fp32 (num, den), each shaped like the leaf.
     """
     dev, n, (a, c, b), mask_c = _leaf_view(stack_w, stack_m, weights)
     leaf = stack_w.shape[1:]
     if dev == "cpu":
         num, den = masked_weighted_sum_ref(
             stack_w.view(n, a, c, b), _mask_rows(stack_m, (a, c, b), mask_c),
-            weights)
+            weights, select)
         return num.reshape(leaf), den.reshape(leaf)
     num = torch.empty(leaf, dtype=torch.float32, device=stack_w.device)
     den = torch.empty(leaf, dtype=torch.float32, device=stack_w.device)
     _launch(PARTIALS, stack_w, stack_m, weights, None, num, den, (a, c, b),
-            mask_c)
+            mask_c, select)
     return num, den
 
 
 def masked_weighted_mean(stack_w: torch.Tensor, stack_m: torch.Tensor,
                          weights: torch.Tensor,
                          gprev: Optional[torch.Tensor] = None,
-                         dtype: Optional[torch.dtype] = None
-                         ) -> torch.Tensor:
+                         dtype: Optional[torch.dtype] = None,
+                         select: bool = False) -> torch.Tensor:
     """Eq. (4) of one client-stacked leaf, finished: num / max(den, eps),
     and where no client uploaded a position (den <= eps) the previous
     global ``gprev`` (shaped like the leaf), in ``dtype`` (default: the
     values').  One launch; num and den never reach device memory.
 
-    The operands are those of :func:`masked_weighted_sum`.  A ``gprev`` in
+    The operands and ``select`` are those of :func:`masked_weighted_sum`.
+    A ``gprev`` in
     another dtype than ``dtype`` is cast to it first, which gives the same
     result as filling in fp32 and casting after.
     """
@@ -149,10 +167,10 @@ def masked_weighted_mean(stack_w: torch.Tensor, stack_m: torch.Tensor,
             stack_w.view(n, a, c, b), _mask_rows(stack_m, (a, c, b), mask_c),
             weights,
             None if gprev is None else gprev.view(a, c, b),
-            dtype).reshape(leaf)
+            dtype, select).reshape(leaf)
     if gprev is not None and gprev.dtype != dtype:
         gprev = gprev.to(dtype)
     out = torch.empty(leaf, dtype=dtype, device=stack_w.device)
     _launch(MEAN, stack_w, stack_m, weights, gprev, out, None, (a, c, b),
-            mask_c)
+            mask_c, select)
     return out

@@ -1,0 +1,110 @@
+"""Client meshes for the client-sharded round engines.
+
+The JAX package shards the fleet's client axis over a 1-D ``clients``
+``jax.sharding.Mesh`` and runs each round's shards from one Python process
+(``shard_map``).  The port keeps that single-controller model: a
+:class:`ClientMesh` is a tuple of ``torch.device`` s, one per shard, and
+one process drives every shard.  A mesh may repeat one device — virtual
+shards — so a one-card machine runs the whole multi-shard step (padding,
+per-shard partials, the compacted collective and its overflow) on its one
+card, as the JAX package's tests run P CPU devices with
+``--xla_force_host_platform_device_count``.  Rows of shards on distinct
+cards move with non-blocking copies.
+
+No constant here touches a device at import time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientMesh:
+    """A 1-D mesh of client shards: shard p's rows live on ``devices[p]``.
+
+    ``axis_names`` names the mesh's axis, ``("clients",)`` for the round
+    engines (they reject a mesh without that axis)."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("clients",)
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a ClientMesh needs at least one device")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", tuple(self.axis_names))
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.devices)
+
+
+def _visible(device: DeviceLike) -> Tuple[torch.device, ...]:
+    """The devices of ``device``'s type this run can use, in index order:
+    every visible card for ``cuda``, the one CPU for ``cpu``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    return (dev,)
+
+
+def _largest_divisor_leq(n: int, k: int) -> int:
+    """Largest divisor of ``n`` that is <= ``k`` (k >= 1)."""
+    k = max(1, min(int(k), n))
+    while n % k:
+        k -= 1
+    return k
+
+
+def make_host_mesh(data: int = 1, model: int = 1,
+                   device: DeviceLike = None) -> Tuple[Tuple[torch.device,
+                                                             ...], ...]:
+    """A small (data, model) grid of the visible devices, each axis size
+    clamped to a divisor of the device count so ``data * model`` tiles a
+    prefix of them exactly (asking for (3, 1) on 8 devices gives (2, 1)).
+    Returns the grid as rows of devices."""
+    devs = _visible(device)
+    n = len(devs)
+    data = _largest_divisor_leq(n, data)
+    model = _largest_divisor_leq(n // data, model)
+    return tuple(tuple(devs[r * model:(r + 1) * model])
+                 for r in range(data))
+
+
+def make_client_mesh(num_devices: Optional[int] = None,
+                     device: DeviceLike = None) -> ClientMesh:
+    """A ``clients`` mesh over up to ``num_devices`` of the visible devices
+    of ``device``'s type (all of them by default; ``device`` None means
+    ``cuda``), clamped to what the run can see: one device on the CPU.
+    Client counts need not divide the mesh (the engine pads)."""
+    devs = _visible(device)
+    k = len(devs) if num_devices is None else max(
+        1, min(int(num_devices), len(devs)))
+    return ClientMesh(devs[:k])
+
+
+def resolve_client_mesh(mesh: Union[bool, int, ClientMesh],
+                        device: DeviceLike = None) -> ClientMesh:
+    """A ``ProtocolConfig.mesh`` value as a :class:`ClientMesh`: ``True``
+    (every visible device), an int (that many, clamped), or a ClientMesh
+    with a ``clients`` axis, returned as it is."""
+    if mesh is True:
+        return make_client_mesh(device=device)
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        return make_client_mesh(mesh, device=device)
+    if isinstance(mesh, ClientMesh):
+        if "clients" not in mesh.axis_names:
+            raise ValueError(
+                f"client-sharded engines need a 'clients' mesh axis; got "
+                f"axes {mesh.axis_names}")
+        return mesh
+    raise TypeError(f"mesh must be an int, True, or a ClientMesh; got "
+                    f"{type(mesh).__name__}")

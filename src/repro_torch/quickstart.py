@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.quickstart [--rounds N] \
         [--codec dense|bitmask|index|auto] [--qbits 32|16|8] [--loop] \
-        [--log-jsonl PATH] [--trace] [--device D]
+        [--mesh N] [--log-jsonl PATH] [--trace] [--device D]
 
 The port's twin of ``examples/quickstart.py``: the paper's MLP from
 ``PRNGKey(0)`` across 10 non-IID clients (3 classes each), A_server =
@@ -10,7 +10,9 @@ The port's twin of ``examples/quickstart.py``: the paper's MLP from
 (8: int8 stochastic rounding of the aggregated values), then FedAvg with
 full uploads on the same data and telemetry.  ``--loop`` runs FedDD
 through the per-client reference loop instead of the batched engine;
-``--log-jsonl`` writes the FedDD run's JSONL log (inspect it with
+``--mesh N`` shards its client axis over a mesh of up to N of the
+visible devices (clamped: one on the CPU or on a one-card machine; the
+engine only, so not with ``--loop``); ``--log-jsonl`` writes the FedDD run's JSONL log (inspect it with
 ``python -m repro_torch.obs.report PATH``) and ``--trace`` wraps its
 spans in ``torch.profiler.record_function``.  Runs on ``cuda`` unless
 ``--device cpu`` is given.
@@ -58,12 +60,13 @@ def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
         comm: CommConfig = CommConfig(), selection: str = "feddd",
         batched: bool = True, track_epsilon: bool = False,
         obs: ObsConfig = ObsConfig(), device: DeviceLike = None,
-        on_round: Optional[Callable] = None
+        mesh=None, on_round: Optional[Callable] = None
         ) -> Tuple[RunResult, Optional[RunResult], object]:
     """FedDD for ``rounds`` rounds in the wire format ``comm`` with the
     channel selection ``selection`` (the paper's "feddd" importance, or an
     ablation such as "random"), on the batched engine or (``batched=False``
-    or ``track_epsilon``) the per-client loop, recorded by ``obs``; then
+    or ``track_epsilon``) the per-client loop, recorded by ``obs``, over
+    the client mesh ``mesh`` (``ProtocolConfig.mesh``) if one is given; then
     FedAvg for ``fedavg_rounds`` (default: as many; 0: none, and None in
     its place) with full uploads.  ``on_round(scheme, record)`` sees every
     round once its run has finished.  Returns (feddd, fedavg, telemetry)."""
@@ -74,7 +77,8 @@ def run(rounds: int = 10, *, fedavg_rounds: Optional[int] = None,
             ("feddd", rounds, dict(a_server=a_server, h=FEDDD_H, comm=comm,
                                    selection=SelectionConfig(selection),
                                    batched=batched,
-                                   track_epsilon=track_epsilon, obs=obs)),
+                                   track_epsilon=track_epsilon, obs=obs,
+                                   mesh=mesh)),
             ("fedavg", n_avg, {})):
         if not n_rounds:
             results.append(None)
@@ -111,6 +115,9 @@ def main(argv=None) -> None:
     ap.add_argument("--loop", action="store_true",
                     help="run FedDD through the per-client reference loop "
                          "instead of the batched round engine")
+    ap.add_argument("--mesh", type=int, default=None, metavar="N",
+                    help="shard FedDD's client axis over a mesh of up to N "
+                         "visible devices (the engine only)")
     ap.add_argument("--log-jsonl", default=None, metavar="PATH",
                     help="write the FedDD run's JSONL log here; inspect "
                          "with `python -m repro_torch.obs.report PATH`")
@@ -120,6 +127,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.mesh is not None and args.loop:
+        ap.error("--mesh requires the batched engine (drop --loop)")
     obs = ObsConfig()
     if args.log_jsonl or args.trace:
         if args.log_jsonl:
@@ -131,7 +140,8 @@ def main(argv=None) -> None:
                            comm=CommConfig(codec=args.codec,
                                            qbits=args.qbits),
                            batched=not args.loop, obs=obs,
-                           device=args.device, on_round=_print_round)
+                           device=args.device, mesh=args.mesh,
+                           on_round=_print_round)
     if args.log_jsonl:
         print(f"  run log -> {args.log_jsonl}  (inspect: python -m "
               f"repro_torch.obs.report {args.log_jsonl})")

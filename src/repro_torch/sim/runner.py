@@ -45,8 +45,13 @@ synchronous policy over a static network this runner reproduces the
 protocol driver's Eq. (12) round times and global parameters bit for
 bit, for homogeneous and ragged fleets alike.
 
-The client-sharded mesh is not ported (``ProtocolConfig(mesh=)`` raises,
-ROADMAP.md queue A item 14, A14).
+Client-sharded fleets (``ProtocolConfig.mesh``): the homogeneous wave
+and async fleets step a ``ShardedRoundEngine`` over the client mesh and
+the ragged ones a ``GroupedRoundEngine(mesh=)``, the protocol's routing;
+the cross-shard Eq. (4) bytes are counted once a wave round
+(``account_collective``).  Corruption faults, deadline partial
+aggregation, a population whose cohort changes and the sparse collective
+on a ragged fleet raise with a mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,7 +65,8 @@ import torch
 
 from repro_torch import convert, prng, tree
 from repro_torch import obs as obs_mod
-from repro_torch.comm.payload import (WireSpec, account_uplink,
+from repro_torch.comm.payload import (WireSpec, account_collective,
+                                      account_uplink,
                                       analytic_uplink_vector,
                                       delivered_prefix_counts)
 from repro_torch.core import baselines, coverage as cov_mod, round_engine
@@ -70,6 +76,7 @@ from repro_torch.core.allocation import (ClientTelemetry,
 from repro_torch.core.protocol import (ProtocolConfig, RoundRecord,
                                        RunResult, _to_host, _tree_bytes)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import resolve_client_mesh
 from repro_torch.sim import engine as ev_mod
 from repro_torch.sim import faults as faults_mod
 from repro_torch.sim.engine import (COMPUTE_DONE, DOWNLOAD_DONE, UPLOAD_DONE,
@@ -271,7 +278,7 @@ class _GroupedWaveFleet:
         self.state = round_engine.GroupedFleetState(
             runner.groups, runner.group_coverage, runner.client_params,
             runner.cfg.selection, runner.tel.num_clients, runner.cfg.comm,
-            robust_agg=runner.cfg.robust_agg)
+            mesh=runner.mesh, robust_agg=runner.cfg.robust_agg)
 
     def train(self, local_train_fn, rk, part, losses, d_used) -> List:
         return self.state.train(local_train_fn, rk, part, losses, d_used,
@@ -362,6 +369,12 @@ class SimRunner:
                 raise ValueError(
                     "population sticky state does not ride the RunState "
                     "snapshot; run checkpoint/resume without population=")
+            if cfg.mesh is not None and not population.sampler.static:
+                raise ValueError(
+                    "client-sharded (mesh) fleets keep their shard layout "
+                    "for the whole run; population runs on a mesh need a "
+                    "static cohort (identity sampler, or cohort_size == "
+                    "population with always-on availability)")
             if client_params is not None:
                 population.seed_params(
                     [convert.to_torch(p, self.device)
@@ -381,12 +394,46 @@ class SimRunner:
         self.client_params = [convert.to_torch(p, self.device)
                               for p in client_params]
         self._partition_fleet()
-        self.engine = round_engine.BatchedRoundEngine(
-            cfg.selection, cfg.comm, robust_agg=cfg.robust_agg)
-        # async ragged merges only
+        # client-sharded fleets (cfg.mesh): the protocol's routing, the
+        # sharded engine for a homogeneous fleet and the sharded grouped
+        # step for a ragged one
+        self.mesh = None
+        if cfg.mesh is not None:
+            self.mesh = resolve_client_mesh(cfg.mesh, self.device)
+            if faults is not None and faults.may_corrupt:
+                raise ValueError(
+                    "payload corruption rewrites single rows of the "
+                    "stacked upload on the host; client-sharded (mesh) "
+                    "fleets keep rows on their shard — run corruption "
+                    "faults without a mesh")
+            if isinstance(self.policy, DeadlinePolicy) and \
+                    self.policy.partial:
+                raise ValueError(
+                    "partial aggregation of delivered prefixes is a "
+                    "single-device engine feature; run deadline "
+                    "partial=True without a mesh")
+        if self.mesh is not None and not self.heterogeneous:
+            self.engine = round_engine.ShardedRoundEngine(
+                cfg.selection, cfg.comm, mesh=self.mesh,
+                collective=cfg.mesh_collective,
+                keep_fraction=cfg.mesh_keep_fraction,
+                robust_agg=cfg.robust_agg)
+        else:
+            if self.mesh is not None and cfg.mesh_collective != "dense":
+                raise ValueError(
+                    "sparse cross-device compaction rides the homogeneous "
+                    "sharded engine; ragged (grouped) fleets reduce with "
+                    "the dense collective")
+            self.engine = round_engine.BatchedRoundEngine(
+                cfg.selection, cfg.comm, robust_agg=cfg.robust_agg)
+        # async ragged merges only; ragged + mesh + non-mean robust_agg
+        # raises in GroupedRoundEngine itself
         self.grouped_engine = round_engine.GroupedRoundEngine(
-            cfg.selection, cfg.comm, None,
+            cfg.selection, cfg.comm, self.mesh,
             cfg.robust_agg if self.heterogeneous else "mean")
+        # the cross-shard collective's byte model under cfg.mesh
+        self._global_spec = WireSpec.from_params(
+            self.global_params, cfg.selection.channel_axis)
         self.faults = faults
         if faults is not None and isinstance(self.policy, AsyncPolicy) \
                 and faults.may_corrupt:
@@ -1083,6 +1130,11 @@ class SimRunner:
             wire += partial_bytes
             if fr is not None:
                 wire += float(np.sum(fr.extra_bytes[valid]))
+            if self.mesh is not None and not self.heterogeneous:
+                account_collective(
+                    self._global_spec, self.engine.num_shards,
+                    mode=cfg.mesh_collective,
+                    k_fraction=cfg.mesh_keep_fraction, obs=obs)
 
             # --- population write-back BEFORE the t+1 allocation, so a
             # cold-start solve already sees this round's first contacts

@@ -1314,3 +1314,194 @@ def test_sim_resume_digest_on_card(cuda_device, tmp_path):
         [r.sim_time for r in resumed.history]
     assert all(torch.equal(a, b) for a, b in zip(
         tree.leaves(full.global_params), tree.leaves(resumed.global_params)))
+
+
+# --- the client-sharded mesh and C5's select flag on the card ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_agg_select_matches_plain_on_card(dtype, cuda_device):
+    """Both modes with ``select`` against the plain version on a poisoned
+    input (NaN / Inf at a kept and at a dropped channel, one row at weight
+    0): equal, NaNs at the same places; the flag drops the dropped-channel
+    values only; on finite values it changes no bit; each launch with it
+    counts once under ``select_counts``."""
+    from repro_torch.kernels.sparse_agg.ref import masked_weighted_mean_ref
+    n, r, c = 16, 784, 100
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    vals = torch.randn((n, r, c), generator=gen, device=cuda_device)
+    keep = (torch.rand((n, 1, c), generator=gen, device=cuda_device)
+            > 0.4).float()
+    w = torch.rand((n,), generator=gen, device=cuda_device) + 0.5
+    gprev = torch.randn((r, c), generator=gen, device=cuda_device)
+    bad = vals.clone()
+    for row, val in ((3, float("nan")), (5, float("inf"))):
+        bad[row, 1, int(torch.nonzero(keep[row, 0])[0])] = val
+        bad[row, 2, int(torch.nonzero(keep[row, 0] == 0)[0])] = val
+    w[3] = 0.0
+    vals, bad, keep = vals.to(dtype), bad.to(dtype), keep.to(dtype)
+    rtol = 5e-3 if dtype == torch.bfloat16 else 3e-5
+    kernels.reset_launch_counts()
+    nonfinite = {}
+    for sel in (False, True):
+        num, den = agg_ops.masked_weighted_sum(bad, keep, w, select=sel)
+        wnum, wden = masked_weighted_sum_ref(bad.view(n, r, c, 1),
+                                             keep.view(n, c), w, sel)
+        torch.testing.assert_close(num, wnum.view(r, c), rtol=rtol,
+                                   atol=1e-4, equal_nan=True)
+        torch.testing.assert_close(den, wden.view(r, c), rtol=3e-5,
+                                   atol=1e-5)
+        got = agg_ops.masked_weighted_mean(bad, keep, w, gprev,
+                                           torch.float32, select=sel)
+        want = masked_weighted_mean_ref(bad.view(n, r, c, 1),
+                                        keep.view(n, c), w,
+                                        gprev.view(r, c, 1), torch.float32,
+                                        sel).view(r, c)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-4,
+                                   equal_nan=True)
+        nonfinite[sel] = int((~torch.isfinite(got)).sum())
+    assert 0 < nonfinite[True] < nonfinite[False]
+    for sel in (False, True):
+        assert torch.equal(
+            agg_ops.masked_weighted_mean(vals, keep, w, gprev,
+                                         torch.float32, select=sel),
+            agg_ops.masked_weighted_mean(vals, keep, w, gprev,
+                                         torch.float32))
+    torch.cuda.synchronize()
+    assert agg_ops.select_counts() == {"select": 3}
+
+
+def _shard_case(dev, n, seed=0):
+    """The paper's MLP as n clients' stacks on ``dev``: the global, the
+    old and new stacks (seeded numpy noise) and the weights."""
+    from repro_torch import prng
+    from repro_torch.fl import MLP_SPEC, init_cnn_spec
+    g = init_cnn_spec(MLP_SPEC, prng.PRNGKey(seed), device=dev)
+    rng = np.random.default_rng(seed)
+
+    def noisy(t, scale):
+        return tree.tree_map(lambda l: l + torch.from_numpy(
+            rng.normal(0, scale, tuple(l.shape)).astype(np.float32)).to(dev),
+            t)
+    old = noisy(tree.tree_map(lambda l: torch.stack([l] * n), g), 0.01)
+    new = noisy(old, 0.01)
+    w = torch.arange(1.0, n + 1.0, device=dev)
+    return g, old, new, w
+
+
+@pytest.mark.parametrize("full_round,dense", [(False, False), (True, False),
+                                              (False, True)])
+def test_one_shard_bit_equal_to_engine_on_card(full_round, dense,
+                                               cuda_device):
+    """One shard on the card: the partials mode and ``finish_masked_mean``
+    give the engine's mean mode bit for bit (global, clients, densities)."""
+    from repro_torch import prng
+    from repro_torch.core import round_engine
+    from repro_torch.launch.mesh import ClientMesh
+    g, old, new, w = _shard_case(cuda_device, 10)
+    d = torch.linspace(0.0, 0.6, 10, device=cuda_device)
+    rk = prng.PRNGKey(3)
+    a = round_engine.BatchedRoundEngine().step(
+        old, new, g, d, w, rk, full_round=full_round, dense_masks=dense)
+    b = round_engine.ShardedRoundEngine(mesh=ClientMesh((cuda_device,))).step(
+        old, new, g, d, w, rk, full_round=full_round, dense_masks=dense)
+    for x, y in zip(tree.leaves(a.global_params) + tree.leaves(
+            a.client_params) + [a.densities],
+            tree.leaves(b.global_params) + tree.leaves(b.client_params)
+            + [b.densities]):
+        assert torch.equal(x, y)
+
+
+def test_virtual_shards_on_card_launch_per_shard_and_match(cuda_device):
+    """13 clients over 4 virtual shards of the card (pad 3): importance
+    and sparse_agg's partials mode once a shard and leaf, masked_merge
+    once a shard, the select flag at the 1-D leaves; within 2e-6 of the
+    engine with equal densities, dense and keep-0.8 sparse at D = 0.75
+    (overflow 0), and of the same step on the CPU."""
+    from repro_torch import prng
+    from repro_torch.core import round_engine
+    from repro_torch.kernels.masked_merge import ops as merge_ops
+    from repro_torch.launch.mesh import ClientMesh
+    n, p = 13, 4
+    g, old, new, w = _shard_case(cuda_device, n, seed=1)
+    rk = prng.PRNGKey(3)
+    mesh = ClientMesh((cuda_device,) * p)
+    base = round_engine.BatchedRoundEngine()
+    for coll, keep, d in (("dense", 1.0, torch.linspace(0.0, 0.6, n)),
+                          ("sparse", 0.8, torch.full((n,), 0.75))):
+        d = d.to(cuda_device)
+        eng = round_engine.ShardedRoundEngine(mesh=mesh, collective=coll,
+                                              keep_fraction=keep)
+        kernels.reset_launch_counts()
+        got = eng.step(old, new, g, d, w, rk, full_round=False)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts() == dict(
+            importance=6 * p, sparse_agg=6 * p, masked_merge=p,
+            flash_attention=0)
+        assert agg_ops.mode_counts() == {"partials": 6 * p, "mean": 0}
+        assert agg_ops.select_counts() == {"select": 3 * p}
+        assert merge_ops.leaf_counts() == {6: p}
+        assert float(got.collective_overflow) == 0.0
+        want = base.step(old, new, g, d, w, rk, full_round=False)
+        assert torch.equal(got.densities, want.densities)
+        for x, y in zip(tree.leaves(got.global_params) +
+                        tree.leaves(got.client_params),
+                        tree.leaves(want.global_params) +
+                        tree.leaves(want.client_params)):
+            torch.testing.assert_close(x, y, rtol=2e-6, atol=2e-6)
+        cpu = [tree.tree_map(lambda l: l.cpu(), t) for t in (old, new, g)]
+        on_cpu = round_engine.ShardedRoundEngine(
+            mesh=ClientMesh(("cpu",) * p), collective=coll,
+            keep_fraction=keep).step(*cpu, d.cpu(), w.cpu(), rk,
+                                     full_round=False)
+        assert torch.equal(on_cpu.densities, got.densities.cpu())
+        for x, y in zip(tree.leaves(got.global_params),
+                        tree.leaves(on_cpu.global_params)):
+            torch.testing.assert_close(x.cpu(), y, rtol=2e-6, atol=2e-6)
+
+
+def test_virtual_mesh_step_copies_nothing_and_never_syncs(cuda_device):
+    """A sharded step over virtual shards with staged inputs makes no
+    ``.to()`` copy between devices and no synchronising CUDA call (after
+    an uncounted warm-up step)."""
+    from repro_torch import prng
+    from repro_torch.core import round_engine
+    from repro_torch.launch.mesh import ClientMesh
+    smoke = _smoke()
+    g, old, new, w = _shard_case(cuda_device, 10)
+    d = torch.full((10,), 0.5, device=cuda_device)
+    eng = round_engine.ShardedRoundEngine(
+        mesh=ClientMesh((cuda_device,) * 4), collective="sparse",
+        keep_fraction=0.8)
+    counted, moves = [{}, {}], {}
+    for c in counted:
+        torch.cuda.synchronize()
+        with smoke._count_syncs(c, cuda_device), smoke._count_moves(moves):
+            out = eng.step(old, new, g, d, w, prng.PRNGKey(1),
+                           full_round=False)
+    assert counted[1] == {"syncs": 0, "where": {}}
+    assert moves["moves"] == 0
+    assert torch.isfinite(out.densities).all()
+
+
+def test_sharded_step_across_two_cards(cuda_device):
+    """Shards on cuda:0 and cuda:1 (rows moved by non-blocking copies):
+    within 2e-6 of the engine with equal densities.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards (virtual shards of one card run "
+                    "the multi-shard step above)")
+    from repro_torch import prng
+    from repro_torch.core import round_engine
+    from repro_torch.launch.mesh import make_client_mesh
+    g, old, new, w = _shard_case(cuda_device, 13)
+    d = torch.linspace(0.0, 0.6, 13, device=cuda_device)
+    mesh = make_client_mesh(2, device=cuda_device)
+    assert mesh.devices == (torch.device("cuda", 0),
+                            torch.device("cuda", 1))
+    got = round_engine.ShardedRoundEngine(mesh=mesh).step(
+        old, new, g, d, w, prng.PRNGKey(3), full_round=False)
+    want = round_engine.BatchedRoundEngine().step(
+        old, new, g, d, w, prng.PRNGKey(3), full_round=False)
+    assert torch.equal(got.densities, want.densities)
+    for x, y in zip(tree.leaves(got.global_params),
+                    tree.leaves(want.global_params)):
+        torch.testing.assert_close(x, y, rtol=2e-6, atol=2e-6)

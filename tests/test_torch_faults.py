@@ -216,25 +216,24 @@ def _step_inputs(n=5):
 @pytest.mark.parametrize("cut", [False, True])
 def test_step_with_upload_and_delivered_matches_jax_package(
         kind, poisoned_weight, cut):
-    """A corrupted row the screen let through (non-finite values, with
-    weight 0 and > 0), with and without delivered prefixes: the JAX
-    engine's densities exactly, its Eq. (4) to 3e-5 with NaNs at the same
-    places, and Eq. (5) from the clean values and full masks.
+    """A corrupted row the screen let through (non-finite values at a
+    kept and at a dropped channel, with weight 0 and > 0), with and
+    without delivered prefixes: the JAX engine's densities exactly, its
+    Eq. (4) to 3e-5 with NaNs at the same places, and Eq. (5) from the
+    clean values and full masks.
 
     Eq. (4) computes ``W * M * w``, so a kept non-finite value poisons
-    the aggregate even at weight 0 (NaN * 0), and the port's kernels keep
-    that.  One exception is left out here: the JAX engine's compiled graph
-    turns ``W * mask`` into a select when the mask comes straight from the
-    top-k compare (no ``delivered``), so there a non-finite value on a
-    DROPPED channel adds nothing, while the port (like the JAX package's
-    eager Eq. (4), test below) propagates it.  With ``delivered`` the cut
-    masks are a product and the JAX engine propagates too, so that case
-    poisons a dropped channel as well.  A sim run never reaches either
-    case with the default screen: a row holding any non-finite value is
-    quarantined."""
+    the aggregate even at weight 0 (NaN * 0).  A non-finite value on a
+    DROPPED channel adds nothing where the JAX engine's compiled graph
+    turns ``W * mask`` into a select — the 1-D leaves, with masks straight
+    from the top-k compare (no ``delivered``) — and the port's step skips
+    it there too (``sparse_agg``'s select flag); with ``delivered`` the
+    cut masks are a product and both packages propagate it.  A sim run
+    never reaches either case with the default screen: a row holding any
+    non-finite value is quarantined."""
     old, new, glob, d, key, masks = _step_inputs()
     n = d.shape[0]
-    upload = _poison(new, masks, 3, kind, dropped=cut)
+    upload = _poison(new, masks, 3, kind, dropped=True)
     w = np.array([3.0, 5.0, 2.0, poisoned_weight, 4.0])
     sentinel = np.iinfo(np.int32).max
     delivered = None
@@ -274,6 +273,90 @@ def test_step_with_upload_and_delivered_matches_jax_package(
         np.testing.assert_allclose(g.numpy()[:, fin],
                                    np.asarray(wnt)[:, fin], rtol=3e-5,
                                    atol=3e-5)
+
+
+def _poison_row(stacked, row, value):
+    """A copy of ``stacked`` with ``value`` at one element of every leaf
+    of client ``row``."""
+    out = tree.tree_map(np.array, stacked)
+    for leaf in tree.leaves(out):
+        leaf[row].reshape(-1)[leaf[row].size // 2] = value
+    return out
+
+
+def _non_finite_match(got, want):
+    """Equal non-finite positions, 3e-5 elsewhere; returns the number of
+    non-finite elements per leaf."""
+    bad = []
+    for g, wnt in zip(tree.leaves(got), jax.tree_util.tree_leaves(want)):
+        g, wnt = g.numpy(), np.asarray(wnt)
+        np.testing.assert_array_equal(~np.isfinite(g), ~np.isfinite(wnt))
+        np.testing.assert_allclose(g, wnt, rtol=3e-5, atol=3e-5,
+                                   equal_nan=True)
+        bad.append(int((~np.isfinite(g)).sum()))
+    return bad
+
+
+@pytest.mark.parametrize("kind", ["nan", "inf"])
+@pytest.mark.parametrize("route", ["stacked_new", "stacked_upload"])
+def test_step_non_finite_on_dropped_channel_matches_jax_engine(kind, route):
+    """C5: client 3 keeps no channel (D = 1) and holds a NaN / Inf in
+    every leaf, so each sits on a dropped channel.  The JAX engine's
+    compiled step skips it at the 1-D leaves (a select) and lets it
+    through at the rank-2 ones (their channel mask is broadcast); the
+    port's step, with no ``delivered``, gives the same non-finite
+    positions and the same Eq. (4) to 3e-5 elsewhere."""
+    old, new, glob, d, key, _ = _step_inputs()
+    d = d.copy()
+    d[3] = 1.0
+    w = np.array([3.0, 5.0, 2.0, 4.0, 1.0])
+    value = np.nan if kind == "nan" else np.inf
+    bad_row = _poison_row(new, 3, value)
+    kw_t, kw_j = {}, {}
+    if route == "stacked_new":
+        new_t, new_j = t_params(bad_row), j_params(bad_row)
+    else:
+        new_t, new_j = t_params(new), j_params(new)
+        kw_t = dict(stacked_upload=t_params(bad_row))
+        kw_j = dict(stacked_upload=j_params(bad_row))
+    got = round_engine.BatchedRoundEngine(selection.SelectionConfig()).step(
+        t_params(old), new_t, t_params(glob), d, w, key, full_round=False,
+        **kw_t)
+    want = jre.BatchedRoundEngine(jsel.SelectionConfig()).step(
+        j_params(old), new_j, j_params(glob), d, w, jnp.asarray(key),
+        full_round=False, **kw_j)
+    np.testing.assert_array_equal(got.densities.numpy(),
+                                  np.asarray(want.densities))
+    bad = _non_finite_match(got.global_params, want.global_params)
+    shapes = [l.shape for l in tree.leaves(glob)]
+    assert [b > 0 for b in bad] == [len(s) > 1 for s in shapes], bad
+
+
+def test_run_sim_corrupt_row_unscreened_matches_jax_package():
+    """C5 through the public simulator: sync, 6 clients, A_server 0.3, 2
+    rounds, every client's round-2 upload corrupted with NaNs and the
+    validation screen off.  In round 2 the clients drop channels, so the
+    NaNs on dropped bias channels stay out of the JAX package's global
+    (its compiled step) and out of the port's: equal non-finite positions
+    and 3e-5 elsewhere, for every corrupted client."""
+    n = 6
+    for c in range(n):
+        vkw = dict(screen_nonfinite=False, norm_factor=0.0)
+        kw = dict(rounds=2, a_server=0.3, seed=0)
+        want = jsim.run_sim(
+            "feddd", j_params(np_params()), telemetry(n, jax_side=True),
+            ltf_jax, None, sim=jsim.SimConfig(policy="sync"),
+            faults=jsim.ScriptedFaults(
+                corrupt={(1, c): "nan"},
+                validation=jsim.ValidationConfig(**vkw)), **kw)
+        got = sim.run_sim(
+            "feddd", t_params(np_params()), telemetry(n), ltf_torch, None,
+            sim=sim.SimConfig(policy="sync"),
+            faults=sim.ScriptedFaults(
+                corrupt={(1, c): "nan"},
+                validation=sim.ValidationConfig(**vkw)),
+            device="cpu", **kw)
+        _non_finite_match(got.global_params, want.global_params)
 
 
 @pytest.mark.parametrize("kind", ["nan", "inf"])
@@ -547,9 +630,16 @@ def test_fault_guards_reject_unsupported_combinations():
                     client_params=clients,
                     sim=sim.SimConfig(policy=sim.DeadlinePolicy(
                         partial=True)), **base)
-    with pytest.raises(NotImplementedError, match="A14"):
+    # a client mesh keeps rows on their shard: no row corruption, no
+    # delivered prefixes (the JAX package's guards)
+    with pytest.raises(ValueError, match="payload corruption"):
         sim.run_sim("feddd", t_params(np_params()), telemetry(n), ltf_torch,
-                    None, mesh=1, **base)
+                    None, mesh=1, faults=sim.RandomFaults(corrupt_rate=0.1),
+                    **base)
+    with pytest.raises(ValueError, match="partial aggregation"):
+        sim.run_sim("feddd", t_params(np_params()), telemetry(n), ltf_torch,
+                    None, mesh=1, sim=sim.SimConfig(
+                        policy=sim.DeadlinePolicy(partial=True)), **base)
 
 
 def test_ragged_fleet_crash_faults_match_jax_package():

@@ -729,10 +729,14 @@ def test_routing_and_what_raises():
     with pytest.raises(ValueError, match="rounds_per_dispatch"):
         _port_server(gp, clients, tel_kw, allocator="jax",
                      rounds_per_dispatch=2).run(_ltf_torch)
-    with pytest.raises(NotImplementedError, match="A14"):
-        round_engine.GroupedRoundEngine(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        protocol.ProtocolConfig(mesh=2)
+    from repro_torch.launch.mesh import ClientMesh
+    with pytest.raises(ValueError, match="clients"):
+        round_engine.GroupedRoundEngine(mesh=ClientMesh(("cpu",), ("pod",)))
+    with pytest.raises(NotImplementedError, match="robust_agg"):
+        round_engine.GroupedRoundEngine(mesh=ClientMesh(("cpu",)),
+                                        robust_agg="trimmed")
+    assert round_engine.GroupedRoundEngine(
+        mesh=ClientMesh(("cpu",) * 2)).mesh.num_shards == 2
     # epsilon on a ragged fleet runs the loop's padded uploads
     res = _port_server(gp, clients, tel_kw, rounds=2,
                        track_epsilon=True).run(_ltf_torch)

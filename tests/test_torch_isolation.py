@@ -3,8 +3,8 @@
 * Importing every module of ``repro_torch`` pulls in neither ``jax`` nor
   any module of the JAX package ``repro`` (checked in a fresh process).
 * Without a card, entry points raise unless ``device="cpu"`` is asked for.
-* Paths and architectures not ported yet raise with a pointer to
-  ROADMAP.md; what the port does not take (scheme 'random' without a
+* Architectures not ported yet raise with a pointer to ROADMAP.md; what
+  the port does not take (scheme 'random' without a
   round key, an unknown scheme, codec or value width) raises as the JAX
   package does.
 """
@@ -72,7 +72,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.population.sampler",
                  "repro_torch.population.store", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.io",
-                 "repro_torch.checkpoint.run_state"):
+                 "repro_torch.checkpoint.run_state",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.core.sparse_collective"):
         assert must in res["modules"]
 
 
@@ -110,16 +112,22 @@ def test_random_selection_raises():
                                 dict(checkpoint_every=1),
                                 dict(resume_from="state.npz")])
 def test_unported_paths_raise(kw, tmp_path):
-    """Only the client-sharded mesh is not ported: it raises with a
-    pointer to ROADMAP.md.  The simulator, the fault layer, population
-    serving and crash-resume run (a checkpoint needs a path, a resume an
-    existing snapshot)."""
+    """Every FedDD path of the JAX package is ported: the simulator, the
+    fault layer, population serving, crash-resume (a checkpoint needs a
+    path, a resume an existing snapshot) and the client-sharded mesh,
+    whose ``mesh=2`` clamps to the CPU's one device and equals the run
+    without a mesh bit for bit."""
     from repro_torch import sim
     from repro_torch.population import Population
     from repro_torch.fl import sample_system_telemetry
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-            _tiny_run(device="cpu", **kw)
+        got, want = _tiny_run(device="cpu", **kw), _tiny_run(device="cpu")
+        assert tree.leaves(got.global_params) and all(
+            torch.equal(a, b) for a, b in zip(
+                tree.leaves(got.global_params),
+                tree.leaves(want.global_params)))
+        assert [r.sim_time for r in got.history] == \
+            [r.sim_time for r in want.history]
     elif "checkpoint_every" in kw:
         with pytest.raises(ValueError, match="checkpoint_path"):
             _tiny_run(device="cpu", **kw)
@@ -140,15 +148,13 @@ def test_unported_paths_raise(kw, tmp_path):
 
 def test_unported_schemes_and_codecs_raise():
     """Every scheme and wire format is ported: an unknown scheme, codec or
-    value width raises as in the JAX package; a config field of a path not
-    ported yet (the client-sharded mesh) raises with a pointer to
-    ROADMAP."""
+    value width raises as in the JAX package; every field of the JAX
+    package's ProtocolConfig is taken (the client mesh among them)."""
     for scheme in ("feddd", "fedavg", "fedcs", "oort"):
         assert protocol.ProtocolConfig(scheme=scheme).scheme == scheme
     with pytest.raises(ValueError, match="scheme"):
         protocol.ProtocolConfig(scheme="fedprox")
-    with pytest.raises(NotImplementedError, match="queue A item 14"):
-        protocol.ProtocolConfig(mesh=2)
+    assert protocol.ProtocolConfig(mesh=2).mesh == 2
     assert protocol.ProtocolConfig(population=100).population == 100
     with pytest.raises(ValueError, match="codec"):
         CommConfig(codec="gzip")

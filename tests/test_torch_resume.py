@@ -171,8 +171,12 @@ def test_checkpoint_config_validation():
     with pytest.raises(ValueError, match="dispatch\\s+boundaries"):
         ProtocolConfig(checkpoint_every=1, checkpoint_path="x",
                        rounds_per_dispatch=2, allocator="jax")
-    with pytest.raises(NotImplementedError, match="A14"):
-        ProtocolConfig(mesh=1)
+    # a client mesh takes checkpointing at the config (its executor
+    # refuses the snapshot, as the JAX package's), but not a scanned chunk
+    assert ProtocolConfig(mesh=1, checkpoint_every=1,
+                          checkpoint_path="x").mesh == 1
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ProtocolConfig(mesh=1, rounds_per_dispatch=2, allocator="jax")
 
 
 # --- the protocol's executors ---------------------------------------------------
