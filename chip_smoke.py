@@ -120,7 +120,27 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    just before and read just after; the kernel route of an 8192-token
    prefill against the plain-attention route; and decode from an empty
    cache over 64 prompt tokens against ``lm.forward`` at every position
-   (asserted in fp32, reported in bf16).
+   (asserted in fp32, reported in bf16);
+7. LM training: granite-3-8b at full width (d 4096, 32/8 heads, d_ff
+   12800, vocab 49155) cut to 8 layers, AdamW (``launch.specs``'s
+   policy), 8 microbatches, 8 x 2048 tokens a step: one warm-up and 3
+   timed steps (s/step, tokens/s, the 6ND share of the bf16 peak, peak
+   memory), a finite loss and no flash launch; one 2-layer step at 8192
+   tokens, which takes the chunked attention route (no flash launch);
+   the flash wrapper raising on inputs that require grad;
+8. FedDD across pods (``python -m repro_torch.launch.federated``): the
+   same model cut to 4 layers on 4 virtual pods of the card, 2 local SGD
+   steps on 8 x 256 tokens, the allocation LP, 3 rounds: s/round, the
+   importance launches (one per rank-2+ leaf, pod and round, asserted)
+   and the collective's bytes (``account_collective``); the importance
+   kernel is also held against its plain version and timed at three of
+   its bf16 leaves (``LM_IMPORTANCE``) beside the kernel checks;
+9. the MoE family: qwen3-moe-30b-a3b at full width (d 2048, 128 experts
+   top-8, d_ff 768, vocab 151936) cut to 4 layers: one 8192-token
+   prefill (flash on every layer, sm90), 16 greedy decode steps at batch
+   4 (no kernel), one AdamW step at 4 x 1024 tokens (no flash, a
+   positive load-balance loss).  Every number of phases 7-9 is printed
+   beside the card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
@@ -132,7 +152,9 @@ quickstart's (``launches_sharded`` on 4 virtual shards,
 ``launches_sharded_one``, ``launches_sharded_grouped``), and importance's N = 1
 row under ``n1``, ``sparse_agg``'s elementwise mode under
 ``elementwise``, the prefill
-for flash attention; ``sparse_agg``'s times are its mean mode's, named by
+for flash attention, with the MoE prefill's and the training steps'
+beside them, and importance's federated-pods launches and its LM-leaf
+rows under ``lm_leaves``; ``sparse_agg``'s times are its mean mode's, named by
 its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
 beside them; ``masked_merge``'s at fc0, with the grouped launch of the
 six leaves (``mode: "grouped"``) and the six single-leaf launches beside
@@ -320,6 +342,30 @@ ROUTE_SEQ = 8192                          # kernel vs plain-attention route
 CONSIST_BATCH, CONSIST_T = 2, 64
 CONSIST_TOL_FP32 = 1e-4                   # of the largest |logit|
 ROUTE_TOL = 5e-2                          # bf16, of the largest |logit|
+
+TRAIN_ARCH = "granite_3_8b"               # train and federated phases
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # 8 microbatches (policy_for)
+TRAIN_STEPS = 3                           # timed, after one warm-up step
+LONG_LAYERS, LONG_SEQ = 2, 8192           # one step on the chunked route
+FED_LAYERS, FED_PODS, FED_ROUNDS = 4, 4, 3
+FED_LOCAL_STEPS, FED_BATCH, FED_SEQ = 2, 8, 256
+MOE_ARCH, MOE_LAYERS = "qwen3_moe_30b_a3b", 4
+MOE_PREFILL_SEQ = 8192
+MOE_DECODE_BATCH, MOE_DECODE_STEPS = 4, 16
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 1024
+# importance at every distinct rank-2+ leaf shape of the federated phase
+# (granite-3-8b, 4 layers stacked): bf16 weights, among them wq (C = 128)
+# and the tied embedding, and the fp32 stacked norm scales (fan-in 4)
+LM_IMPORTANCE = [("wq", (FED_LAYERS, 4096, 32, 128), "bfloat16"),
+                 ("wk/wv", (FED_LAYERS, 4096, 8, 128), "bfloat16"),
+                 ("wo", (FED_LAYERS, 32, 128, 4096), "bfloat16"),
+                 ("embed", (49155, 4096), "bfloat16"),
+                 ("w_up/w_gate", (FED_LAYERS, 4096, 12800), "bfloat16"),
+                 ("w_down", (FED_LAYERS, 12800, 4096), "bfloat16"),
+                 ("norms", (FED_LAYERS, 4096), "float32")]
+IMP_RTOL, IMP_ATOL = 5e-5, 1e-5           # importance against its plain one
+MOE_FLASH = (1, MOE_PREFILL_SEQ, 32, 4, 128)   # qwen3-moe's prefill heads
 
 
 # ---- the PRNG phase: known answers the card's threefry must reproduce.
@@ -569,6 +615,7 @@ class Card:
     """Peak rates of the card, from NVIDIA's data sheets (dense)."""
 
     def __init__(self, name: str):
+        self.line = name            # nvidia-smi's name and power limit
         pcie = "PCIe" in name
         self.bytes_per_s = 2.0e12 if pcie else 3.35e12
         self.fp32_flops = 51e12 if pcie else 67e12
@@ -1219,6 +1266,47 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
               f"so far {max_err:.3g}, worst bf16 row {worst_row:.3g} of its "
               f"scale; routes {ops.route_counts()}", flush=True)
 
+    def measure(qs, ks, vs, window, plain_fn, note=""):
+        """Every row of a long causal call against ``plain_fn`` (bf16 and
+        fp32 inputs), then the bf16 kernel, its plain version and sdpa
+        timed, with the bound -> the record."""
+        b, s, h, hd = qs.shape
+        hkv = ks.shape[2]
+        q32, k32, v32 = (t.float() for t in (qs, ks, vs))
+        qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))
+        (err, row), (err32, _) = (
+            check(qs, ks, vs, True, window, plain_fn),
+            check(q32, k32, v32, True, window, plain_fn))
+        del q32, k32, v32
+        kern = lambda: ops.flash_attention(qs, ks, vs, causal=True,  # noqa
+                                           window=window)
+        plain = lambda: plain_fn(qs, ks, vs, causal=True,            # noqa
+                                 window=window)
+        lib, lib_note = sdpa_yardstick(qt, kt, vt, window, flush, timer)
+        nbytes, flops, pairs = flash_bytes_flops(b, s, s, h, hkv, hd,
+                                                 True, window, 2)
+        bound_ms, bound_by = card.bound(nbytes, flops, card.bf16_flops)
+        rec = dict(kernel="flash_attention", shape=[b, s, h, hkv, hd],
+                   window=window, dtype="bfloat16", max_abs_err=err,
+                   max_abs_err_fp32=err32, worst_row=row,
+                   plain=plain_fn.__name__,
+                   ms=timer(kern, flush, LONG_TIMED),
+                   plain_ms=timer(plain, flush, LONG_TIMED),
+                   library_ms=lib, library=lib_note,
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops, pairs=pairs)
+        records.append(rec)
+        lib_col = ("-" if rec["library_ms"] is None
+                   else f"{rec['library_ms']:.3f}")
+        print(f"  flash_attention {(b, s, h, hkv, hd)}{note} window "
+              f"{window:4d}: every row agrees, max err bf16 {err:.3g} "
+              f"(worst row {row:.3g} of its scale) fp32 {err32:.3g}; "
+              f"bf16 kernel {rec['ms']:.3f} ms  plain "
+              f"{rec['plain_ms']:.3f} ms  sdpa {lib_col} ms ({lib_note})"
+              f"  bound {bound_ms:.3f} ms ({bound_by}; "
+              f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s)", flush=True)
+        return rec
+
     b, _, h, hkv, hd = SLICE_FLASH
     line_rec = None
     q, k, v = qkv(b, PREFILL_SEQ, h, hkv, hd, torch.bfloat16)
@@ -1226,45 +1314,21 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
     # against it in chunks of PLAIN_ROWS query rows (137 GB of scores whole)
     for s, plain_fn in ((SLICE_FLASH[1], gqa_attention_ref),
                         (PREFILL_SEQ, chunked)):
-        qs, ks, vs = q[:, :s], k[:, :s], v[:, :s]
-        q32, k32, v32 = (t.float() for t in (qs, ks, vs))
-        qt, kt, vt = (t.transpose(1, 2) for t in (qs, ks, vs))
         for window in SLICE_WINDOWS:
-            (err, row), (err32, _) = (
-                check(qs, ks, vs, True, window, plain_fn),
-                check(q32, k32, v32, True, window, plain_fn))
-            kern = lambda: ops.flash_attention(qs, ks, vs, causal=True,  # noqa
-                                               window=window)
-            plain = lambda: plain_fn(qs, ks, vs, causal=True,            # noqa
-                                     window=window)
-            lib, lib_note = sdpa_yardstick(qt, kt, vt, window, flush, timer)
-            nbytes, flops, pairs = flash_bytes_flops(b, s, s, h, hkv, hd,
-                                                     True, window, 2)
-            bound_ms, bound_by = card.bound(nbytes, flops, card.bf16_flops)
-            rec = dict(kernel="flash_attention", shape=[b, s, h, hkv, hd],
-                       window=window, dtype="bfloat16", max_abs_err=err,
-                       max_abs_err_fp32=err32, worst_row=row,
-                       plain=plain_fn.__name__,
-                       ms=timer(kern, flush, LONG_TIMED),
-                       plain_ms=timer(plain, flush, LONG_TIMED),
-                       library_ms=lib, library=lib_note,
-                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                       flops=flops, pairs=pairs)
-            records.append(rec)
+            rec = measure(q[:, :s], k[:, :s], v[:, :s], window, plain_fn)
             if s == PREFILL_SEQ and not window:
                 line_rec = rec
-            lib_col = ("-" if rec["library_ms"] is None
-                       else f"{rec['library_ms']:.3f}")
-            print(f"  flash_attention {(b, s, h, hkv, hd)} window "
-                  f"{window:4d}: every row agrees, max err bf16 {err:.3g} "
-                  f"(worst row {row:.3g} of its scale) fp32 {err32:.3g}; "
-                  f"bf16 kernel {rec['ms']:.3f} ms  plain "
-                  f"{rec['plain_ms']:.3f} ms  sdpa {lib_col} ms ({lib_note})"
-                  f"  bound {bound_ms:.3f} ms ({bound_by}; "
-                  f"{flops / rec['ms'] / 1e9:.1f} TFLOP/s)", flush=True)
-            del plain
-        del q32, k32, v32
-    return {"max_abs_err": max_err, "worst_row": worst_row, "main": line_rec}
+    del q, k, v
+    # the MoE prefill's shape (8 query heads a kv head), q and k
+    # RMS-normalised over head_dim as its qk-norm leaves them
+    q, k, v = qkv(*MOE_FLASH, torch.bfloat16)
+    q, k = (t.float() * torch.rsqrt(t.float().square().mean(-1, keepdim=True)
+                                    + 1e-6) for t in (q, k))
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    moe_rec = measure(q, k, v, 0, gqa_attention_ref, " qk-normed")
+    del q, k, v
+    return {"max_abs_err": max_err, "worst_row": worst_row, "main": line_rec,
+            "moe": moe_rec}
 
 
 def sdpa_yardstick(qt, kt, vt, window, flush, timer):
@@ -3583,6 +3647,395 @@ def serving_phase(dev="cuda") -> dict:
                 consistency_fp32=consist_fp32, consistency_bf16=consist_bf16)
 
 
+def _peak_gb() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _fresh_peak(dev) -> float:
+    """Reset the peak-memory counter; returns the GiB still allocated
+    (what earlier phases left), which every peak below includes."""
+    import torch
+    _sync(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def lm_importance_checks(card: Card, flush, records: list, dev="cuda",
+                         timer=time_ms) -> list:
+    """The importance kernel at every distinct rank-2+ leaf shape of the
+    federated phase (one pod's leaf, N = 1, channels last), against its
+    plain version (rtol 5e-5, atol 1e-5), timed with its bound."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.importance import ops as imp_ops
+    from repro_torch.kernels.importance.ref import channel_importance_ref
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for name, leaf, dtype_name in LM_IMPORTANCE:
+        dtype = getattr(torch, dtype_name)
+        a, c, b = _lib.split_at(leaf, len(leaf) - 1)
+        wo = (torch.randn((1, *leaf), generator=gen, device=dev)
+              * 0.02).to(dtype)
+        wn = (wo.float() + 1e-3 * torch.randn(
+            (1, *leaf), generator=gen, device=dev)).to(dtype)
+        got = imp_ops.channel_importance_batched(wo, wn)
+        want = channel_importance_ref(wo.view(1, a, c, b),
+                                      wn.view(1, a, c, b))
+        torch.testing.assert_close(got, want, rtol=IMP_RTOL, atol=IMP_ATOL)
+        err = (got - want).abs().max().item()
+        plan = imp_ops.work_plan(1, a, c, b, imp_ops.sm_count(wo.device),
+                                 _lib.vector_width(c, wo, wn))
+        elems = wo.numel()
+        rec = _timed(card, flush, timer, "importance", 1, list(leaf), dtype,
+                     lambda: imp_ops.channel_importance_batched(wo, wn),
+                     lambda: channel_importance_ref(wo.view(1, a, c, b),
+                                                    wn.view(1, a, c, b)),
+                     None, 2 * elems * wo.element_size() + c * 4, 5 * elems)
+        rec.update(leaf=name, max_abs_err=err, blocks=plan.blocks,
+                   splits=plan.splits)
+        print(f"    {name}: {plan.blocks} blocks (splits {plan.splits}), "
+              f"{rec['ms'] / rec['bound_ms']:.2f}x its bound, max |err| "
+              f"{err:.3g}", flush=True)
+        records.append(rec)
+        out.append(rec)
+        del wo, wn, got, want
+    return out
+
+
+def train_phase(card: Card, dev="cuda") -> dict:
+    """granite-3-8b at full width cut to TRAIN_LAYERS layers: AdamW by
+    ``policy_for``, its 8 microbatches, TRAIN_BATCH x TRAIN_SEQ tokens, one
+    warm-up and TRAIN_STEPS timed steps; then one LONG_LAYERS-layer step at
+    LONG_SEQ tokens on the chunked attention route; the flash wrapper
+    refuses inputs that require grad."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import specs, train
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+
+    def run(layers, batch, seq, steps, microbatches):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers)
+        opt = train.optimizer_for(cfg, 3e-4)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        resident.append(_fresh_peak(dev))
+        state = lm.init_train_state(cfg, opt, gen, dev)
+        n_params = sum(t.numel() for t in tree.leaves(state.params))
+        step = lm.make_train_step(cfg, opt, microbatches)
+        toks = torch.randint(0, cfg.vocab_size, (steps + 1, batch, seq),
+                             generator=gen, device=dev)
+        kernels.reset_launch_counts()
+        times, losses = [], []
+        for i in range(steps + 1):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, {"tokens": toks[i]})
+            losses.append(float(m["loss"]))        # waits for the device
+            times.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        peak = _peak_gb()
+        gnorm = float(m["grad_norm"])
+        del state, m
+        if not all(math.isfinite(x) for x in losses + [gnorm]):
+            raise AssertionError(f"train losses {losses}, grad norm {gnorm}")
+        if counts["flash_attention"]:
+            raise AssertionError(f"training launched flash: {counts}")
+        return cfg, n_params, times, losses, counts, peak
+
+    resident = []
+    pol = specs.policy_for(get_config(TRAIN_ARCH))
+    cfg, n_params, times, losses, counts, peak = run(
+        TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+        pol.num_microbatches)
+    s_step = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    share = 6 * n_params * tokens / card.bf16_flops / s_step
+    print(f"  {cfg.name} d={cfg.d_model} heads={cfg.num_heads}/"
+          f"{cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers}: {n_params / 1e9:.3f} B params, "
+          f"{pol.optimizer}, {pol.num_microbatches} microbatches of "
+          f"{TRAIN_BATCH // pol.num_microbatches} x {TRAIN_SEQ}", flush=True)
+    print(f"  train steps (s, the first a warm-up): "
+          f"{[round(t, 4) for t in times]}; {s_step:.4f} s/step, "
+          f"{tokens / s_step:.0f} tokens/s, 6ND share of the bf16 peak "
+          f"{share:.3f}; losses {[round(x, 4) for x in losses]}; peak "
+          f"{peak:.2f} GiB ({resident[0]:.2f} resident at the start); "
+          f"launches {counts}  [{card.line}]", flush=True)
+    long_cfg, long_params, long_t, long_loss, long_counts, long_peak = run(
+        LONG_LAYERS, 1, LONG_SEQ, 0, 1)
+    print(f"  {LONG_LAYERS}-layer step at S={LONG_SEQ} (chunked route): "
+          f"{long_t[0]:.3f} s, loss {long_loss[0]:.4f}, peak "
+          f"{long_peak:.2f} GiB, launches {long_counts}  [{card.line}]",
+          flush=True)
+    q = torch.randn(1, 256, 32, 128, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.randn(1, 256, 8, 128, device=dev, dtype=torch.bfloat16)
+    try:
+        flash_ops.flash_attention(q, kv, kv)
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0]
+    else:
+        raise AssertionError("flash_attention took inputs that require grad")
+    wall = time.perf_counter() - t_phase
+    print(f"  flash wrapper with grad-requiring inputs: raised "
+          f"({refused[:60]}...); train phase wall {wall:.2f} s  "
+          f"[{card.line}]", flush=True)
+    return dict(arch=TRAIN_ARCH, phase_wall_s=wall, layers=TRAIN_LAYERS,
+                n_params=n_params, optimizer=pol.optimizer,
+                microbatches=pol.num_microbatches, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, step_s=times, s_per_step=s_step,
+                tokens_per_s=tokens / s_step, peak_share=share,
+                losses=losses, peak_gib=peak, resident_gib=resident,
+                launches=counts,
+                long=dict(layers=LONG_LAYERS, seq=LONG_SEQ,
+                          n_params=long_params, step_s=long_t[0],
+                          loss=long_loss[0], peak_gib=long_peak,
+                          launches=long_counts))
+
+
+def federated_phase(card: Card, dev="cuda") -> dict:
+    """``python -m repro_torch.launch.federated`` at granite-3-8b's full
+    width cut to FED_LAYERS layers: FED_PODS virtual pods of the card,
+    FED_LOCAL_STEPS local SGD steps on FED_BATCH x FED_SEQ tokens, the
+    allocation LP, FED_ROUNDS rounds; importance launches once for every
+    rank-2+ leaf of every pod and round."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.comm.payload import WireSpec, account_collective
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.importance.ref import channel_importance_ref
+    from repro_torch.launch import federated
+
+    argv = ["--pods", str(FED_PODS), "--rounds", str(FED_ROUNDS),
+            "--local-steps", str(FED_LOCAL_STEPS), "--batch", str(FED_BATCH),
+            "--seq", str(FED_SEQ), "--full-config", "--num-layers",
+            str(FED_LAYERS), "--device", str(dev)]
+    # the same run first, untimed: every score the rounds compute against
+    # importance's plain version on the same leaves
+    scored = []
+    kernel = federated.channel_importance
+
+    def held(w_old, w_new, *, channel_axis=-1, coverage=None):
+        got = kernel(w_old, w_new, channel_axis=channel_axis,
+                     coverage=coverage)
+        a, c, b = _lib.split_at(tuple(w_new.shape),
+                                channel_axis % w_new.ndim)
+        want = channel_importance_ref(w_old.reshape(1, a, c, b),
+                                      w_new.reshape(1, a, c, b), coverage)[0]
+        torch.testing.assert_close(got, want, rtol=IMP_RTOL, atol=IMP_ATOL)
+        scored.append((tuple(w_new.shape), str(w_new.dtype).split(".")[-1],
+                       (got - want).abs().max().item()))
+        return got
+
+    federated.channel_importance = held
+    try:
+        federated.main(argv)
+    finally:
+        federated.channel_importance = kernel
+    shapes = sorted({(sh, dt) for sh, dt, _ in scored})
+    score_err = max(e for _, _, e in scored)
+    print(f"  every Eq. (20) score of the rounds against the plain version: "
+          f"{len(scored)} scores over {len(shapes)} leaf shapes "
+          f"{[sh for sh, _ in shapes]}, max |err| {score_err:.3g}",
+          flush=True)
+
+    resident = _fresh_peak(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pods, rounds = federated.main(argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = _peak_gb()
+    ranked = sum(t.ndim >= 2 for t in tree.leaves(pods[0]))
+    want = ranked * FED_PODS * FED_ROUNDS
+    spec = WireSpec.from_params(pods[0])
+    n_params = sum(t.numel() for t in tree.leaves(pods[0]))
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for p in pods for t in tree.leaves(p))
+    on_card = all(t.device.type == torch.device(dev).type
+                  for p in pods for t in tree.leaves(p))
+    del pods
+    coll = [account_collective(spec, FED_PODS, mode="sparse",
+                               k_fraction=r["k_frac"]) for r in rounds]
+    secs = [r["seconds"] for r in rounds]
+    print(f"  {FED_PODS} virtual pods x {n_params / 1e9:.3f} B params "
+          f"({FED_LAYERS} layers), {FED_ROUNDS} rounds: s/round "
+          f"{[round(x, 4) for x in secs]} (phase wall {wall:.2f} s), "
+          f"k_frac {[r['k_frac'] for r in rounds]}, peak {peak:.2f} GiB "
+          f"({resident:.2f} resident at the start)  [{card.line}]",
+          flush=True)
+    print(f"  importance launches {counts['importance']} (predicted "
+          f"{ranked} rank-2+ leaves x {FED_PODS} pods x {FED_ROUNDS} rounds "
+          f"= {want}); collective bytes dense / actual per round "
+          + ", ".join(f"{d / 1e9:.3f} / {a / 1e9:.3f} GB" for d, a in coll),
+          flush=True)
+    if counts["importance"] != want or counts["flash_attention"]:
+        raise AssertionError(f"federated launches {counts}, importance "
+                             f"predicted {want}")
+    if len(scored) != want:
+        raise AssertionError(f"{len(scored)} scores held, {want} predicted")
+    if not (finite and on_card and all(np.isfinite(r["losses"]).all()
+                                       for r in rounds)):
+        raise AssertionError("federated params or losses not finite, or "
+                             "off the card")
+    return dict(arch=TRAIN_ARCH, layers=FED_LAYERS, pods=FED_PODS,
+                rounds=FED_ROUNDS, local_steps=FED_LOCAL_STEPS,
+                batch=FED_BATCH, seq=FED_SEQ, n_params=n_params,
+                s_per_round=secs, wall_s=wall, launches=counts,
+                importance_predicted=want, ranked_leaves=ranked,
+                scores_held=len(scored), score_max_abs_err=score_err,
+                score_shapes=[[list(sh), dt] for sh, dt in shapes],
+                k_frac=[r["k_frac"] for r in rounds],
+                d=[r["d"].tolist() for r in rounds],
+                losses=[r["losses"].tolist() for r in rounds],
+                collective_bytes=[dict(dense=d, actual=a) for d, a in coll],
+                peak_gib=peak, resident_gib=resident)
+
+
+def moe_phase(card: Card, dev="cuda") -> dict:
+    """qwen3-moe-30b-a3b at full width cut to MOE_LAYERS layers: one
+    MOE_PREFILL_SEQ-token prefill (flash on every layer, sm90), greedy
+    decode at MOE_DECODE_BATCH for MOE_DECODE_STEPS steps (no kernel), and
+    one AdamW step at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ (no flash)."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (gqa_attention_ref,
+                                                          worst_row_error)
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    resident = [_fresh_peak(dev)]
+    cfg, params, gen = serve.build(MOE_ARCH, reduced=False,
+                                   num_layers=MOE_LAYERS, device=dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (1, MOE_PREFILL_SEQ),
+                           generator=gen, device=dev)
+    lm.prefill(params, cfg, {"tokens": tokens[:, :256]})      # warm-up
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    last = lm.prefill(params, cfg, {"tokens": tokens})
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = kernels.launch_counts()
+    routes = flash_ops.route_counts()
+    if tuple(last.shape) != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(last).all()):
+        raise AssertionError("MoE prefill logits not finite")
+    want = {k: 0 for k in kernels.KERNELS}
+    want["flash_attention"] = cfg.num_layers
+    if prefill_counts != want or routes != {"sm90": cfg.num_layers,
+                                            "fma": 0}:
+        raise AssertionError(f"MoE prefill launches {prefill_counts}, "
+                             f"routes {routes}")
+    # once more, untimed: the kernel's output in every layer against its
+    # plain version on the very (qk-normed) inputs the prefill gives it
+    inputs = []
+    kernel = flash_ops.flash_attention
+
+    def held(q, k, v, *, causal=True, window=0):
+        out = kernel(q, k, v, causal=causal, window=window)
+        want = gqa_attention_ref(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        inputs.append(((out.float() - want.float()).abs().max().item(),
+                       worst_row_error(out, want)))
+        del want
+        return out
+
+    flash_ops.flash_attention = held
+    try:
+        lm.prefill(params, cfg, {"tokens": tokens})
+    finally:
+        flash_ops.flash_attention = kernel
+    in_err = max(e for e, _ in inputs)
+    in_row = max(r for _, r in inputs)
+    print(f"  MoE prefill's own flash inputs, {len(inputs)} layers: kernel "
+          f"vs plain max err {in_err:.3g}, worst row {in_row:.3g} of its "
+          f"scale (limit {ROW_TOL:.4g})", flush=True)
+    if len(inputs) != cfg.num_layers or not in_row <= ROW_TOL:
+        raise AssertionError(f"MoE prefill flash inputs: {inputs}")
+    del last, tokens
+
+    state = lm.init_decode_state(params, cfg, MOE_DECODE_BATCH,
+                                 MOE_DECODE_STEPS + 1)
+    tok = torch.randint(0, cfg.vocab_size, (MOE_DECODE_BATCH, 1),
+                        generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    seq, logits, state = serve.generate(params, cfg, state, tok,
+                                        MOE_DECODE_STEPS)
+    _sync(dev)
+    ms_token = (time.perf_counter() - t0) / MOE_DECODE_STEPS * 1e3
+    decode_counts = kernels.launch_counts()
+    if any(decode_counts.values()) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"MoE decode launches {decode_counts} or "
+                             f"non-finite logits")
+    del state, logits
+    serve_peak = _peak_gb()
+
+    resident.append(_fresh_peak(dev))
+    opt = adamw(3e-4)
+    st = lm.TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device=dev))
+    del params
+    step = lm.make_train_step(cfg, opt)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ), generator=gen,
+                         device=dev)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    st, m = step(st, {"tokens": toks})
+    loss, aux = float(m["loss"]), float(m["moe_aux"])
+    train_s = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    train_peak = _peak_gb()
+    del st, m
+    if not (math.isfinite(loss) and aux > 0.0) or train_counts[
+            "flash_attention"]:
+        raise AssertionError(f"MoE train loss {loss}, aux {aux}, launches "
+                             f"{train_counts}")
+    print(f"  {cfg.name} d={cfg.d_model} experts={cfg.moe.num_experts} "
+          f"top-{cfg.moe.top_k} d_ff={cfg.moe.d_ff_expert} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers}: "
+          f"{n_params / 1e9:.3f} B params", flush=True)
+    print(f"  prefill S={MOE_PREFILL_SEQ}: {prefill_s:.4f} s (flash "
+          f"{routes}); decode B={MOE_DECODE_BATCH} x {MOE_DECODE_STEPS}: "
+          f"{ms_token:.2f} ms/token; peak {serve_peak:.2f} GiB "
+          f"({resident[0]:.2f} resident at the start); train step "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ}: {train_s:.4f} s/step, loss "
+          f"{loss:.4f} (moe_aux {aux:.4f}), peak {train_peak:.2f} GiB; "
+          f"moe phase wall {time.perf_counter() - t_phase:.2f} s  "
+          f"[{card.line}]", flush=True)
+    return dict(arch=MOE_ARCH, phase_wall_s=time.perf_counter() - t_phase,
+                layers=MOE_LAYERS, n_params=n_params,
+                prefill_seq=MOE_PREFILL_SEQ, prefill_s=prefill_s,
+                prefill_launches=prefill_counts, prefill_routes=routes,
+                prefill_inputs_err=in_err, prefill_inputs_row=in_row,
+                decode_batch=MOE_DECODE_BATCH,
+                decode_steps=MOE_DECODE_STEPS, ms_per_token=ms_token,
+                decode_launches=decode_counts, serve_peak_gib=serve_peak,
+                train_batch=MOE_TRAIN_BATCH, train_seq=MOE_TRAIN_SEQ,
+                train_s=train_s, train_loss=loss, train_moe_aux=aux,
+                train_launches=train_counts, train_peak_gib=train_peak,
+                resident_gib=resident,
+                request0_tokens=seq[0, :8].tolist())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3620,6 +4073,7 @@ def main(argv=None) -> int:
         big = big_merge_check(card, flush)
         records.append(big)
         flash = flash_checks(card, flush, records)
+        lm_importance = lm_importance_checks(card, flush, records)
         del flush
         torch.cuda.empty_cache()
         engine_check()
@@ -3634,6 +4088,10 @@ def main(argv=None) -> int:
         sim_out = sim_phase()
         shard_out = sharded_phase(card)
         serve_out = serving_phase()
+        torch.cuda.empty_cache()
+        train_out = train_phase(card)
+        fed_out = federated_phase(card)
+        moe_out = moe_phase(card)
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
         traceback.print_exc()
@@ -3663,6 +4121,17 @@ def main(argv=None) -> int:
         if name == "flash_attention":
             line_kernels[-1]["dispatch"] = dict(
                 route="sm90", launches=serve_out["prefill_routes"])
+            moe_rec = flash["moe"]
+            line_kernels[-1].update(
+                moe_prefill={k: moe_rec[k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err", "worst_row")},
+                moe_prefill_inputs=dict(max_abs_err=moe_out[
+                    "prefill_inputs_err"], worst_row=moe_out[
+                    "prefill_inputs_row"]),
+                launches_moe_prefill=moe_out["prefill_launches"][name],
+                launches_train=train_out["launches"][name],
+                launches_train_long=train_out["long"]["launches"][name])
         if name == "sparse_agg":
             ew = checks["main"]["sparse_agg_elementwise"]
             line_kernels[-1].update(
@@ -3711,6 +4180,16 @@ def main(argv=None) -> int:
                     p: v["launches"][name]
                     for p, v in sim_out["a"]["policies"].items()})
         if name == "importance":
+            line_kernels[-1]["launches_federated_pods"] = fed_out[
+                "launches"]["importance"]
+            line_kernels[-1]["federated_pods_scores"] = dict(
+                held=fed_out["scores_held"],
+                max_abs_err=fed_out["score_max_abs_err"])
+            line_kernels[-1]["lm_leaves"] = [
+                {k: r[k] for k in ("leaf", "shape", "dtype", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "max_abs_err", "blocks", "splits")}
+                for r in lm_importance]
             n1 = checks["main"]["importance_n1"]
             line_kernels[-1]["n1"] = {k: n1[k] for k in (
                 "shape", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3736,7 +4215,8 @@ def main(argv=None) -> int:
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
-            serving=serve_out,
+            serving=serve_out, train=train_out, federated=fed_out,
+            moe=moe_out, lm_importance=lm_importance,
             summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
@@ -3755,7 +4235,12 @@ def main(argv=None) -> int:
           f"{sim_out['a']['steady_host_s']:.4f}; sharded fleet (sharded "
           "phase) rounds/s: " + ", ".join(
               f"{k} {v:.3f}" for k, v in shard_out["b"][
-                  "rounds_per_s"].items()), flush=True)
+                  "rounds_per_s"].items())
+          + f"; LM train {train_out['s_per_step']:.4f} s/step, pods "
+          f"{statistics.median(fed_out['s_per_round']):.4f} s/round, MoE "
+          f"prefill {moe_out['prefill_s']:.4f} s, decode "
+          f"{moe_out['ms_per_token']:.2f} ms/token, train "
+          f"{moe_out['train_s']:.4f} s/step", flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

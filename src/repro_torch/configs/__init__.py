@@ -1,9 +1,10 @@
 """Architecture registry of the port, with the JAX registry's names.
 
 ``get_config(name, reduced=False)`` takes the same ids and hyphenated
-aliases as ``repro.configs``.  The dense family is ported (gemma3_27b,
-granite_3_8b, chatglm3_6b, nemotron_4_340b); an architecture whose
-modules are not ported yet (MoE, SSM, xLSTM, VLM, audio) raises
+aliases as ``repro.configs``.  The dense family (gemma3_27b,
+granite_3_8b, chatglm3_6b, nemotron_4_340b) and the MoE family
+(qwen3_moe_30b_a3b, granite_moe_1b_a400m) are ported; an architecture
+whose modules are not ported yet (SSM, xLSTM, VLM, audio) raises
 ``NotImplementedError`` naming the ROADMAP item that will bring it.
 """
 
@@ -40,7 +41,8 @@ ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
-PORTED = ("gemma3_27b", "granite_3_8b", "chatglm3_6b", "nemotron_4_340b")
+PORTED = ("gemma3_27b", "granite_3_8b", "chatglm3_6b", "nemotron_4_340b",
+          "qwen3_moe_30b_a3b", "granite_moe_1b_a400m")
 
 
 def list_configs() -> List[str]:
@@ -54,6 +56,6 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if mod_name not in PORTED:
         raise NotImplementedError(
             f"{mod_name} needs model modules the port does not have yet "
-            f"(MoE, SSM, xLSTM, VLM or audio); see ROADMAP.md A15")
+            f"(SSM, xLSTM, VLM or audio); see ROADMAP.md A15")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.reduced() if reduced else mod.config()

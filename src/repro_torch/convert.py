@@ -1,4 +1,5 @@
-"""Carry parameter pytrees between numpy arrays and the port's tensors.
+"""Carry parameter pytrees and LM train states between numpy arrays and
+the port's tensors.
 
 ``jax.random.normal`` cannot be reproduced in torch, so runs that must
 start from the JAX package's parameters hand them over as numpy arrays
@@ -56,3 +57,21 @@ def lm_params_from_jax(numpy_tree, device: DeviceLike = None):
         if key not in numpy_tree:
             raise ValueError(f"not an LM parameter tree: no {key!r} entry")
     return to_torch(numpy_tree, device)
+
+
+def train_state_from_jax(numpy_state, device: DeviceLike = None):
+    """The JAX package's ``TrainState`` (``jax.device_get`` of it: params,
+    optimizer state and step as numpy) -> the port's
+    :class:`~repro_torch.models.lm.TrainState` on ``device``.  Every leaf
+    keeps its dtype (moments float32, steps int32)."""
+    from repro_torch.models.lm import TrainState
+    params, opt_state, step = numpy_state
+    return TrainState(lm_params_from_jax(params, device),
+                      to_torch(opt_state, device), to_torch(step, device))
+
+
+def train_state_to_numpy(state):
+    """The port's TrainState -> (params, opt_state, step) as numpy trees
+    (bfloat16 as float32), to hand back to the JAX package."""
+    return (to_numpy(state.params), to_numpy(state.opt_state),
+            to_numpy(state.step))

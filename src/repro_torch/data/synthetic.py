@@ -68,3 +68,20 @@ def make_dataset(name: str, *, num_train: int = 20_000,
     xte, yte = _sample(num_test, 2)
     return (SyntheticImageDataset(xtr, ytr, num_classes, name),
             SyntheticImageDataset(xte, yte, num_classes, name))
+
+
+def make_lm_dataset(*, vocab_size: int, num_tokens: int = 1 << 20,
+                    order: int = 2, seed: int = 0) -> np.ndarray:
+    """Synthetic token stream with Markov structure (so an LM has something
+    to learn); used by the LM train and federated-pods drivers.  Equal,
+    token for token, to the JAX package's."""
+    rng = np.random.default_rng(seed)
+    # sparse bigram transition structure
+    fanout = min(32, vocab_size)
+    nxt = rng.integers(0, vocab_size, (vocab_size, fanout))
+    toks = np.empty(num_tokens, np.int32)
+    t = rng.integers(0, vocab_size)
+    for i in range(num_tokens):
+        toks[i] = t
+        t = nxt[t, rng.integers(0, fanout)]
+    return toks

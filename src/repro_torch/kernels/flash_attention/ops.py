@@ -71,7 +71,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q/k/v are read in place through their strides (the head dim must have
     unit stride); no transpose copy is made.
+
+    Forward only: the kernel writes through a raw pointer, invisible to
+    autograd, and has no backward (nor has the JAX package's Pallas
+    kernel).  With grad enabled and q, k or v requiring grad it raises,
+    on every device, rather than return an output that carries no
+    gradient; training takes ``models.attention._sdpa_chunked``.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under "
+            "torch.inference_mode()/no_grad() or with inputs that do not "
+            "require grad (training routes to models.attention."
+            "_sdpa_chunked)")
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"need q (B, Sq, H, hd) and k/v (B, Skv, Hkv, hd) "
                          f"of one shape; got {tuple(q.shape)}, "

@@ -12,10 +12,19 @@ The counterpart of ``repro.models.attention`` for the dense family:
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).  Matmuls run in
 the compute dtype, the softmax in fp32.  At ``s >= FLASH_MIN_SEQ`` the
-causal and local modes go through the flash-attention wrapper: the Hopper
-kernel for CUDA tensors, its plain version for CPU tensors (where the JAX
-package routes to its Pallas kernel on a TPU).  ``cross_attention``
-(audio) and the JAX package's chunked non-TPU fallback are not ported.
+causal and local modes route by what the call needs:
+
+  * no gradient to carry (prefill, serving, any call whose q/k/v do not
+    require grad): the flash-attention wrapper, the Hopper kernel for
+    CUDA tensors and its plain version for CPU tensors (where the JAX
+    package routes to its Pallas kernel on a TPU);
+  * grad enabled and q, k or v requiring it (training): ``_sdpa_chunked``,
+    the JAX package's chunked online-softmax route, its only
+    differentiable one at that length (its Pallas kernel has no
+    backward, and neither has the port's: the wrapper raises on inputs
+    that require grad).
+
+``cross_attention`` (audio) is not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.3819763e38   # lowest bf16-representable; standard flash value
 
-# Sequences at least this long attend through the flash kernel.
+# Sequences at least this long attend through the flash kernel, or, under
+# autograd, through the chunked route in KV chunks of FLASH_CHUNK.
+FLASH_CHUNK = 2048
 FLASH_MIN_SEQ = 8192
 
 
@@ -108,6 +119,62 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, hd)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  mode: str, window: int) -> torch.Tensor:
+    """Flash-style attention in plain ops, differentiable: a loop over KV
+    chunks of ``FLASH_CHUNK`` with a running fp32 max and sum, the tail
+    chunk padded (the JAX package's ``_sdpa_chunked``, operation for
+    operation).
+
+    q: (B, S, H, hd); k/v: (B, S, Hkv, hd).  Causal ('full') or sliding
+    window ('local') masking, self-attention alignment (sq == skv).
+    """
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    c = FLASH_CHUNK
+    n_chunks = (s + c - 1) // c
+    pad = n_chunks * c - s
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    # divided in q's dtype, as the JAX package does, then widened
+    qg = (q.reshape(b, s, hkv, g, hd) / torch.tensor(
+        math.sqrt(hd), dtype=q.dtype, device=dev)).float()
+    qi = torch.arange(s, device=dev)[:, None]
+    m_run = torch.full((b, hkv, g, s), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=dev)
+    o_run = torch.zeros((b, hkv, g, s, hd), dtype=torch.float32, device=dev)
+    for j in range(n_chunks):
+        kj = kp[:, j * c:(j + 1) * c].float()
+        vj = vp[:, j * c:(j + 1) * c].float()
+        scores = torch.einsum("bqhgk,bjhk->bhgqj", qg, kj)
+        kid = j * c + torch.arange(c, device=dev)[None, :]
+        valid = kid < s
+        if mode == "local":
+            m = (kid <= qi) & (kid > qi - window) & valid
+        else:
+            m = (kid <= qi) & valid
+        scores = torch.where(m[None, None, None], scores, NEG_INF)
+        m_new = torch.maximum(m_run, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m_run - m_new)
+        l_run = l_run * corr + p.sum(dim=-1)
+        o_run = (o_run * corr[..., None]
+                 + torch.einsum("bhgqj,bjhk->bhgqk", p, vj))
+        m_run = m_new
+    out = o_run / torch.clamp(l_run[..., None], min=1e-30)
+    out = out.movedim(-2, 1).reshape(b, s, h, hd)
+    return out.to(q.dtype)
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``tensors``: grad enabled and
+    one of them requiring grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def causal_mask(sq: int, skv: int, offset: int = 0, device=None
                 ) -> torch.Tensor:
     """(sq, skv) boolean mask; query i attends kv j iff j <= i + offset."""
@@ -132,13 +199,16 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def self_attention(p, cfg: ModelConfig, x: torch.Tensor, *, mode: str,
                    positions: Optional[torch.Tensor] = None,
                    window: Optional[int] = None) -> torch.Tensor:
-    """Prefill self-attention.  mode: full|local|bidir."""
+    """Training/prefill self-attention.  mode: full|local|bidir."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = _project_qkv(p, cfg, x, positions)
     win = window or cfg.window_size
-    if mode in ("full", "local") and s >= FLASH_MIN_SEQ:
+    if (mode in ("full", "local") and s >= FLASH_MIN_SEQ
+            and needs_grad(q, k, v)):
+        out = _sdpa_chunked(q, k, v, mode=mode, window=win)
+    elif mode in ("full", "local") and s >= FLASH_MIN_SEQ:
         out = flash_ops.flash_attention(
             q, k, v, causal=True, window=win if mode == "local" else 0)
     elif mode == "full":

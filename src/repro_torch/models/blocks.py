@@ -1,4 +1,4 @@
-"""Block assembly and the layer stack, dense subset.
+"""Block assembly and the layer stack: dense and MoE layers.
 
 The counterpart of ``repro.models.blocks``.  A layout (``cfg.layout()``)
 splits into ``(period, n_super, remainder)``; the parameters of each
@@ -11,9 +11,17 @@ Decode state (the KV caches) is stacked the same way; slicing the stacked
 cache gives views, so the in-place cache writes of a decode step land in
 the stacked tensors.
 
-Mixers ``attn`` and ``attn_local`` and the ``dense`` feed-forward are
-ported; mamba, mLSTM, sLSTM, MoE and cross-attention raise with a pointer
-to ROADMAP.md A15.
+``apply_stack`` returns ``(x, moe_aux)`` as the JAX package's does, the
+MoE layers' load-balance losses summed in layer order.  ``remat=True``
+runs each super-block under ``torch.utils.checkpoint`` (non-reentrant:
+grad mode and so the attention route are the same in the recompute),
+the counterpart of ``jax.checkpoint(superblock)``; the JAX package's
+grouped checkpointing is off by default there (its env override is for
+analysis only) and is not ported.
+
+Mixers ``attn`` and ``attn_local`` and the ``dense`` and ``moe``
+feed-forwards are ported; mamba, mLSTM, sLSTM and cross-attention raise
+with a pointer to ROADMAP.md A15.
 """
 
 from __future__ import annotations
@@ -22,9 +30,10 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
-from repro_torch.models import attention, layers, mlp
+from repro_torch.models import attention, layers, mlp, moe
 from repro_torch.models.config import BlockSpec, ModelConfig, split_layout
 
 ATTN_MIXERS = ("attn", "attn_local")
@@ -34,7 +43,7 @@ def _check_ported(spec: BlockSpec) -> None:
     if spec.mixer not in ATTN_MIXERS:
         raise NotImplementedError(
             f"mixer {spec.mixer!r} is not ported yet; see ROADMAP.md A15")
-    if spec.ff not in ("dense", "none"):
+    if spec.ff not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"feed-forward {spec.ff!r} is not ported yet; see ROADMAP.md A15")
     if spec.cross_attention:
@@ -54,6 +63,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
     if spec.ff == "dense":
         p["post_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev, lead)
         p["ff"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                               dtype, lead)
+    elif spec.ff == "moe":
+        p["post_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev, lead)
+        p["ff"] = moe.init_moe(gen, cfg.d_model, cfg.moe, cfg.activation,
                                dtype, lead)
     return p
 
@@ -80,18 +93,32 @@ def _attn_mode(spec: BlockSpec, mode: str) -> str:
     return "local" if spec.mixer == "attn_local" else "full"
 
 
+def _feed_forward(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's feed-forward residual: (x, the MoE aux loss or None)."""
+    if spec.ff == "dense":
+        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
+        return x + mlp.apply_mlp(p["ff"], h, cfg.activation), None
+    if spec.ff == "moe":
+        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
+        y, a = moe.apply_moe(p["ff"], h, cfg.moe, cfg.activation)
+        return x + y, a
+    return x, None
+
+
 def apply_block(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor, *,
-                mode: str = "causal") -> torch.Tensor:
-    """Prefill application of one layer."""
+                mode: str = "causal") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill application of one layer: (x, moe_aux)."""
     _check_ported(spec)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
     x = x + attention.self_attention(p["mixer"], cfg, h,
                                      mode=_attn_mode(spec, mode),
                                      window=spec.window)
-    if spec.ff == "dense":
-        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
-        x = x + mlp.apply_mlp(p["ff"], h, cfg.activation)
-    return x
+    x, a = _feed_forward(p, cfg, spec, x)
+    if a is not None:
+        aux = aux + a
+    return x, aux
 
 
 def apply_block_decode(p, cfg: ModelConfig, spec: BlockSpec,
@@ -102,10 +129,7 @@ def apply_block_decode(p, cfg: ModelConfig, spec: BlockSpec,
     h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
     y, state = attention.decode_self_attention(
         p["mixer"], cfg, h, state, pos, mode=_attn_mode(spec, "causal"))
-    x = x + y
-    if spec.ff == "dense":
-        h = layers.apply_norm(p["post_norm"], x, cfg.norm)
-        x = x + mlp.apply_mlp(p["ff"], h, cfg.activation)
+    x, _ = _feed_forward(p, cfg, spec, x + y)
     return x, state
 
 
@@ -155,15 +179,40 @@ def _slice(stacked, i: int):
 
 
 def apply_stack(params: Dict, cfg: ModelConfig, plan: StackPlan,
-                x: torch.Tensor, *, mode: str = "causal") -> torch.Tensor:
-    """Forward through the whole stack."""
-    for i in range(plan.n_super):
+                x: torch.Tensor, *, mode: str = "causal", remat: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward through the whole stack: (x, total moe_aux).
+
+    ``remat`` recomputes each super-block's activations in the backward
+    pass instead of keeping them (only where autograd records: grad
+    enabled and the input or a stacked parameter requiring grad).  The
+    stacked parameters are unbound once into per-super-block views: the
+    backward then stacks each leaf's gradient once, where indexing
+    ``t[i]`` per super-block would scatter every slice's gradient into a
+    zero tensor of the whole stack (n_super times the stack's bytes)."""
+    slices = [tree.tree_map(lambda t: t.unbind(0),
+                            params["super"][f"p{pi}"])
+              for pi in range(len(plan.period))]
+
+    def superblock(h, aux, i):
         for pi, spec in enumerate(plan.period):
-            x = apply_block(_slice(params["super"][f"p{pi}"], i), cfg, spec,
-                            x, mode=mode)
+            p = tree.tree_map(lambda u: u[i], slices[pi])  # tuples: leaves
+            h, a = apply_block(p, cfg, spec, h, mode=mode)
+            aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt = remat and torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in tree.leaves(params["super"])))
+    for i in range(plan.n_super):
+        if ckpt:
+            x, aux = checkpoint(superblock, x, aux, i, use_reentrant=False)
+        else:
+            x, aux = superblock(x, aux, i)
     for ri, spec in enumerate(plan.remainder):
-        x = apply_block(params["rem"][f"r{ri}"], cfg, spec, x, mode=mode)
-    return x
+        x, a = apply_block(params["rem"][f"r{ri}"], cfg, spec, x, mode=mode)
+        aux = aux + a
+    return x, aux
 
 
 def apply_stack_decode(params: Dict, cfg: ModelConfig, plan: StackPlan,

@@ -1,27 +1,34 @@
-"""The language model: embeddings -> decoder stack -> logits, the prefill
-and the single-token serve step.
+"""The language model: embeddings -> decoder stack -> logits, the train
+step, the prefill and the single-token serve step.
 
-The counterpart of ``repro.models.lm`` for the dense family (decoder-only,
-``{"tokens": (B, S)}`` input).  Parameters are the JAX package's tree:
+The counterpart of ``repro.models.lm`` for the decoder-only families
+(dense and MoE; ``{"tokens": (B, S)}`` input).  Parameters are the JAX
+package's tree:
 
   {"embed": {"table"}, "stack": {"super": ..., "rem": ...},
    "final_norm": {"scale"}, ["lm_head": {"table"}]}
 
 so :func:`repro_torch.convert.lm_params_from_jax` carries JAX weights
-across unchanged.  ``prefill`` is the JAX package's ``prefill_32k``
-dry-run function (``launch/dryrun.py``): the forward pass, keeping the
-last position's logits.  The training step waits for ROADMAP A15.
+across unchanged, and :func:`repro_torch.convert.train_state_from_jax`
+a whole train state.  ``forward`` and ``loss_fn`` are differentiable
+(autograd records them when the parameters require grad);
+``make_train_step`` is the JAX package's, microbatching included.
+``prefill`` is the JAX package's ``prefill_32k`` dry-run function
+(``launch/dryrun.py``): the forward pass, keeping the last position's
+logits; it and the serve step run under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks, layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Optimizer, apply_updates
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -34,10 +41,10 @@ def plan_for(cfg: ModelConfig) -> blocks.StackPlan:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_encdec:
+    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: the port runs "
-            f"the dense family; see ROADMAP.md A15")
+            f"the dense and MoE families; see ROADMAP.md A15")
 
 
 # ----------------------------------------------------------------- init ----
@@ -77,16 +84,109 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.unembed(head, x, softcap=cfg.logits_softcap)
 
 
-@torch.inference_mode()
-def forward(params, cfg: ModelConfig, batch: Dict
-            ) -> tuple:
-    """Returns (logits (B, S, V) fp32, moe_aux = 0): the JAX signature;
-    the dense family has no auxiliary loss."""
+def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) fp32, moe_aux 0-d fp32).  Differentiable;
+    ``remat`` recomputes each super-block in the backward pass."""
     _check_family(cfg)
     x = _embed(params, cfg, batch["tokens"])
-    x = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x,
+                                remat=remat)
     return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy plus the MoE load-balance loss:
+    (total, {"ce", "moe_aux"})."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    labels = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1]
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce + aux, {"ce": ce, "moe_aux": aux}
+
+
+# ----------------------------------------------------------- train step ----
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: torch.Tensor            # 0-d int32
+
+
+def init_train_state(cfg: ModelConfig, opt: Optimizer,
+                     generator: torch.Generator,
+                     device: DeviceLike = None) -> TrainState:
+    params = init_model(cfg, generator, device)
+    return TrainState(params=params, opt_state=opt.init(params),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=resolve_device(device)))
+
+
+def value_and_grad(params, cfg: ModelConfig, batch: Dict,
+                   remat: bool = True):
+    """(loss, metrics, grads) of :func:`loss_fn`; grads in the parameters'
+    dtypes, as ``jax.value_and_grad`` gives them."""
+    leaves, td = tree.flatten(params)
+    req = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree.unflatten(td, req), cfg, batch, remat)
+        grads = torch.autograd.grad(loss, req)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree.unflatten(td, list(grads)))
+
+
+def make_train_step(cfg: ModelConfig, opt: Optimizer,
+                    num_microbatches: int = 1, remat: bool = True):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    With ``num_microbatches > 1`` the batch is split along axis 0 and the
+    gradients are accumulated in fp32 and divided by the count (the loss
+    is the mean, ``moe_aux`` reported 0, as in the JAX package).  The
+    optimizer writes its moments in place: the state passed in is
+    consumed (its parameters are not)."""
+    _check_family(cfg)
+
+    def train_step(state: TrainState, batch: Dict):
+        if num_microbatches <= 1:
+            loss, metrics, grads = value_and_grad(state.params, cfg, batch,
+                                                  remat)
+        else:
+            micro = {k: v.reshape((num_microbatches,
+                                   v.shape[0] // num_microbatches)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            grads = tree.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), state.params)
+            lsum = None
+            for i in range(num_microbatches):
+                l, _, g = value_and_grad(
+                    state.params, cfg, {k: v[i] for k, v in micro.items()},
+                    remat)
+                for a, b in zip(tree.leaves(grads), tree.leaves(g)):
+                    a.add_(b.float())
+                del g
+                lsum = l if lsum is None else lsum + l
+            n = torch.tensor(float(num_microbatches), dtype=torch.float32,
+                             device=lsum.device)
+            for g in tree.leaves(grads):
+                g.div_(n)
+            loss = lsum / n
+            metrics = {"ce": loss, "moe_aux": torch.zeros_like(loss)}
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in tree.leaves(grads)))
+        updates, opt_state = opt.update(grads, state.opt_state, state.params)
+        del grads
+        params = apply_updates(state.params, updates)
+        del updates
+        return TrainState(params, opt_state, state.step + 1), {
+            "loss": loss, "grad_norm": gnorm, **metrics}
+
+    return train_step
 
 
 @torch.inference_mode()
@@ -98,7 +198,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
     logits (34 GB at S = 32768 for a 262k vocabulary)."""
     _check_family(cfg)
     x = _embed(params, cfg, batch["tokens"])
-    x = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x)
+    x, _ = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x)
     return _logits(params, cfg, x[:, -1])
 
 

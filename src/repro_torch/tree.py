@@ -31,20 +31,26 @@ def _children(node):
     return None
 
 
+def _flatten_rec(node, path: KeyPath, out: list) -> TreeDef:
+    kids = _children(node)
+    if kids is None:
+        out.append((path, node))
+        return None
+    kind, keys, children = kids
+    return kind, keys, tuple(_flatten_rec(c, path + ((kind, k),), out)
+                             for k, c in zip(keys, children))
+
+
 def flatten_with_path(tree) -> Tuple[List[Tuple[KeyPath, Any]], TreeDef]:
-    """``[(path, leaf)]`` in flatten order, and the treedef."""
+    """``[(path, leaf)]`` in flatten order, and the treedef.
+
+    The walks here are module-level functions, not self-referencing
+    closures: a closure that calls itself is a reference cycle, and one
+    holding the leaves keeps every tensor of the tree alive until the
+    cyclic garbage collector runs (tens of GB of stale parameters)."""
     out: List[Tuple[KeyPath, Any]] = []
-
-    def rec(node, path):
-        kids = _children(node)
-        if kids is None:
-            out.append((path, node))
-            return None
-        kind, keys, children = kids
-        return kind, keys, tuple(rec(c, path + ((kind, k),))
-                                 for k, c in zip(keys, children))
-
-    return out, rec(tree, ())
+    treedef = _flatten_rec(tree, (), out)
+    return out, treedef
 
 
 def keystr(path: KeyPath) -> str:
@@ -59,21 +65,42 @@ def flatten(tree) -> Tuple[List, TreeDef]:
     return [leaf for _, leaf in pairs], treedef
 
 
+def _unflatten_rec(td: TreeDef, it):
+    if td is None:
+        return next(it)
+    kind, keys, children = td
+    vals = [_unflatten_rec(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(keys, vals))
+    return None if kind == "none" else vals
+
+
 def unflatten(treedef: TreeDef, leaves) -> Any:
     it = iter(leaves)
-
-    def rec(td):
-        if td is None:
-            return next(it)
-        kind, keys, children = td
-        vals = [rec(c) for c in children]
-        if kind == "dict":
-            return dict(zip(keys, vals))
-        return None if kind == "none" else vals
-
-    out = rec(treedef)
+    out = _unflatten_rec(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
+    return out
+
+
+def _up_to_rec(td: TreeDef, node, out: list) -> None:
+    if td is None:
+        out.append(node)
+        return
+    kind, keys, children = td
+    kids = _children(node)
+    if kids is None or kids[0] != kind or kids[1] != keys:
+        raise ValueError("tree structure mismatch")
+    for c, n in zip(children, kids[2]):
+        _up_to_rec(c, n, out)
+
+
+def flatten_up_to(treedef: TreeDef, tree) -> List:
+    """The subtrees of ``tree`` at the leaves of ``treedef`` (a prefix of
+    ``tree``'s structure), in flatten order: ``jax``'s
+    ``treedef.flatten_up_to``, e.g. an optimizer's per-leaf state dicts."""
+    out: List = []
+    _up_to_rec(treedef, tree, out)
     return out
 
 

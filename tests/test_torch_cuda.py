@@ -1505,3 +1505,184 @@ def test_sharded_step_across_two_cards(cuda_device):
     for x, y in zip(tree.leaves(got.global_params),
                     tree.leaves(want.global_params)):
         torch.testing.assert_close(x, y, rtol=2e-6, atol=2e-6)
+
+
+# --- LM training, FedDD across pods and the MoE family -----------------------
+
+def _lm_cfg(arch, dtype="float32", **over):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, reduced=True),
+                               param_dtype=dtype, compute_dtype=dtype, **over)
+
+
+def _to_cpu(t):
+    return tree.tree_map(lambda x: x.cpu(), t)
+
+
+@pytest.mark.parametrize("arch,mb", [("granite_3_8b", 1),
+                                     ("qwen3_moe_30b_a3b", 2)])
+def test_train_step_on_card_matches_cpu(arch, mb, cuda_device):
+    """Two adafactor steps on the card against the CPU (plain matmuls,
+    fp32, TF32 off): loss and params within 1e-4; no kernel launches."""
+    from repro_torch.models import lm
+    from repro_torch.optim import adafactor
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(arch)
+    opt = adafactor(1e-2)
+    state = lm.init_train_state(cfg, opt, torch.Generator(
+        device=cuda_device).manual_seed(0), cuda_device)
+    cpu = lm.TrainState(_to_cpu(state.params), _to_cpu(state.opt_state),
+                        state.step.cpu())
+    step = lm.make_train_step(cfg, opt, mb)
+    toks = torch.randint(0, cfg.vocab_size, (2, 4, 32),
+                         generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    for t in toks:
+        state, m = step(state, {"tokens": t.to(cuda_device)})
+        cpu, mc = step(cpu, {"tokens": t})
+        assert abs(float(m["loss"]) - float(mc["loss"])) <= 1e-4
+    assert not any(kernels.launch_counts().values())
+    for a, b in zip(tree.leaves(state.params), tree.leaves(cpu.params)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_chunked_route_trains_on_card_and_flash_refuses_grad(cuda_device,
+                                                              monkeypatch):
+    """At S >= FLASH_MIN_SEQ a step with grad takes the chunked route (no
+    flash launch) and gives q, k and v gradients equal to the plain
+    attention's; the flash wrapper raises on inputs that require grad."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 64)
+    monkeypatch.setattr(attention, "FLASH_CHUNK", 32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(1, 100, h, 64, generator=gen, device=cuda_device,
+                           requires_grad=True) for h in (4, 2, 2))
+    kernels.reset_launch_counts()
+    out = attention._sdpa_chunked(q, k, v, mode="full", window=0)
+    out.square().sum().backward()
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    want = attention._sdpa(q, k, v, attention.causal_mask(
+        100, 100, device=cuda_device)[None])
+    want.square().sum().backward()
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+    for g, t in zip(grads, (q, k, v)):
+        torch.testing.assert_close(g, t.grad, rtol=1e-4, atol=1e-4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_ops.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert kernels.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("leaf", [(2, 256, 4, 128), (515, 256),
+                                  (2, 256, 512)])
+def test_importance_at_lm_leaves_matches_plain(leaf, cuda_device):
+    """bf16 LM leaves read around their last-axis channels (one pod, N=1):
+    the kernel against its plain version at rtol 5e-5, atol 1e-5."""
+    from repro_torch.kernels import _lib
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    wo = (torch.randn((1, *leaf), generator=gen, device=cuda_device)
+          * 0.02).to(torch.bfloat16)
+    wn = (wo.float() + 1e-3 * torch.randn((1, *leaf), generator=gen,
+                                          device=cuda_device)
+          ).to(torch.bfloat16)
+    a, c, b = _lib.split_at(leaf, len(leaf) - 1)
+    got = imp_ops.channel_importance_batched(wo, wn)
+    want = channel_importance_ref(wo.view(1, a, c, b), wn.view(1, a, c, b))
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=1e-5)
+
+
+def test_federated_round_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Two virtual pods of the card against two CPU pods: one importance
+    launch per rank-2+ leaf and pod, params within 1e-4, equal kept
+    channel sets."""
+    from repro_torch.core import sparse_collective
+    from repro_torch.launch import federated
+    from repro_torch.models import lm
+    real_topk = sparse_collective.compact_topk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg("granite_3_8b", num_layers=2)
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 16),
+                         generator=torch.Generator().manual_seed(2))
+    d = np.array([0.3, 0.6], np.float32)
+    runs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = federated.pod_mesh(2, dev)
+        pods = [tree.tree_map(lambda t: t.to(dev, copy=True), params)
+                for _ in range(2)]
+        kept = []       # what compact_topk picks in sparse_allgather_mean
+
+        def recording(values, scores, k):
+            compact, idx = real_topk(values, scores, k)
+            kept.append(idx.cpu())
+            return compact, idx
+
+        monkeypatch.setattr(sparse_collective, "compact_topk", recording)
+        kernels.reset_launch_counts()
+        out, losses = federated.make_round_fn(cfg, mesh, 3e-2, 2, 0.75)(
+            pods, [t.to(dev) for t in toks], d)
+        runs[dev.type] = (out, losses, kept, kernels.launch_counts())
+    out, losses, kept, counts = runs["cuda"]
+    ranked = sum(t.ndim >= 2 for t in tree.leaves(params))
+    assert counts["importance"] == 2 * ranked
+    assert runs["cpu"][3]["importance"] == 0
+    torch.testing.assert_close(losses.cpu(), runs["cpu"][1], rtol=1e-4,
+                               atol=1e-4)
+    for p_gpu, p_cpu in zip(out, runs["cpu"][0]):
+        for a, b in zip(tree.leaves(p_gpu), tree.leaves(p_cpu)):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    assert len(kept) == len(runs["cpu"][2]) == 2 * ranked
+    for kg, kc, kl in zip(kept, runs["cpu"][2], [
+            min(n, k) for t in tree.leaves(params) if t.ndim >= 2
+            for k in [int(np.ceil(t.shape[-1] * 0.75))]
+            for n in federated.keep_counts(t.shape[-1], d)]):
+        assert sorted(kg[:kl].tolist()) == sorted(kc[:kl].tolist())
+
+
+def test_moe_forward_and_decode_on_card(cuda_device, monkeypatch):
+    """The reduced qwen3-moe on the card: forward within 1e-4 of the CPU
+    (fp32), decode equal to forward, two runs bit-equal.  Decode equals
+    forward only where the forward drops no assignment, so the experts
+    get capacity for every token (capacity factor E / k) and the test
+    asserts that nothing was dropped."""
+    import dataclasses
+    from repro_torch.models import lm, moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg("qwen3_moe_30b_a3b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    kept = []
+    real = moe._positions_in_expert
+
+    def spy(flat_ids, e, cap):
+        pos, keep = real(flat_ids, e, cap)
+        kept.append(bool(keep.all()))
+        return pos, keep
+
+    monkeypatch.setattr(moe, "_positions_in_expert", spy)
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+    full, aux = lm.forward(params, cfg, {"tokens": toks.to(cuda_device)})
+    again, _ = lm.forward(params, cfg, {"tokens": toks.to(cuda_device)})
+    assert torch.equal(full, again)
+    want, waux = lm.forward(_to_cpu(params), cfg, {"tokens": toks})
+    scale = float(want.abs().max())
+    assert float((full.cpu() - want).abs().max()) <= 1e-4 * scale
+    assert abs(float(aux) - float(waux)) <= 1e-5
+    state = lm.init_decode_state(params, cfg, 2, 16)
+    step = lm.make_serve_step(cfg)
+    outs = []
+    for t in range(16):
+        lg, state = step(params, state, toks[:, t:t + 1].to(cuda_device))
+        outs.append(lg)
+    dec = torch.stack(outs, 1)
+    assert kept and all(kept)
+    assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())

@@ -348,12 +348,18 @@ def test_decode_ring_buffer_past_the_wrap(dt):
 
 
 def test_unported_blocks_raise():
+    """mamba and cross-attention raise, naming the ROADMAP; the MoE
+    feed-forward is ported and builds its experts."""
     cfg = get_config("gemma3_27b", reduced=True)
     gen = torch.Generator().manual_seed(0)
-    for spec in (BlockSpec("mamba", "dense"), BlockSpec("attn", "moe"),
+    for spec in (BlockSpec("mamba", "dense"),
                  BlockSpec("attn", "dense", cross_attention=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             blocks.init_block(gen, cfg, spec, torch.float32)
+    moe_cfg = get_config("qwen3_moe_30b_a3b", reduced=True)
+    p = blocks.init_block(gen, moe_cfg, BlockSpec("attn", "moe"),
+                          torch.float32)
+    assert tuple(p["ff"]["w_up"].shape) == (4, 256, 128)
 
 
 # ------------------------------------------------------------------- lm ----
