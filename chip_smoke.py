@@ -42,11 +42,13 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    CUDA-core one), and at the serving path's heads (B=1, 32/16 heads,
    hd 128, window 0 and 1024) over every row at S=8192 and at the
    prefill's S=32768 (the plain version there in chunks of 1024 query
-   rows), with bf16 inputs and again with fp32 ones; at both lengths the
-   kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick the port never calls: causal through its flash backend, the
-   window through its memory-efficient backend with an additive band
-   mask) are timed in bf16;
+   rows), with bf16 inputs and again with fp32 ones, and at the jamba and
+   pixtral prefills' shapes (1, 8192, 64/8, 128) and (1, 8448, 32/8, 128);
+   at each of them the kernel, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick the port never calls:
+   causal through its flash backend, the window through its
+   memory-efficient backend with an additive band mask) are timed in
+   bf16;
 4. one engine step on the card against the same step on the CPU (the
    plain versions), for a FedDD round, a full FedDD round and FedAvg; and
    one with a round key, CommConfig(auto, 8) and random masks (densities,
@@ -139,29 +141,46 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    top-8, d_ff 768, vocab 151936) cut to 4 layers: one 8192-token
    prefill (flash on every layer, sm90), 16 greedy decode steps at batch
    4 (no kernel), one AdamW step at 4 x 1024 tokens (no flash, a
-   positive load-balance loss).  Every number of phases 7-9 is printed
-   beside the card's name and power limit.
+   positive load-balance loss);
+10. the remaining families (``families_phase``), each built, driven and
+   freed before the next: jamba-1.5-large-398b at full width (d 8192,
+   64/8 heads, NoPE, 16 experts top-2, Mamba d_state 16) cut to 4 layers
+   (mamba, attn+moe, mamba, mamba+moe): one 8192-token prefill (flash
+   once, sm90; the Mamba layers' share timed), 32 greedy decode steps at
+   batch 4, bf16 decode against forward over 32 tokens within 5e-2 (no
+   dispatch dropping a token; each row held up to its first near-tie
+   expert flip); xlstm-1.3b (48 layers): a 2048-token prefill (no flash;
+   the sLSTM layers' share and a sLSTM step's device ops), decode, decode
+   against forward in bf16 (reported: at random init xLSTM amplifies a
+   rounding difference ~7x every 8 layers) and in fp32 over one period (8
+   layers) within 1e-3; pixtral-12b (40 layers): 256
+   patch embeddings + 8192 tokens (flash 40, sm90), text-only decode;
+   whisper-medium (24 + 24 layers): the encoder over 1500 frames, a
+   448-token decoder prefill (no flash), decode over the cached encoder
+   output, decode against forward within 3e-2.  The flash launches of
+   the jamba and pixtral prefills are held against the plain version on
+   their own inputs.  Every number of phases 7-10 is printed beside the
+   card's name and power limit.
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
 kernels, with the default-comm, random and loop runs' beside them
-(``launches_loop``), the scanned K = 5 run's (``launches_scan``) and
-the hetero-a run's on the grouped engine and the loop
-(``launches_grouped``, ``launches_grouped_loop``), the sharded
-quickstart's (``launches_sharded`` on 4 virtual shards,
-``launches_sharded_one``, ``launches_sharded_grouped``), and importance's N = 1
-row under ``n1``, ``sparse_agg``'s elementwise mode under
-``elementwise``, the prefill
-for flash attention, with the MoE prefill's and the training steps'
-beside them, and importance's federated-pods launches and its LM-leaf
-rows under ``lm_leaves``; ``sparse_agg``'s times are its mean mode's, named by
-its ``mode`` key, with the partials mode's and the unfused Eq. (4)'s
-beside them; ``masked_merge``'s at fc0, with the grouped launch of the
-six leaves (``mode: "grouped"``) and the six single-leaf launches beside
-them; flash attention's times at the prefill's shape, causal,
-named by its ``shape`` and ``window`` keys, and the launches by route
-under ``dispatch``); the last line is
-``{"ok": true, "device": {...}}``.
+(``launches_loop``), the scanned K = 5 run's (``launches_scan``) and the
+hetero-a run's on the grouped engine and the loop (``launches_grouped``,
+``launches_grouped_loop``), the sharded quickstart's
+(``launches_sharded`` on 4 virtual shards, ``launches_sharded_one``,
+``launches_sharded_grouped``), and importance's N = 1 row under ``n1``,
+``sparse_agg``'s elementwise mode under ``elementwise``, the prefill for
+flash attention, with the MoE, jamba and pixtral prefills' and the
+training steps' beside them, and importance's federated-pods launches
+and its LM-leaf rows under ``lm_leaves``; ``sparse_agg``'s times are its
+mean mode's, named by its ``mode`` key, with the partials mode's and the
+unfused Eq. (4)'s beside them; ``masked_merge``'s at fc0, with the
+grouped launch of the six leaves (``mode: "grouped"``) and the six
+single-leaf launches beside them; flash attention's times at the
+prefill's shape, causal, named by its ``shape`` and ``window`` keys, and
+the launches by route under ``dispatch``); the last line is ``{"ok":
+true, "device": {...}}``.
 ``--out`` also writes every measurement as JSON.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.
@@ -366,6 +385,26 @@ LM_IMPORTANCE = [("wq", (FED_LAYERS, 4096, 32, 128), "bfloat16"),
                  ("norms", (FED_LAYERS, 4096), "float32")]
 IMP_RTOL, IMP_ATOL = 5e-5, 1e-5           # importance against its plain one
 MOE_FLASH = (1, MOE_PREFILL_SEQ, 32, 4, 128)   # qwen3-moe's prefill heads
+# the families phase: jamba (full width, 4 layers), xlstm-1.3b, pixtral-12b
+# and whisper-medium (full configs), each prefilled, then decoded at batch 4
+JAMBA_ARCH, JAMBA_LAYERS, JAMBA_PREFILL = "jamba_1p5_large_398b", 4, 8192
+XLSTM_ARCH, XLSTM_PREFILL = "xlstm_1p3b", 2048      # its training context
+PIXTRAL_ARCH, PIXTRAL_TEXT = "pixtral_12b", 8192    # after 256 patches
+WHISPER_ARCH, WHISPER_DEC = "whisper_medium", 448   # frames: encoder_seq_cap
+FAMILY_DECODE_BATCH, FAMILY_DECODE_STEPS = 4, 32
+FAMILY_CONSIST_BATCH, FAMILY_CONSIST_T = 2, 32      # decode = forward, bf16
+FAMILY_TOL = {JAMBA_ARCH: 5e-2, WHISPER_ARCH: 3e-2}
+# xLSTM at random init amplifies a rounding difference ~7x every 8 layers
+# (the JAX package's own fp32 decode vs forward at full width: 1.5e-4 at
+# 8 layers, 1.1e-3 at 16), so its decode = forward is asserted in fp32 over
+# one period (7 mLSTM + 1 sLSTM) and only reported at 48 layers in bf16
+XLSTM_CONSIST_LAYERS, XLSTM_FP32_TOL = 8, 1e-3
+NEAR_TIE = 0.02          # router probability gap where bf16 may flip experts
+SLSTM_PROFILE_SEQ = 256  # one sLSTM layer profiled at this length
+# the flash kernel at the prefill shapes of jamba (NoPE, 8 query heads a kv
+# head) and pixtral (8448 = 256 patches + 8192 tokens, not a power of two)
+JAMBA_FLASH = (1, JAMBA_PREFILL, 64, 8, 128)
+PIXTRAL_FLASH = (1, 256 + PIXTRAL_TEXT, 32, 8, 128)
 
 
 # ---- the PRNG phase: known answers the card's threefry must reproduce.
@@ -1327,8 +1366,15 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
     q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
     moe_rec = measure(q, k, v, 0, gqa_attention_ref, " qk-normed")
     del q, k, v
+    # the families phase's prefills: jamba's attention layer and pixtral's
+    # 40 layers (held against the plain version in row chunks)
+    fam = {}
+    for name, shape in (("jamba", JAMBA_FLASH), ("pixtral", PIXTRAL_FLASH)):
+        q, k, v = qkv(*shape, torch.bfloat16)
+        fam[name] = measure(q, k, v, 0, chunked, f" {name}")
+        del q, k, v
     return {"max_abs_err": max_err, "worst_row": worst_row, "main": line_rec,
-            "moe": moe_rec}
+            "moe": moe_rec, **fam}
 
 
 def sdpa_yardstick(qt, kt, vt, window, flush, timer):
@@ -3907,9 +3953,6 @@ def moe_phase(card: Card, dev="cuda") -> dict:
     one AdamW step at MOE_TRAIN_BATCH x MOE_TRAIN_SEQ (no flash)."""
     import torch
     from repro_torch import kernels, tree
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import (gqa_attention_ref,
-                                                          worst_row_error)
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.optim import adamw
@@ -3921,52 +3964,19 @@ def moe_phase(card: Card, dev="cuda") -> dict:
     n_params = sum(t.numel() for t in tree.leaves(params))
     tokens = torch.randint(0, cfg.vocab_size, (1, MOE_PREFILL_SEQ),
                            generator=gen, device=dev)
-    lm.prefill(params, cfg, {"tokens": tokens[:, :256]})      # warm-up
-    kernels.reset_launch_counts()
-    _sync(dev)
-    t0 = time.perf_counter()
-    last = lm.prefill(params, cfg, {"tokens": tokens})
-    _sync(dev)
-    prefill_s = time.perf_counter() - t0
-    prefill_counts = kernels.launch_counts()
-    routes = flash_ops.route_counts()
-    if tuple(last.shape) != (1, cfg.vocab_size) or not bool(
-            torch.isfinite(last).all()):
-        raise AssertionError("MoE prefill logits not finite")
-    want = {k: 0 for k in kernels.KERNELS}
-    want["flash_attention"] = cfg.num_layers
-    if prefill_counts != want or routes != {"sm90": cfg.num_layers,
-                                            "fma": 0}:
-        raise AssertionError(f"MoE prefill launches {prefill_counts}, "
-                             f"routes {routes}")
+    prefill_s, prefill_counts, routes = _prefill_timed(
+        params, cfg, {"tokens": tokens}, {"tokens": tokens[:, :256]}, dev)
+    _want_flash(cfg, prefill_counts, routes, cfg.num_layers)
     # once more, untimed: the kernel's output in every layer against its
     # plain version on the very (qk-normed) inputs the prefill gives it
-    inputs = []
-    kernel = flash_ops.flash_attention
-
-    def held(q, k, v, *, causal=True, window=0):
-        out = kernel(q, k, v, causal=causal, window=window)
-        want = gqa_attention_ref(q, k, v, causal=causal, window=window)
-        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
-        inputs.append(((out.float() - want.float()).abs().max().item(),
-                       worst_row_error(out, want)))
-        del want
-        return out
-
-    flash_ops.flash_attention = held
-    try:
-        lm.prefill(params, cfg, {"tokens": tokens})
-    finally:
-        flash_ops.flash_attention = kernel
-    in_err = max(e for e, _ in inputs)
-    in_row = max(r for _, r in inputs)
-    print(f"  MoE prefill's own flash inputs, {len(inputs)} layers: kernel "
-          f"vs plain max err {in_err:.3g}, worst row {in_row:.3g} of its "
-          f"scale (limit {ROW_TOL:.4g})", flush=True)
-    if len(inputs) != cfg.num_layers or not in_row <= ROW_TOL:
-        raise AssertionError(f"MoE prefill flash inputs: {inputs}")
-    del last, tokens
+    held = _prefill_flash_held(params, cfg, {"tokens": tokens})
+    in_err, in_row = held["max_abs_err"], held["worst_row"]
+    print(f"  MoE prefill's own flash inputs, {held['launches']} layers: "
+          f"kernel vs plain max err {in_err:.3g}, worst row {in_row:.3g} of "
+          f"its scale (limit {ROW_TOL:.4g})", flush=True)
+    if held["launches"] != cfg.num_layers:
+        raise AssertionError(f"MoE prefill flash inputs: {held}")
+    del tokens
 
     state = lm.init_decode_state(params, cfg, MOE_DECODE_BATCH,
                                  MOE_DECODE_STEPS + 1)
@@ -4036,6 +4046,442 @@ def moe_phase(card: Card, dev="cuda") -> dict:
                 request0_tokens=seq[0, :8].tolist())
 
 
+@contextlib.contextmanager
+def _recorded_routes(out: list):
+    """Append (expert ids (T, k), router probabilities (T, E) fp32) of
+    every MoE routing to ``out`` (device tensors: no sync)."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.route
+
+    def recording(p, x, mcfg):
+        ids, probs, aux = real(p, x, mcfg)
+        out.append((ids.clone(), torch.softmax(
+            torch.matmul(x.float(), p["router"]), dim=-1)))
+        return ids, probs, aux
+
+    moe.route = recording
+    try:
+        yield out
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def _no_drops(out: list):
+    """Record whether every MoE dispatch kept every assignment."""
+    from repro_torch.models import moe
+    real = moe._positions_in_expert
+
+    def recording(flat_ids, e, cap):
+        pos, keep = real(flat_ids, e, cap)
+        out.append(bool(keep.all()))
+        return pos, keep
+
+    moe._positions_in_expert = recording
+    try:
+        yield out
+    finally:
+        moe._positions_in_expert = real
+
+
+@contextlib.contextmanager
+def _timed_calls(module, name: str, dev, out: dict):
+    """Sum the wall seconds of every call of ``module.name`` (synchronised
+    before and after) into ``out["s"]`` and count them in ``out["n"]``."""
+    real = getattr(module, name)
+    out.update(s=0.0, n=0)
+
+    def timed(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = real(*a, **k)
+        _sync(dev)
+        out["s"] += time.perf_counter() - t0
+        out["n"] += 1
+        return r
+
+    setattr(module, name, timed)
+    try:
+        yield out
+    finally:
+        setattr(module, name, real)
+
+
+def _first_route_differences(fwd, dec, b: int, t_len: int):
+    """Each row's first position where decode routed a token to other
+    experts than the forward did, in any MoE layer (``t_len`` if nowhere),
+    and the forward's gap between its k-th and (k+1)-th router
+    probabilities there: (first (b,), gaps {row: gap})."""
+    import torch
+    n_moe = len(fwd)
+    if len(dec) != n_moe * t_len:
+        raise AssertionError(f"{len(dec)} decode routings for {n_moe} MoE "
+                             f"layers x {t_len} steps")
+    first, gaps = [t_len] * b, {}
+    for layer, (f_ids, f_probs) in enumerate(fwd):
+        k = f_ids.shape[1]
+        f_ids = f_ids.view(b, t_len, k).sort(-1).values
+        d_ids = torch.stack([dec[t * n_moe + layer][0] for t in
+                             range(t_len)], 1).sort(-1).values
+        probs = f_probs.view(b, t_len, -1).sort(-1, descending=True).values
+        for r, t in (f_ids != d_ids).any(-1).nonzero().tolist():
+            if t < first[r]:
+                first[r] = t
+                gaps[r] = float(probs[r, t, k - 1] - probs[r, t, k])
+    return first, gaps
+
+
+def _decode_vs_forward(params, cfg, gen, dev, frames=None) -> dict:
+    """bf16 decode from empty states over FAMILY_CONSIST_T tokens at batch
+    FAMILY_CONSIST_BATCH against ``lm.forward`` on them: the largest
+    difference over the largest |logit|.  With MoE layers each row is held
+    up to its first position where decode picked other experts than the
+    forward (a bf16 near-tie of two router probabilities, which must be
+    within NEAR_TIE), and no dispatch may drop an assignment."""
+    import torch
+    from repro_torch.models import lm
+    b, t_len = FAMILY_CONSIST_BATCH, FAMILY_CONSIST_T
+    prompt = torch.randint(0, cfg.vocab_size, (b, t_len), generator=gen,
+                           device=dev)
+    batch = {"tokens": prompt}
+    if frames is not None:
+        batch["enc_frames"] = frames[:b]
+    fwd, dec, kept = [], [], []
+    with _no_drops(kept), torch.inference_mode():
+        with _recorded_routes(fwd):
+            full, _ = lm.forward(params, cfg, batch)
+        st = lm.init_decode_state(params, cfg, b, t_len,
+                                  enc_frames=batch.get("enc_frames"))
+        step = lm.make_serve_step(cfg)
+        outs = []
+        with _recorded_routes(dec):
+            for t in range(t_len):
+                lg, st = step(params, st, prompt[:, t:t + 1])
+                outs.append(lg)
+    logits = torch.stack(outs, 1)
+    if not all(kept):
+        raise AssertionError("an expert dropped an assignment: decode = "
+                             "forward needs none")
+    first, gaps = ([t_len] * b, {}) if not fwd else \
+        _first_route_differences(fwd, dec, b, t_len)
+    bad = {r: g for r, g in gaps.items() if not g <= NEAR_TIE}
+    if bad or sum(first) < b * t_len // 2:
+        raise AssertionError(f"decode picked other experts than the forward "
+                             f"at rows {first} with gaps {gaps}")
+    scale = full.float().abs().max()
+    err = max(((logits[r, :first[r]].float() - full[r, :first[r]].float())
+               .abs().max() / scale).item() for r in range(b) if first[r])
+    del st, full, logits
+    return dict(err=err, held=first, gaps=gaps, dispatches=len(kept))
+
+
+def _prefill_timed(params, cfg, batch, warm, dev):
+    """One warm-up prefill on ``warm``, then ``batch`` timed with the counts
+    set to 0 just before -> (seconds, launches, flash launches by route)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import lm
+    lm.prefill(params, cfg, warm)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    last = lm.prefill(params, cfg, batch)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    counts, routes = kernels.launch_counts(), flash_ops.route_counts()
+    b = batch["tokens"].shape[0]
+    if tuple(last.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(last).all()):
+        raise AssertionError(f"{cfg.name} prefill logits "
+                             f"{tuple(last.shape)} not finite")
+    return secs, counts, routes
+
+
+def _want_flash(cfg, counts: dict, routes: dict, flash: int) -> None:
+    """A prefill launched flash attention ``flash`` times, all on the
+    sm90 route, and no other kernel."""
+    from repro_torch import kernels
+    want = {k: 0 for k in kernels.KERNELS}
+    want["flash_attention"] = flash
+    if counts != want or routes != {"sm90": flash, "fma": 0}:
+        raise AssertionError(f"{cfg.name} prefill launches {counts}, "
+                             f"routes {routes}; want flash {flash} on sm90")
+
+
+def _prefill_flash_held(params, cfg, batch) -> dict:
+    """The prefill once more, untimed, each flash launch held against the
+    plain version on its very inputs (in row chunks) at 2e-2 and per row
+    within ROW_TOL of its scale -> launches, max error, worst row."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        gqa_attention_ref_chunked, worst_row_error)
+    from repro_torch.models import lm
+    errs = []
+    kernel = flash_ops.flash_attention
+
+    def held(q, k, v, *, causal=True, window=0):
+        out = kernel(q, k, v, causal=causal, window=window)
+        want = gqa_attention_ref_chunked(q, k, v, causal=causal,
+                                         window=window, rows=PLAIN_ROWS)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        errs.append(((out.float() - want.float()).abs().max().item(),
+                     worst_row_error(out, want)))
+        del want
+        return out
+
+    flash_ops.flash_attention = held
+    try:
+        lm.prefill(params, cfg, batch)
+    finally:
+        flash_ops.flash_attention = kernel
+    worst = max((r for _, r in errs), default=0.0)
+    if not worst <= ROW_TOL:
+        raise AssertionError(f"{cfg.name} prefill flash rows: {errs}")
+    return dict(launches=len(errs), max_abs_err=max(
+        (e for e, _ in errs), default=0.0), worst_row=worst)
+
+
+def _decode_timed(params, cfg, gen, dev, frames=None) -> dict:
+    """FAMILY_DECODE_STEPS greedy steps at FAMILY_DECODE_BATCH from empty
+    states (and the encoder over ``frames``), with the counts set to 0
+    just before: no kernel launches, finite logits, states on the card."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    b, steps = FAMILY_DECODE_BATCH, FAMILY_DECODE_STEPS
+    state = lm.init_decode_state(params, cfg, b, steps + 1,
+                                 enc_frames=frames)
+    tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                        device=dev)
+    kernels.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    seq, logits, state = serve.generate(params, cfg, state, tok, steps)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = kernels.launch_counts()
+    if any(counts.values()) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} decode launches {counts} or "
+                             f"non-finite logits")
+    dev_type = torch.device(dev).type
+    if not all(f.device.type == dev_type
+               for nt in tree.leaves(state.stack) for f in nt):
+        raise AssertionError(f"{cfg.name} decode states left the device")
+    return dict(ms_per_token=ms, launches=counts,
+                request0_tokens=seq[0, :8].tolist())
+
+
+def _no_moe_drops(cfg):
+    """The config with room in every expert for every token (E / k)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def families_phase(card: Card, dev="cuda") -> dict:
+    """Phase 10: jamba (full width, JAMBA_LAYERS layers), xlstm-1.3b,
+    pixtral-12b and whisper-medium (full configs), one at a time: a
+    prefill (launches as predicted; flash held against its plain version
+    on its own inputs), greedy decode at FAMILY_DECODE_BATCH, and bf16
+    decode against forward where the check is asked for."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.launch import serve
+    from repro_torch.models import lm, ssm, xlstm
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def start(arch, layers=0):
+        resident = _fresh_peak(dev)
+        t0 = time.perf_counter()
+        cfg, params, gen = serve.build(arch, reduced=False,
+                                       num_layers=layers, device=dev)
+        _sync(dev)
+        n = sum(t.numel() for t in tree.leaves(params))
+        print(f"  {cfg.name} d={cfg.d_model} heads={cfg.num_heads}/"
+              f"{cfg.num_kv_heads} layers={cfg.num_layers}"
+              f"{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}"
+              f" vocab={cfg.vocab_size}: {n / 1e9:.3f} B params, init "
+              f"{time.perf_counter() - t0:.2f} s ({resident:.2f} GiB "
+              f"resident at the start)", flush=True)
+        return cfg, params, gen, dict(arch=arch, layers=cfg.num_layers,
+                                      n_params=n, resident_gib=resident)
+
+    def report(rec, cfg):
+        rec.update(peak_gib=_peak_gb(), wall_s=time.perf_counter() - t0)
+        flash = rec.get("flash_held", {})
+        print(f"  {cfg.name}: prefill {rec['prefill_seq']} positions "
+              f"{rec['prefill_s']:.4f} s, launches "
+              f"{rec['prefill_launches']}; decode B={FAMILY_DECODE_BATCH} x "
+              f"{FAMILY_DECODE_STEPS}: {rec['decode']['ms_per_token']:.2f} "
+              f"ms/token; peak {rec['peak_gib']:.2f} GiB"
+              + (f"; flash held on its own inputs: {flash['launches']} "
+                 f"launches, max err {flash['max_abs_err']:.3g}, worst row "
+                 f"{flash['worst_row']:.3g} of its scale" if flash else "")
+              + (f"; decode vs forward bf16 {rec['consistency']['err']:.3g}"
+                 f" (limit {FAMILY_TOL.get(rec['arch'], 'none')}, rows held"
+                 f" to {rec['consistency']['held']})" if "consistency" in rec
+                 else "")
+              + f"; {rec['wall_s']:.1f} s  [{card.line}]", flush=True)
+
+    # ---- (a) jamba at full width, 4 layers: mamba, attn+moe, mamba, mamba+moe
+    t0 = time.perf_counter()
+    cfg, params, gen, rec = start(JAMBA_ARCH, JAMBA_LAYERS)
+    layout = [(s.mixer, s.ff) for s in cfg.layout()]
+    if layout != [("mamba", "dense"), ("attn", "moe"), ("mamba", "dense"),
+                  ("mamba", "moe")]:
+        raise AssertionError(f"jamba layout {layout}")
+    toks = torch.randint(0, cfg.vocab_size, (1, JAMBA_PREFILL),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks}
+    secs, counts, routes = _prefill_timed(params, cfg, batch,
+                                          {"tokens": toks[:, :256]}, dev)
+    _want_flash(cfg, counts, routes, 1)
+    mamba = {}
+    with _timed_calls(ssm, "mamba_forward", dev, mamba):
+        _sync(dev)
+        t1 = time.perf_counter()
+        lm.prefill(params, cfg, batch)
+        _sync(dev)
+        whole = time.perf_counter() - t1
+    rec.update(prefill_seq=JAMBA_PREFILL, prefill_s=secs,
+               prefill_launches=counts, prefill_routes=routes,
+               mamba_layers=mamba["n"], mamba_s=mamba["s"],
+               mamba_share=mamba["s"] / whole,
+               flash_held=_prefill_flash_held(params, cfg, batch))
+    print(f"  jamba prefill: the {mamba['n']} mamba layers take "
+          f"{mamba['s']:.4f} s of an instrumented {whole:.4f} s "
+          f"({mamba['s'] / whole:.1%})", flush=True)
+    del toks, batch
+    rec["decode"] = _decode_timed(params, cfg, gen, dev)
+    rec["consistency"] = _decode_vs_forward(params, _no_moe_drops(cfg),
+                                            gen, dev)
+    report(rec, cfg)
+    if not rec["consistency"]["err"] <= FAMILY_TOL[JAMBA_ARCH]:
+        raise AssertionError(f"jamba decode vs forward {rec['consistency']}")
+    out["jamba"] = rec
+    del params
+
+    # ---- (b) xlstm-1.3b, the full config (48 layers)
+    t0 = time.perf_counter()
+    cfg, params, gen, rec = start(XLSTM_ARCH)
+    toks = torch.randint(0, cfg.vocab_size, (1, XLSTM_PREFILL),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks}
+    secs, counts, routes = _prefill_timed(params, cfg, batch,
+                                          {"tokens": toks[:, :256]}, dev)
+    _want_flash(cfg, counts, routes, 0)
+    slstm = {}
+    with _timed_calls(xlstm, "slstm_forward", dev, slstm):
+        _sync(dev)
+        t1 = time.perf_counter()
+        lm.prefill(params, cfg, batch)
+        _sync(dev)
+        whole = time.perf_counter() - t1
+    # device operations a sLSTM step issues: one layer at a short length
+    pi = next(i for i, s in enumerate(lm.plan_for(cfg).period)
+              if s.mixer == "slstm")
+    layer = tree.tree_map(lambda t: t[0],
+                          params["stack"]["super"][f"p{pi}"]["mixer"])
+    h = torch.randn((1, SLSTM_PROFILE_SEQ, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        ops = _profile_ops(lambda: xlstm.slstm_forward(layer, cfg, h), dev)
+    rec.update(prefill_seq=XLSTM_PREFILL, prefill_s=secs,
+               prefill_launches=counts, prefill_routes=routes,
+               slstm_layers=slstm["n"], slstm_s=slstm["s"],
+               slstm_share=slstm["s"] / whole,
+               slstm_ops_per_step=ops["cuda_ops"] / SLSTM_PROFILE_SEQ)
+    print(f"  xlstm prefill: the {slstm['n']} sLSTM layers take "
+          f"{slstm['s']:.4f} s of an instrumented {whole:.4f} s "
+          f"({slstm['s'] / whole:.1%}); a sLSTM layer issues "
+          f"{ops['cuda_ops']} device ops over {SLSTM_PROFILE_SEQ} steps "
+          f"({rec['slstm_ops_per_step']:.1f} a step)", flush=True)
+    del toks, batch, layer, h
+    rec["decode"] = _decode_timed(params, cfg, gen, dev)
+    rec["consistency"] = _decode_vs_forward(params, cfg, gen, dev)
+    report(rec, cfg)
+    del params
+    # decode = forward in fp32 over one period at full width (TF32 off)
+    _, params, gen = serve.build(XLSTM_ARCH, reduced=False,
+                                 num_layers=XLSTM_CONSIST_LAYERS, device=dev)
+    params = tree.tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, num_layers=XLSTM_CONSIST_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec["consistency_fp32"] = _decode_vs_forward(params, cfg32, gen, dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err32 = rec["consistency_fp32"]["err"]
+    print(f"  xlstm decode vs forward, fp32, {XLSTM_CONSIST_LAYERS} layers: "
+          f"{err32:.3g} (limit {XLSTM_FP32_TOL})", flush=True)
+    if not err32 <= XLSTM_FP32_TOL:
+        raise AssertionError(f"xlstm fp32 decode vs forward {err32}")
+    out["xlstm"] = rec
+    del params
+
+    # ---- (c) pixtral-12b: 256 patch embeddings + 8192 text tokens
+    t0 = time.perf_counter()
+    cfg, params, gen, rec = start(PIXTRAL_ARCH)
+    toks = torch.randint(0, cfg.vocab_size, (1, PIXTRAL_TEXT),
+                         generator=gen, device=dev)
+    patches = torch.randn((1, cfg.num_patch_tokens, cfg.d_model),
+                          generator=gen, device=dev).to(torch.bfloat16)
+    batch = {"tokens": toks, "patch_embeds": patches}
+    secs, counts, routes = _prefill_timed(
+        params, cfg, batch, {"tokens": toks[:, :256],
+                             "patch_embeds": patches}, dev)
+    _want_flash(cfg, counts, routes, cfg.num_layers)
+    rec.update(prefill_seq=cfg.num_patch_tokens + PIXTRAL_TEXT,
+               prefill_s=secs, prefill_launches=counts,
+               prefill_routes=routes,
+               flash_held=_prefill_flash_held(params, cfg, batch))
+    del toks, patches, batch
+    rec["decode"] = _decode_timed(params, cfg, gen, dev)
+    report(rec, cfg)
+    out["pixtral"] = rec
+    del params
+
+    # ---- (d) whisper-medium: the encoder over 1500 frames, a 448-token
+    # decoder prefill, decode over the cached encoder output
+    t0 = time.perf_counter()
+    cfg, params, gen, rec = start(WHISPER_ARCH)
+    frames = torch.randn((FAMILY_DECODE_BATCH, cfg.encoder_seq_cap,
+                          cfg.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, WHISPER_DEC),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks, "enc_frames": frames[:1]}
+    secs, counts, routes = _prefill_timed(
+        params, cfg, batch, {"tokens": toks[:, :64],
+                             "enc_frames": frames[:1]}, dev)
+    _want_flash(cfg, counts, routes, 0)
+    rec.update(prefill_seq=WHISPER_DEC, encoder_frames=cfg.encoder_seq_cap,
+               prefill_s=secs, prefill_launches=counts,
+               prefill_routes=routes)
+    rec["decode"] = _decode_timed(params, cfg, gen, dev, frames)
+    rec["consistency"] = _decode_vs_forward(params, cfg, gen, dev, frames)
+    report(rec, cfg)
+    if not rec["consistency"]["err"] <= FAMILY_TOL[WHISPER_ARCH]:
+        raise AssertionError(f"whisper decode vs forward "
+                             f"{rec['consistency']}")
+    out["whisper"] = rec
+    del params, frames, toks, batch
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  families phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4092,6 +4538,7 @@ def main(argv=None) -> int:
         train_out = train_phase(card)
         fed_out = federated_phase(card)
         moe_out = moe_phase(card)
+        fam_out = families_phase(card)
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
         traceback.print_exc()
@@ -4130,6 +4577,18 @@ def main(argv=None) -> int:
                     "prefill_inputs_err"], worst_row=moe_out[
                     "prefill_inputs_row"]),
                 launches_moe_prefill=moe_out["prefill_launches"][name],
+                launches_jamba_prefill=fam_out["jamba"]["prefill_launches"][
+                    name],
+                launches_pixtral_prefill=fam_out["pixtral"][
+                    "prefill_launches"][name],
+                **{f"{fam}_prefill": {k: flash[fam][k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err", "worst_row")}
+                   for fam in ("jamba", "pixtral")},
+                **{f"{fam}_prefill_inputs": {
+                    k: fam_out[fam]["flash_held"][k] for k in (
+                        "launches", "max_abs_err", "worst_row")}
+                   for fam in ("jamba", "pixtral")},
                 launches_train=train_out["launches"][name],
                 launches_train_long=train_out["long"]["launches"][name])
         if name == "sparse_agg":
@@ -4216,7 +4675,7 @@ def main(argv=None) -> int:
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
             serving=serve_out, train=train_out, federated=fed_out,
-            moe=moe_out, lm_importance=lm_importance,
+            moe=moe_out, families=fam_out, lm_importance=lm_importance,
             summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
@@ -4240,7 +4699,12 @@ def main(argv=None) -> int:
           f"{statistics.median(fed_out['s_per_round']):.4f} s/round, MoE "
           f"prefill {moe_out['prefill_s']:.4f} s, decode "
           f"{moe_out['ms_per_token']:.2f} ms/token, train "
-          f"{moe_out['train_s']:.4f} s/step", flush=True)
+          f"{moe_out['train_s']:.4f} s/step; families prefill s / decode "
+          "ms/token: " + ", ".join(
+              f"{k} {fam_out[k]['prefill_s']:.4f} / "
+              f"{fam_out[k]['decode']['ms_per_token']:.2f}"
+              for k in ("jamba", "xlstm", "pixtral", "whisper")),
+          flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Architecture registry of the port, with the JAX registry's names.
 
 ``get_config(name, reduced=False)`` takes the same ids and hyphenated
-aliases as ``repro.configs``.  The dense family (gemma3_27b,
-granite_3_8b, chatglm3_6b, nemotron_4_340b) and the MoE family
-(qwen3_moe_30b_a3b, granite_moe_1b_a400m) are ported; an architecture
-whose modules are not ported yet (SSM, xLSTM, VLM, audio) raises
-``NotImplementedError`` naming the ROADMAP item that will bring it.
+aliases as ``repro.configs`` and gives the same configs: the dense
+family (gemma3_27b, granite_3_8b, chatglm3_6b, nemotron_4_340b), MoE
+(qwen3_moe_30b_a3b, granite_moe_1b_a400m), the hybrid
+jamba_1p5_large_398b, the xLSTM xlstm_1p3b, the VLM pixtral_12b and the
+enc-dec audio model whisper_medium.  ``reduced=True`` picks each one's
+smoke-test variant.
 """
 
 from __future__ import annotations
@@ -41,9 +42,6 @@ ALIASES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 
-PORTED = ("gemma3_27b", "granite_3_8b", "chatglm3_6b", "nemotron_4_340b",
-          "qwen3_moe_30b_a3b", "granite_moe_1b_a400m")
-
 
 def list_configs() -> List[str]:
     return list(ARCH_IDS)
@@ -53,9 +51,5 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     mod_name = ALIASES.get(name, name)
     if mod_name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {name!r}; one of {ARCH_IDS}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{mod_name} needs model modules the port does not have yet "
-            f"(SSM, xLSTM, VLM or audio); see ROADMAP.md A15")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.reduced() if reduced else mod.config()

@@ -51,8 +51,11 @@ def lm_params_from_jax(numpy_tree, device: DeviceLike = None):
     ``repro.models.lm.init_model``) -> the port's tree on ``device``.
 
     The tree is the same ({"embed", "stack": {"super", "rem"},
-    "final_norm", ["lm_head"]}); bfloat16 leaves cross bit for bit and
-    every leaf keeps its dtype (norm scales stay float32)."""
+    "final_norm", ["lm_head"], ["encoder", "enc_norm"]}); bfloat16
+    leaves cross bit for bit and every leaf keeps its dtype: norm scales
+    and the recurrent families' fp32 leaves (``a_log``, ``dt_bias``,
+    ``d_skip``, ``w_i``, ``w_f``, ``b_*``, ``r_*``) stay float32 in a
+    bf16 model."""
     for key in ("embed", "stack", "final_norm"):
         if key not in numpy_tree:
             raise ValueError(f"not an LM parameter tree: no {key!r} entry")

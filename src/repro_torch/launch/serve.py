@@ -5,10 +5,13 @@
         --batch 4 --steps 32 [--device cpu]
 
 The counterpart of ``repro.launch.serve``, with its flags; the port runs
-on one card (the production mesh waits for ROADMAP A14) and adds
+on one card (the production mesh waits for ROADMAP A15 item 5) and adds
 ``--device`` (default: cuda).  ``--reduced`` (the default)
 picks the smoke-test variant of the architecture; ``--full-config`` the
-published one.
+published one.  Every architecture of the registry serves: an enc-dec
+model (whisper) attends to the encoder's output over zero frames
+(B, 24, D) in bf16, as the JAX package's driver feeds it; VLM decode is
+text only.
 """
 
 from __future__ import annotations
@@ -87,7 +90,10 @@ def main(argv=None):
     cache_len = args.cache_len or args.steps + 8
     sampler = sample_topk if args.sample == "topk" else sample_greedy
 
-    state = lm.init_decode_state(params, cfg, args.batch, cache_len)
+    enc = (torch.zeros((args.batch, 24, cfg.d_model), dtype=torch.bfloat16,
+                       device=dev) if cfg.is_encdec else None)
+    state = lm.init_decode_state(params, cfg, args.batch, cache_len,
+                                 enc_frames=enc)
     tok = torch.randint(0, cfg.vocab_size, (args.batch, 1), generator=gen,
                         device=dev, dtype=torch.int32)
     if dev.type == "cuda":

@@ -4,7 +4,8 @@
         --steps 100 [--full-config --num-layers N] [--device cpu]
 
 The counterpart of ``repro.launch.train``, with its flags, log lines,
-batch draws (``np.random.default_rng(0)`` over ``make_lm_dataset``) and
+batch draws (``np.random.default_rng(0)`` over ``make_lm_dataset``; zero
+patch embeddings for a VLM, zero frames (B, 24, D) for enc-dec) and
 optimizer (``launch.specs.policy_for``: adafactor at 10x the learning
 rate where the policy says so, else AdamW).  The port runs on one card:
 the JAX package's production and host meshes have no counterpart here,
@@ -74,6 +75,14 @@ def main(argv=None):
         starts = rng.integers(0, len(toks) - args.seq - 1, args.batch)
         batch_tok = np.stack([toks[s:s + args.seq] for s in starts])
         batch = {"tokens": torch.from_numpy(batch_tok).to(dev)}
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (args.batch, cfg.num_patch_tokens, cfg.d_model),
+                dtype=torch.bfloat16, device=dev)
+        if cfg.family == "audio":
+            batch["enc_frames"] = torch.zeros(
+                (args.batch, 24, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
         state, metrics = step_fn(state, batch)
         if step % max(1, args.steps // 10) == 0 or step == 1:
             print(f"step {step:5d}  loss={float(metrics['loss']):.4f}  "

@@ -1,2 +1,2 @@
-"""The LM stack of the port: the dense and MoE families (config, layers,
-MLP, MoE, attention, blocks, lm).  Other families wait for ROADMAP A15."""
+"""The LM stack of the port, every family of the registry (config, layers,
+MLP, MoE, attention, Mamba, xLSTM, blocks, lm)."""

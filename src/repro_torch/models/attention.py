@@ -8,7 +8,9 @@ The counterpart of ``repro.models.attention`` for the dense family:
     a static window, bidirectional attention,
   * RoPE (full or partial "2d"), optional QK-norm,
   * decode: a single-token query against a static KV cache, ring-buffered
-    for local layers.
+    for local layers,
+  * cross-attention (enc-dec): decoder queries against the encoder
+    output, no mask and no rotary.
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).  Matmuls run in
 the compute dtype, the softmax in fp32.  At ``s >= FLASH_MIN_SEQ`` the
@@ -23,8 +25,6 @@ causal and local modes route by what the call needs:
     differentiable one at that length (its Pallas kernel has no
     backward, and neither has the port's: the wrapper raises on inputs
     that require grad).
-
-``cross_attention`` (audio) is not ported.
 """
 
 from __future__ import annotations
@@ -266,3 +266,21 @@ def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor,
     mask = valid[:, None, :]                      # (1, sq=1, C)
     out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask)
     return _out_proj(out, p["wo"]), cache
+
+
+# ------------------------------------------------------- cross-attention ---
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                         lead=()) -> dict:
+    return init_attention(gen, cfg, dtype, lead)
+
+
+def cross_attention(p, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor
+                    ) -> torch.Tensor:
+    """Decoder -> encoder attention (no rotary, no mask).  x: (B, Sq, D);
+    enc: (B, Senc, D).  Decode recomputes the encoder's K/V every step,
+    as the JAX package does."""
+    enc = enc.to(x.dtype)
+    out = _sdpa(_proj(x, p["wq"]), _proj(enc, p["wk"]), _proj(enc, p["wv"]),
+                None)
+    return _out_proj(out, p["wo"])

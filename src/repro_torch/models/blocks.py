@@ -1,4 +1,4 @@
-"""Block assembly and the layer stack: dense and MoE layers.
+"""Block assembly and the layer stack.
 
 The counterpart of ``repro.models.blocks``.  A layout (``cfg.layout()``)
 splits into ``(period, n_super, remainder)``; the parameters of each
@@ -7,9 +7,16 @@ stack runs as a Python loop over that axis (where the JAX package runs a
 ``lax.scan``), then the remainder layers.  The parameter tree is the JAX
 package's: ``{"super": {"p<i>": stacked}, "rem": {"r<i>": ...}}``.
 
-Decode state (the KV caches) is stacked the same way; slicing the stacked
-cache gives views, so the in-place cache writes of a decode step land in
-the stacked tensors.
+Mixers: ``attn``, ``attn_local``, ``mamba``, ``mlstm`` and ``slstm``;
+feed-forwards ``dense``, ``moe`` and ``none``; decoder layers of enc-dec
+models add cross-attention to the encoder output ``enc``.
+
+Decode state is stacked the same way: a KV cache (``attention.KVCache``)
+or a recurrent state (``ssm.MambaState``, ``xlstm.MLSTMState``,
+``xlstm.SLSTMState``) per layer, named tuples in the JAX package's field
+order.  A decode step updates the stacked state IN PLACE: slicing the
+stack gives views, the attention layers write their caches through them,
+and the recurrent layers' new states are copied into them.
 
 ``apply_stack`` returns ``(x, moe_aux)`` as the JAX package's does, the
 MoE layers' load-balance losses summed in layer order.  ``remat=True``
@@ -18,10 +25,6 @@ grad mode and so the attention route are the same in the recompute),
 the counterpart of ``jax.checkpoint(superblock)``; the JAX package's
 grouped checkpointing is off by default there (its env override is for
 analysis only) and is not ported.
-
-Mixers ``attn`` and ``attn_local`` and the ``dense`` and ``moe``
-feed-forwards are ported; mamba, mLSTM, sLSTM and cross-attention raise
-with a pointer to ROADMAP.md A15.
 """
 
 from __future__ import annotations
@@ -33,33 +36,33 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
-from repro_torch.models import attention, layers, mlp, moe
+from repro_torch.models import attention, layers, mlp, moe, ssm, xlstm
 from repro_torch.models.config import BlockSpec, ModelConfig, split_layout
 
 ATTN_MIXERS = ("attn", "attn_local")
-
-
-def _check_ported(spec: BlockSpec) -> None:
-    if spec.mixer not in ATTN_MIXERS:
-        raise NotImplementedError(
-            f"mixer {spec.mixer!r} is not ported yet; see ROADMAP.md A15")
-    if spec.ff not in ("dense", "moe", "none"):
-        raise NotImplementedError(
-            f"feed-forward {spec.ff!r} is not ported yet; see ROADMAP.md A15")
-    if spec.cross_attention:
-        raise NotImplementedError(
-            "cross-attention (enc-dec) is not ported yet; see ROADMAP.md A15")
+RECURRENT_STATES = (ssm.MambaState, xlstm.MLSTMState, xlstm.SLSTMState)
 
 
 # --------------------------------------------------------------- params ----
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                dtype, lead=()) -> Dict:
-    _check_ported(spec)
     dev = gen.device
     p: Dict[str, Any] = {
-        "pre_norm": layers.init_norm(cfg.d_model, cfg.norm, dev, lead),
-        "mixer": attention.init_attention(gen, cfg, dtype, lead)}
+        "pre_norm": layers.init_norm(cfg.d_model, cfg.norm, dev, lead)}
+    if spec.mixer in ATTN_MIXERS:
+        p["mixer"] = attention.init_attention(gen, cfg, dtype, lead)
+    elif spec.mixer == "mamba":
+        p["mixer"] = ssm.init_mamba(gen, cfg, dtype, lead)
+    elif spec.mixer == "mlstm":
+        p["mixer"] = xlstm.init_mlstm(gen, cfg, dtype, lead)
+    elif spec.mixer == "slstm":
+        p["mixer"] = xlstm.init_slstm(gen, cfg, dtype, lead)
+    else:
+        raise ValueError(spec.mixer)
+    if spec.cross_attention:
+        p["cross_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev, lead)
+        p["cross"] = attention.init_cross_attention(gen, cfg, dtype, lead)
     if spec.ff == "dense":
         p["post_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev, lead)
         p["ff"] = mlp.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
@@ -74,15 +77,21 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
 # --------------------------------------------------------------- states ----
 
 def init_block_state(cfg: ModelConfig, spec: BlockSpec, batch: int,
-                     cache_len: int, dtype, device, lead=()
-                     ) -> attention.KVCache:
-    """Decode-time state of one layer: its KV cache."""
-    _check_ported(spec)
-    c = cache_len
-    if spec.mixer == "attn_local":
-        c = min(spec.window or cfg.window_size, cache_len)
-    return attention.KVCache.zeros(batch, c, cfg.num_kv_heads,
-                                   cfg.head_dim_, dtype, device, lead)
+                     cache_len: int, dtype, device, lead=()):
+    """Decode-time state of one layer: its KV cache or recurrent state."""
+    if spec.mixer in ATTN_MIXERS:
+        c = cache_len
+        if spec.mixer == "attn_local":
+            c = min(spec.window or cfg.window_size, cache_len)
+        return attention.KVCache.zeros(batch, c, cfg.num_kv_heads,
+                                       cfg.head_dim_, dtype, device, lead)
+    if spec.mixer == "mamba":
+        return ssm.MambaState.zeros(batch, cfg, dtype, device, lead)
+    if spec.mixer == "mlstm":
+        return xlstm.MLSTMState.zeros(batch, cfg, device, lead)
+    if spec.mixer == "slstm":
+        return xlstm.SLSTMState.zeros(batch, cfg, device, lead)
+    raise ValueError(spec.mixer)
 
 
 # --------------------------------------------------------------- apply -----
@@ -106,15 +115,33 @@ def _feed_forward(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor
     return x, None
 
 
+def _cross(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor,
+           enc: Optional[torch.Tensor]) -> torch.Tensor:
+    if spec.cross_attention and enc is not None:
+        h = layers.apply_norm(p["cross_norm"], x, cfg.norm)
+        x = x + attention.cross_attention(p["cross"], cfg, h, enc)
+    return x
+
+
 def apply_block(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor, *,
+                enc: Optional[torch.Tensor] = None,
                 mode: str = "causal") -> Tuple[torch.Tensor, torch.Tensor]:
     """Training/prefill application of one layer: (x, moe_aux)."""
-    _check_ported(spec)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
-    x = x + attention.self_attention(p["mixer"], cfg, h,
+    if spec.mixer in ATTN_MIXERS:
+        y = attention.self_attention(p["mixer"], cfg, h,
                                      mode=_attn_mode(spec, mode),
                                      window=spec.window)
+    elif spec.mixer == "mamba":
+        y = ssm.mamba_forward(p["mixer"], cfg, h)
+    elif spec.mixer == "mlstm":
+        y = xlstm.mlstm_forward(p["mixer"], cfg, h)
+    elif spec.mixer == "slstm":
+        y = xlstm.slstm_forward(p["mixer"], cfg, h)
+    else:
+        raise ValueError(spec.mixer)
+    x = _cross(p, cfg, spec, x + y, enc)
     x, a = _feed_forward(p, cfg, spec, x)
     if a is not None:
         aux = aux + a
@@ -122,14 +149,25 @@ def apply_block(p, cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor, *,
 
 
 def apply_block_decode(p, cfg: ModelConfig, spec: BlockSpec,
-                       x: torch.Tensor, state: attention.KVCache, pos: int
-                       ) -> Tuple[torch.Tensor, attention.KVCache]:
-    """Single-token decode of one layer.  x: (B, 1, D)."""
-    _check_ported(spec)
+                       x: torch.Tensor, state, pos: int, *,
+                       enc: Optional[torch.Tensor] = None):
+    """Single-token decode of one layer.  x: (B, 1, D).  Returns (x, the
+    layer's state): its KV cache, written in place, or a fresh recurrent
+    state (``apply_stack_decode`` copies it into the stack)."""
     h = layers.apply_norm(p["pre_norm"], x, cfg.norm)
-    y, state = attention.decode_self_attention(
-        p["mixer"], cfg, h, state, pos, mode=_attn_mode(spec, "causal"))
-    x, _ = _feed_forward(p, cfg, spec, x + y)
+    if spec.mixer in ATTN_MIXERS:
+        y, state = attention.decode_self_attention(
+            p["mixer"], cfg, h, state, pos, mode=_attn_mode(spec, "causal"))
+    elif spec.mixer == "mamba":
+        y, state = ssm.mamba_decode(p["mixer"], cfg, h, state)
+    elif spec.mixer == "mlstm":
+        y, state = xlstm.mlstm_decode(p["mixer"], cfg, h, state)
+    elif spec.mixer == "slstm":
+        y, state = xlstm.slstm_decode(p["mixer"], cfg, h, state)
+    else:
+        raise ValueError(spec.mixer)
+    x = _cross(p, cfg, spec, x + y, enc)
+    x, _ = _feed_forward(p, cfg, spec, x)
     return x, state
 
 
@@ -172,14 +210,23 @@ def init_stack_state(cfg: ModelConfig, plan: StackPlan, batch: int,
 
 
 def _slice(stacked, i: int):
-    """Super-block ``i`` of a stacked tree (views, no copies)."""
-    if isinstance(stacked, attention.KVCache):
-        return attention.KVCache(stacked.k[i], stacked.v[i])
+    """Super-block ``i`` of a stacked tree or state (views, no copies)."""
+    if isinstance(stacked, (attention.KVCache,) + RECURRENT_STATES):
+        return type(stacked)(*(t[i] for t in stacked))
     return tree.tree_map(lambda t: t[i], stacked)
 
 
+def _store(view, new) -> None:
+    """Write a layer's new recurrent state into its slot of the stack (a
+    KV cache was written in place already)."""
+    if isinstance(view, RECURRENT_STATES):
+        for dst, src in zip(view, new):
+            dst.copy_(src)
+
+
 def apply_stack(params: Dict, cfg: ModelConfig, plan: StackPlan,
-                x: torch.Tensor, *, mode: str = "causal", remat: bool = True
+                x: torch.Tensor, *, enc: Optional[torch.Tensor] = None,
+                mode: str = "causal", remat: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward through the whole stack: (x, total moe_aux).
 
@@ -197,7 +244,7 @@ def apply_stack(params: Dict, cfg: ModelConfig, plan: StackPlan,
     def superblock(h, aux, i):
         for pi, spec in enumerate(plan.period):
             p = tree.tree_map(lambda u: u[i], slices[pi])  # tuples: leaves
-            h, a = apply_block(p, cfg, spec, h, mode=mode)
+            h, a = apply_block(p, cfg, spec, h, enc=enc, mode=mode)
             aux = aux + a
         return h, aux
 
@@ -210,23 +257,27 @@ def apply_stack(params: Dict, cfg: ModelConfig, plan: StackPlan,
         else:
             x, aux = superblock(x, aux, i)
     for ri, spec in enumerate(plan.remainder):
-        x, a = apply_block(params["rem"][f"r{ri}"], cfg, spec, x, mode=mode)
+        x, a = apply_block(params["rem"][f"r{ri}"], cfg, spec, x, enc=enc,
+                           mode=mode)
         aux = aux + a
     return x, aux
 
 
 def apply_stack_decode(params: Dict, cfg: ModelConfig, plan: StackPlan,
-                       x: torch.Tensor, state: Dict, pos: int
+                       x: torch.Tensor, state: Dict, pos: int, *,
+                       enc: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict]:
-    """One decode step through the stack; the caches in ``state`` are
+    """One decode step through the stack; the states in ``state`` are
     updated in place and ``state`` is returned."""
     for i in range(plan.n_super):
         for pi, spec in enumerate(plan.period):
-            x, _ = apply_block_decode(_slice(params["super"][f"p{pi}"], i),
-                                      cfg, spec, x,
-                                      _slice(state["super"][f"p{pi}"], i),
-                                      pos)
+            view = _slice(state["super"][f"p{pi}"], i)
+            x, new = apply_block_decode(_slice(params["super"][f"p{pi}"], i),
+                                        cfg, spec, x, view, pos, enc=enc)
+            _store(view, new)
     for ri, spec in enumerate(plan.remainder):
-        x, _ = apply_block_decode(params["rem"][f"r{ri}"], cfg, spec, x,
-                                  state["rem"][f"r{ri}"], pos)
+        view = state["rem"][f"r{ri}"]
+        x, new = apply_block_decode(params["rem"][f"r{ri}"], cfg, spec, x,
+                                    view, pos, enc=enc)
+        _store(view, new)
     return x, state

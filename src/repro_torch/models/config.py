@@ -1,8 +1,7 @@
 """Model configuration: the JAX package's ``repro.models.config``, copied.
 
 One dataclass covers every architecture family of the registry (dense /
-moe / hybrid / ssm / vlm / audio); the port runs the dense and MoE families
-so far (ROADMAP A15 lists the rest).  A config fully determines the per-layer
+moe / hybrid / ssm / vlm / audio).  A config fully determines the per-layer
 *layout*: an explicit list of ``BlockSpec`` entries (one per layer) naming
 the mixer (attention / mamba / mlstm / slstm) and the feed-forward type
 (dense / moe / none).  ``layout_period`` finds the smallest repeating unit:

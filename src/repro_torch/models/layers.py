@@ -1,4 +1,5 @@
-"""Basic layers: norms, dense projections, embeddings, rotary embeddings.
+"""Basic layers: norms, dense projections, embeddings, rotary and
+sinusoidal position embeddings.
 
 The counterpart of ``repro.models.layers``: parameters are plain dicts of
 tensors with the JAX package's names, shapes and dtypes, and ``apply``
@@ -53,6 +54,13 @@ def apply_norm(p, x: torch.Tensor, norm: str, eps: float = 1e-6
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (``F.softplus`` returns
+    ``x`` itself above 20, up to 2e-9 away)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 # --------------------------------------------------------------- dense -----
@@ -135,3 +143,26 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     y2 = x2 * c + x1 * s
     y = torch.stack([y1, y2], dim=-1).reshape(xf.shape).to(x.dtype)
     return torch.cat([y, x_pass], dim=-1) if x_pass.shape[-1] else y
+
+
+# ----------------------------------------------------- sinusoidal (abs) ----
+
+def _sinusoid_freqs(d: int, device) -> torch.Tensor:
+    return torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=device) * (-math.log(10000.0) / d))
+
+
+def _interleave(ang: torch.Tensor) -> torch.Tensor:
+    """sin at the even columns, cos at the odd ones."""
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).flatten(-2)
+
+
+def sinusoid_at(pos: int, d: int, device=None) -> torch.Tensor:
+    """The sinusoidal embedding (d,) float32 of one position (a host int)."""
+    return _interleave(float(pos) * _sinusoid_freqs(d, device))
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (seq, d), float32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    return _interleave(pos * _sinusoid_freqs(d, device))

@@ -1,12 +1,22 @@
-"""The language model: embeddings -> decoder stack -> logits, the train
-step, the prefill and the single-token serve step.
+"""The language model: embeddings -> (encoder) -> decoder stack -> logits,
+the train step, the prefill and the single-token serve step.
 
-The counterpart of ``repro.models.lm`` for the decoder-only families
-(dense and MoE; ``{"tokens": (B, S)}`` input).  Parameters are the JAX
-package's tree:
+The counterpart of ``repro.models.lm``, for every family of the
+registry.  Input contract (the JAX package's):
+
+  dense/moe/hybrid/ssm : {"tokens": (B, S) int}
+  vlm                  : {"tokens": (B, S_text) int,
+                          "patch_embeds": (B, P, D)}     # stub frontend
+  audio (enc-dec)      : {"tokens": (B, S_dec) int,
+                          "enc_frames": (B, S_enc, D)}   # stub frontend
+
+Training computes next-token CE over the text tokens (VLM: the patches
+are prefix context only; audio: the decoder tokens).  Parameters are the
+JAX package's tree:
 
   {"embed": {"table"}, "stack": {"super": ..., "rem": ...},
-   "final_norm": {"scale"}, ["lm_head": {"table"}]}
+   "final_norm": {"scale"[, "bias"]}, ["lm_head": {"table"}],
+   ["encoder": {"super": ..., "rem": ...}, "enc_norm": {...}]}
 
 so :func:`repro_torch.convert.lm_params_from_jax` carries JAX weights
 across unchanged, and :func:`repro_torch.convert.train_state_from_jax`
@@ -20,7 +30,7 @@ logits; it and the serve step run under ``torch.inference_mode``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,11 +50,10 @@ def plan_for(cfg: ModelConfig) -> blocks.StackPlan:
     return blocks.StackPlan.from_layout(cfg.layout())
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: the port runs "
-            f"the dense and MoE families; see ROADMAP.md A15")
+def encoder_plan_for(cfg: ModelConfig) -> Optional[blocks.StackPlan]:
+    if not cfg.is_encdec:
+        return None
+    return blocks.StackPlan.from_layout(cfg.encoder_layout())
 
 
 # ----------------------------------------------------------------- init ----
@@ -53,7 +62,6 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                device: DeviceLike = None) -> Dict:
     """Random parameters with the JAX init's shapes, dtypes and scales,
     drawn from ``generator`` (which must live on ``device``)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -68,6 +76,10 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.init_embedding(generator, cfg.vocab_size,
                                                   cfg.d_model, dt)
+    if cfg.is_encdec:
+        params["encoder"] = blocks.init_stack(generator, cfg,
+                                              encoder_plan_for(cfg), dt)
+        params["enc_norm"] = layers.init_norm(cfg.d_model, cfg.norm, dev)
     return params
 
 
@@ -78,6 +90,48 @@ def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
                                scale=cfg.embed_scale).to(_dtype(cfg))
 
 
+def _patches(cfg: ModelConfig, batch: Dict) -> int:
+    """The number of VLM patch positions prefixed to the text (0 if none)."""
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        return batch["patch_embeds"].shape[1]
+    return 0
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+    """Token embeddings, after the VLM patch prefix where there is one, and
+    with the decoder's sinusoids for enc-dec."""
+    x = _embed(params, cfg, batch["tokens"])
+    if _patches(cfg, batch):
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    if cfg.is_encdec:
+        x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                            x.device).to(x.dtype)
+    return x
+
+
+def _run_encoder(params, cfg: ModelConfig, batch: Dict
+                 ) -> Optional[torch.Tensor]:
+    """Enc-dec: the encoder's output over ``batch["enc_frames"]``."""
+    if not cfg.is_encdec:
+        return None
+    frames = batch["enc_frames"].to(_dtype(cfg))
+    pe = layers.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                     frames.device)
+    h, _ = blocks.apply_stack(params["encoder"], cfg, encoder_plan_for(cfg),
+                              frames + pe.to(frames.dtype), mode="bidir")
+    return layers.apply_norm(params["enc_norm"], h, cfg.norm)
+
+
+def _decoder(params, cfg: ModelConfig, batch: Dict, remat: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack's output at the text positions, and moe_aux."""
+    enc = _run_encoder(params, cfg, batch)
+    x = _embed_inputs(params, cfg, batch)
+    x, aux = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x,
+                                enc=enc, remat=remat)
+    return x[:, _patches(cfg, batch):], aux
+
+
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = layers.apply_norm(params["final_norm"], x, cfg.norm)
     head = params.get("lm_head", params["embed"])
@@ -86,12 +140,10 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V) fp32, moe_aux 0-d fp32).  Differentiable;
-    ``remat`` recomputes each super-block in the backward pass."""
-    _check_family(cfg)
-    x = _embed(params, cfg, batch["tokens"])
-    x, aux = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x,
-                                remat=remat)
+    """Returns (logits (B, S_text, V) fp32, moe_aux 0-d fp32): VLM logits
+    cover the text positions only.  Differentiable; ``remat`` recomputes
+    each super-block in the backward pass."""
+    x, aux = _decoder(params, cfg, batch, remat)
     return _logits(params, cfg, x), aux
 
 
@@ -147,7 +199,6 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     is the mean, ``moe_aux`` reported 0, as in the JAX package).  The
     optimizer writes its moments in place: the state passed in is
     consumed (its parameters are not)."""
-    _check_family(cfg)
 
     def train_step(state: TrainState, batch: Dict):
         if num_microbatches <= 1:
@@ -195,44 +246,59 @@ def prefill(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
 
     The final norm and the unembedding run on that position only: the
     same numbers as ``forward(...)[0][:, -1]``, without (B, S, V) fp32
-    logits (34 GB at S = 32768 for a 262k vocabulary)."""
-    _check_family(cfg)
-    x = _embed(params, cfg, batch["tokens"])
-    x, _ = blocks.apply_stack(params["stack"], cfg, plan_for(cfg), x)
+    logits (34 GB at S = 32768 for a 262k vocabulary).  ``batch`` is
+    ``forward``'s (``patch_embeds``, ``enc_frames`` where the family
+    takes them)."""
+    x, _ = _decoder(params, cfg, batch)
     return _logits(params, cfg, x[:, -1])
 
 
 # ----------------------------------------------------------- serve step ----
 
 class DecodeState(NamedTuple):
-    stack: Any                    # per-layer KV caches, stacked like params
+    stack: Any                    # per-layer states, stacked like params
     pos: int                      # current position (host int)
+    enc: Optional[torch.Tensor] = None   # enc-dec: the encoder's output
 
 
 def init_decode_state(params, cfg: ModelConfig, batch_size: int,
-                      cache_len: int) -> DecodeState:
-    """Empty caches on the parameters' device."""
-    _check_family(cfg)
+                      cache_len: int,
+                      enc_frames: Optional[torch.Tensor] = None
+                      ) -> DecodeState:
+    """Empty states on the parameters' device; for enc-dec, the encoder
+    run once over ``enc_frames`` (B, S_enc, D), whose output every step
+    attends to."""
     dev = params["embed"]["table"].device
     st = blocks.init_stack_state(cfg, plan_for(cfg), batch_size, cache_len,
                                  _dtype(cfg), dev)
-    return DecodeState(stack=st, pos=0)
+    enc = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError("enc-dec decode requires enc_frames")
+        with torch.no_grad():
+            enc = _run_encoder(params, cfg, {"enc_frames": enc_frames})
+    return DecodeState(stack=st, pos=0, enc=enc)
 
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, state, tokens (B, 1)) -> (logits (B, V), state).
 
-    The caches are written in place: the returned state holds the same
-    tensors as the one passed in, with ``pos`` advanced by one."""
-    _check_family(cfg)
+    The states are written in place: the returned state holds the same
+    tensors as the one passed in, with ``pos`` advanced by one.  VLM
+    decode is text only; enc-dec adds the sinusoid of ``pos``."""
     plan = plan_for(cfg)
 
     @torch.inference_mode()
     def serve_step(params, state: DecodeState, tokens: torch.Tensor):
         x = _embed(params, cfg, tokens)
+        if cfg.is_encdec:
+            x = x + layers.sinusoid_at(state.pos, cfg.d_model,
+                                       x.device).to(x.dtype)
         x, stack = blocks.apply_stack_decode(params["stack"], cfg, plan, x,
-                                             state.stack, state.pos)
+                                             state.stack, state.pos,
+                                             enc=state.enc)
         logits = _logits(params, cfg, x[:, 0])
-        return logits, DecodeState(stack=stack, pos=state.pos + 1)
+        return logits, DecodeState(stack=stack, pos=state.pos + 1,
+                                   enc=state.enc)
 
     return serve_step

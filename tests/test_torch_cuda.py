@@ -1686,3 +1686,60 @@ def test_moe_forward_and_decode_on_card(cuda_device, monkeypatch):
     dec = torch.stack(outs, 1)
     assert kept and all(kept)
     assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())
+
+
+# --- the recurrent, VLM and enc-dec families --------------------------------
+
+@pytest.mark.parametrize("arch", ["jamba_1p5_large_398b", "xlstm_1p3b",
+                                  "pixtral_12b", "whisper_medium"])
+def test_family_prefill_and_decode_on_card(arch, cuda_device, monkeypatch):
+    """A reduced model of each family on the card (fp32, TF32 off): with
+    the flash threshold below the prompt every causal attention layer
+    launches the kernel (none in xLSTM, none in whisper's bidirectional
+    encoder), the prefill (pixtral with patches, whisper with frames)
+    matches the same model on the CPU within 1e-4, decode over the prompt
+    reproduces the forward logits within 1e-4, and the decode states stay
+    on the card.  Jamba's experts get room for every token (capacity
+    factor E / k), as decode = forward needs."""
+    import dataclasses
+    from repro_torch.models import attention, lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm_cfg(arch)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 32)
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                     generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.num_patch_tokens, cfg.d_model), generator=gen)
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn((2, 24, cfg.d_model),
+                                          generator=gen)
+    on_card = {k: v.to(cuda_device) for k, v in batch.items()}
+    kernels.reset_launch_counts()
+    got = lm.prefill(params, cfg, on_card)
+    torch.cuda.synchronize()
+    causal = sum(s.mixer in ("attn", "attn_local") for s in cfg.layout())
+    assert kernels.launch_counts()["flash_attention"] == causal
+    want = lm.prefill(_to_cpu(params), cfg, batch)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
+
+    text = {k: v[:, :16] if k == "tokens" else v
+            for k, v in on_card.items() if k != "patch_embeds"}
+    full, _ = lm.forward(params, cfg, text)
+    state = lm.init_decode_state(params, cfg, 2, 16,
+                                 enc_frames=text.get("enc_frames"))
+    step = lm.make_serve_step(cfg)
+    outs = []
+    for t in range(16):
+        lg, state = step(params, state, text["tokens"][:, t:t + 1])
+        outs.append(lg)
+    dec = torch.stack(outs, 1)
+    assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())
+    assert all(f.is_cuda for nt in tree.leaves(state.stack) for f in nt)

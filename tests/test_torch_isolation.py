@@ -174,14 +174,18 @@ def test_unported_schemes_and_codecs_raise():
                                   "xlstm_1p3b", "pixtral_12b",
                                   "whisper_medium", "granite_moe_1b_a400m"])
 def test_unported_architectures_raise(arch):
-    """The SSM, xLSTM, VLM and audio families raise, naming ROADMAP A15;
-    the MoE family (qwen3-moe, granite-moe) is ported and loads."""
-    from repro_torch.configs import PORTED, get_config
-    if arch in PORTED:
-        assert get_config(arch, reduced=True).family == "moe"
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A15"):
-        get_config(arch, reduced=True)
+    """Every family is ported now (the name is kept from when the SSM,
+    xLSTM, VLM and audio families raised): each of these ids, the MoE
+    ones and those that raised until then, loads with the JAX registry's
+    family, and its reduced model builds on the CPU."""
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch, reduced=True)
+    assert cfg.family == jax_get_config(arch, reduced=True).family
+    assert get_config(arch).family == cfg.family
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert ("encoder" in params) == cfg.is_encdec
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):

@@ -348,18 +348,36 @@ def test_decode_ring_buffer_past_the_wrap(dt):
 
 
 def test_unported_blocks_raise():
-    """mamba and cross-attention raise, naming the ROADMAP; the MoE
-    feed-forward is ported and builds its experts."""
-    cfg = get_config("gemma3_27b", reduced=True)
+    """Every mixer is ported now (the name is kept from when mamba, the
+    xLSTM mixers and cross-attention raised): mamba, mLSTM, sLSTM and
+    cross-attention blocks, and the MoE feed-forward, build with the JAX
+    package's leaf shapes and dtypes (a bf16 model, fp32 where the JAX
+    init makes fp32); an unknown mixer raises ``ValueError`` as there."""
+    from repro.models import blocks as jax_blocks
+    from repro.models.config import BlockSpec as JaxBlockSpec
     gen = torch.Generator().manual_seed(0)
-    for spec in (BlockSpec("mamba", "dense"),
-                 BlockSpec("attn", "dense", cross_attention=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.init_block(gen, cfg, spec, torch.float32)
-    moe_cfg = get_config("qwen3_moe_30b_a3b", reduced=True)
-    p = blocks.init_block(gen, moe_cfg, BlockSpec("attn", "moe"),
+    cases = [("jamba_1p5_large_398b", ("mamba", "dense", False)),
+             ("xlstm_1p3b", ("mlstm", "none", False)),
+             ("xlstm_1p3b", ("slstm", "none", False)),
+             ("whisper_medium", ("attn", "dense", True)),
+             ("qwen3_moe_30b_a3b", ("attn", "moe", False))]
+    for arch, (mixer, ff, cross) in cases:
+        jcfg, tcfg = _lm_cfgs(arch, "bfloat16")
+        want = jax.eval_shape(lambda: jax_blocks.init_block(
+            jax.random.PRNGKey(0), jcfg, JaxBlockSpec(mixer, ff, cross),
+            jnp.bfloat16))
+        got = blocks.init_block(gen, tcfg, BlockSpec(mixer, ff, cross),
+                                torch.bfloat16)
+        wl, wt = jax.tree_util.tree_flatten(want)
+        assert jax.tree_util.tree_structure(
+            jax.tree_util.tree_map(lambda _: 0, got)) == wt, (arch, mixer)
+        for g, w in zip(tree.leaves(got), wl):
+            assert tuple(g.shape) == tuple(w.shape), (arch, mixer)
+            assert str(g.dtype).split(".")[-1] == str(w.dtype), (arch, mixer)
+        assert ("cross" in got) == cross
+    with pytest.raises(ValueError, match="conv"):
+        blocks.init_block(gen, tcfg, BlockSpec("conv", "dense"),
                           torch.float32)
-    assert tuple(p["ff"]["w_up"].shape) == (4, 256, 128)
 
 
 # ------------------------------------------------------------------- lm ----
