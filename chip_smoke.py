@@ -160,7 +160,29 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    output, decode against forward within 3e-2.  The flash launches of
    the jamba and pixtral prefills are held against the plain version on
    their own inputs.  Every number of phases 7-10 is printed beside the
-   card's name and power limit.
+   card's name and power limit;
+11. the launch tooling (``launch_phase``): (a) the dry-run
+   (``python -m repro_torch.launch.dryrun``) traces decode_32k and
+   long_500k of every arch and prefill_32k of all but xlstm and jamba on
+   meta tensors and writes its records to ``results/dryrun_torch/``;
+   (b) its cost counter runs phase 6's prefill and phase 7's train step
+   once on meta and once on the card: equal flops and bytes op by op
+   (differences printed, none on device ops with a cost), the flash
+   cost the wrapper reports the same on meta and on the card (the same
+   shapes reached the kernel) and its flops equal to the config's own
+   count of unmasked pairs, the predicted peak
+   within 10% of the card's ``max_memory_allocated`` rise, and the
+   roofline bound of the count under the measured step time; (c) the
+   pods' sync of granite-3-8b on (pod=2, data=16, model=16)
+   (``launch.perf_federated``): one cell's local shards on 2 virtual
+   pods, bytes per device by mode, the exchange's wall ms, importance
+   launched once per rank-2+ leaf and pod in each compacted mode and
+   every score held against its plain version; (d) one train step of
+   jamba, pixtral, whisper and xlstm (512 tokens: two mLSTM chunks) at
+   full width and batch 1, each at the deepest cut whose dry-run peak
+   fits in 70 GiB (searched on meta in a worker process started before
+   the build), with a finite loss, the predicted peak beside the
+   measured one.
 
 The line before the last is a JSON object with one entry per kernel (the
 launches of its own path: the auto/8 FedDD run for the three FedDD
@@ -171,9 +193,10 @@ hetero-a run's on the grouped engine and the loop (``launches_grouped``,
 (``launches_sharded`` on 4 virtual shards, ``launches_sharded_one``,
 ``launches_sharded_grouped``), and importance's N = 1 row under ``n1``,
 ``sparse_agg``'s elementwise mode under ``elementwise``, the prefill for
-flash attention, with the MoE, jamba and pixtral prefills' and the
-training steps' beside them, and importance's federated-pods launches
-and its LM-leaf rows under ``lm_leaves``; ``sparse_agg``'s times are its
+flash attention, with the MoE, jamba and pixtral prefills', the
+training steps' and the launch phase's counted prefill beside them, and
+importance's federated-pods and whole-model-sync launches and its
+LM-leaf rows under ``lm_leaves``; ``sparse_agg``'s times are its
 mean mode's, named by its ``mode`` key, with the partials mode's and the
 unfused Eq. (4)'s beside them; ``masked_merge``'s at fc0, with the
 grouped launch of the six leaves (``mode: "grouped"``) and the six
@@ -405,6 +428,23 @@ SLSTM_PROFILE_SEQ = 256  # one sLSTM layer profiled at this length
 # head) and pixtral (8448 = 256 patches + 8192 tokens, not a power of two)
 JAMBA_FLASH = (1, JAMBA_PREFILL, 64, 8, 128)
 PIXTRAL_FLASH = (1, 256 + PIXTRAL_TEXT, 32, 8, 128)
+# the launch phase: (a) the dry-run pairs traced on meta: decode_32k and
+# long_500k of every arch, and prefill_32k of every arch but these two,
+# whose traces step a Python loop per position (xLSTM's sLSTM) or per
+# chunk (Mamba) over 32768 tokens; those, and every train_4k pair, take
+# minutes to trace (``python -m repro_torch.launch.dryrun`` sweeps them)
+LAUNCH_DECODE_SHAPES = ("decode_32k", "long_500k")
+LAUNCH_PREFILL_SKIP = (XLSTM_ARCH, JAMBA_ARCH)
+PEAK_TOL = 0.10          # (b): predicted peak against the card's, relative
+# (d): one train step of each family at batch 1: (tokens, patch
+# embeddings, encoder frames), xLSTM last; xLSTM's 512 tokens run two
+# mLSTM chunks of 256 (the cross-chunk recurrence) and are cut from its
+# 2048 context because its sLSTM layers step a Python loop per position,
+# on the card and in the meta trace of the depth search
+FAMILY_TRAIN = {JAMBA_ARCH: (2048, 0, 0), PIXTRAL_ARCH: (1024, 256, 0),
+                WHISPER_ARCH: (448, 0, 1500), XLSTM_ARCH: (512, 0, 0)}
+FAMILY_SEARCH_TIMEOUT = 900      # s: (d) waits this long for a depth
+FAMILY_TRAIN_LIMIT = 70 * 2 ** 30   # the dry-run's one-card peak, bytes
 
 
 # ---- the PRNG phase: known answers the card's threefry must reproduce.
@@ -4482,6 +4522,388 @@ def families_phase(card: Card, dev="cuda") -> dict:
     return out
 
 
+def _device_totals(counter) -> dict:
+    """Flops and bytes of a count's device ops (host-side ops left out)."""
+    ops = {k: v for k, v in counter.by_op().items()
+           if not k.endswith("@host")}
+    return dict(flops=sum(v["flops"] for v in ops.values()),
+                bytes=sum(v["bytes"] for v in ops.values()))
+
+
+def _card_against_meta(name: str, run_card, run_meta, time_card, dev
+                       ) -> dict:
+    """Launch-phase (b): one step counted on the card and on meta under
+    ``CostCounter``; equal device flops and bytes op by op (differences
+    named), the wrappers' reported kernel cost equal on both (the same
+    shapes reached each kernel), the predicted peak
+    within PEAK_TOL of the card's ``max_memory_allocated`` rise, and the
+    roofline bound of the count under the step's measured time
+    (``time_card``: seconds of one synchronised run without a counter)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.hlo_analysis import (CostCounter, Hardware,
+                                                 costly_device_differences,
+                                                 op_differences)
+    _sync(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    with CostCounter(torch.device(dev).type) as on_card:
+        run_card()
+        _sync(dev)
+    rise = torch.cuda.max_memory_allocated() - base
+    launches = kernels.launch_counts()
+    t0 = time.perf_counter()
+    with CostCounter("meta") as on_meta:
+        run_meta()
+    trace_s = time.perf_counter() - t0
+    step_s = time_card()
+    diff = op_differences(on_meta.by_op(), on_card.by_op())
+    costly = costly_device_differences(diff)
+    for op, (m, c) in diff.items():
+        print(f"    differs: {op}: meta {m}, card {c}", flush=True)
+    if costly:
+        raise AssertionError(f"{name}: meta and card counts differ in "
+                             f"device ops {sorted(costly)}")
+    dm, dc = _device_totals(on_meta), _device_totals(on_card)
+    if dm != dc:
+        raise AssertionError(f"{name}: device totals {dm} != {dc}")
+    kern = {k: (on_meta.by_op().get(k), on_card.by_op().get(k))
+            for k in set(on_meta.by_op()) | set(on_card.by_op())
+            if k.startswith("kernel:")}
+    if any(m != c for m, c in kern.values()):
+        raise AssertionError(f"{name}: reported kernel costs differ {kern}")
+    peak = on_meta.totals()["peak_live_bytes"]
+    gap = (peak - rise) / max(rise, 1)
+    hw = Hardware()
+    bound_s = max(dm["flops"] / hw.peak_flops, dm["bytes"] / hw.hbm_bw)
+    print(f"  {name}: flops {dm['flops']:.6e}, bytes {dm['bytes']:.6e} "
+          f"(meta = card, {on_meta.totals()['ops']} ops, trace "
+          f"{trace_s:.2f} s); peak live predicted {peak / 2**30:.3f} GiB, "
+          f"card rise {rise / 2**30:.3f} GiB (gap {gap:+.2%}); bound "
+          f"{bound_s * 1e3:.2f} ms vs measured {step_s * 1e3:.2f} ms "
+          f"(share {bound_s / step_s:.3f}); kernel costs "
+          f"{ {k: c for k, (m, c) in kern.items()} }; launches {launches}",
+          flush=True)
+    if abs(gap) > PEAK_TOL:
+        raise AssertionError(f"{name}: predicted peak {peak} vs card rise "
+                             f"{rise}: {gap:+.2%} beyond {PEAK_TOL:.0%}")
+    if bound_s > step_s:
+        raise AssertionError(f"{name}: bound {bound_s} s exceeds the "
+                             f"measured {step_s} s: the count is wrong")
+    return dict(flops=dm["flops"], bytes=dm["bytes"],
+                ops=on_meta.totals()["ops"], trace_s=trace_s,
+                predicted_peak_bytes=peak, card_rise_bytes=rise,
+                peak_gap=gap, bound_s=bound_s, step_s=step_s,
+                bound_share=bound_s / step_s, launches=launches,
+                kernel_cost={k: c for k, (m, c) in kern.items()},
+                named_differences={k: list(v) for k, v in diff.items()})
+
+
+def _family_batch(fam, seq: int, patches: int, frames: int, device,
+                  gen=None) -> dict:
+    """(d)'s batch of one sequence: random tokens, patch embeddings and
+    encoder frames on ``device`` (empty on meta)."""
+    import torch
+
+    def draw(shape, dtype):
+        if device.type == "meta":
+            return torch.empty(shape, dtype=dtype, device=device)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    b = {"tokens": (torch.empty((1, seq), dtype=torch.int32, device=device)
+                    if device.type == "meta" else
+                    torch.randint(0, fam.vocab_size, (1, seq), generator=gen,
+                                  device=device, dtype=torch.int32))}
+    if patches:
+        b["patch_embeds"] = draw((1, patches, fam.d_model), torch.bfloat16)
+    if frames:
+        b["enc_frames"] = draw((1, frames, fam.d_model), torch.bfloat16)
+    return b
+
+
+def family_depth(arch: str) -> tuple:
+    """(d)'s dry-run depth search for one family on meta tensors
+    (``dryrun.max_depth`` within FAMILY_TRAIN_LIMIT): (the chosen depth's
+    prediction, every prediction, the search's seconds)."""
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    fam = get_config(arch)
+    t0 = time.perf_counter()
+    best, tried = dryrun.max_depth(
+        fam, _family_batch(fam, *FAMILY_TRAIN[arch], torch.device("meta")),
+        FAMILY_TRAIN_LIMIT)
+    return best, tried, time.perf_counter() - t0
+
+
+def start_family_depths():
+    """Start (d)'s depth searches in one worker process, in FAMILY_TRAIN's
+    order: (pool, {arch: async result}).  The searches are host work on
+    meta tensors (the xLSTM one traces a Python loop per position for
+    minutes), so they run on a spare host core while the card runs the
+    earlier phases; the caller terminates the pool."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, {arch: pool.apply_async(family_depth, (arch,))
+                  for arch in FAMILY_TRAIN}
+
+
+def launch_phase(card: Card, depths: dict, dev="cuda") -> dict:
+    """The launch tooling: (a) the dry-run's pairs (LAUNCH_DECODE_SHAPES
+    for every arch, prefill_32k but for LAUNCH_PREFILL_SKIP) traced on
+    meta, records written to ``results/dryrun_torch/``; (b) the cost
+    counter held against the card on phase 6's gemma3 prefill (12 layers,
+    32768 tokens, flash 12 launches) and phase 7's granite AdamW step
+    (8 layers, 8 microbatches of 1 x 2048); (c) the pods' sync of
+    granite-3-8b on the (2, 16, 16) mesh: one cell's local shards on 2
+    virtual pods, every mode, importance launched and held as predicted;
+    (d) one train step of jamba, pixtral, whisper and xlstm at full
+    width, each at the deepest cut whose dry-run one-card peak stays
+    within FAMILY_TRAIN_LIMIT, with the policy's optimizer; ``depths``
+    holds the searches (``start_family_depths``, started before the
+    build).  Cuts: the depth (the dry-run's choice); the batch, to one
+    sequence (the policy's global batch is 256); the length
+    (FAMILY_TRAIN: jamba 2048, xlstm 512 against its 2048 context, two
+    mLSTM chunks, pixtral 256 patches + 1024 text tokens, whisper 448
+    decoder tokens over 1500 frames, its caps); one microbatch (the
+    policy's 4-8 split a batch of one)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.importance.ref import channel_importance_ref
+    from repro_torch.launch import dryrun, serve, specs, train
+    from repro_torch.launch import perf_federated as pf
+    from repro_torch.launch.federated import pod_mesh
+    from repro_torch.launch.hlo_analysis import Hardware, model_flops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    print(f"  {_fresh_peak(dev):.2f} GiB resident at the start", flush=True)
+    # ---- (a) the dry-run sweep on meta
+    t0 = time.perf_counter()
+    records = dryrun.main(["--shape", *LAUNCH_DECODE_SHAPES, "--force"])
+    records += dryrun.main(
+        ["--arch", *[a for a in ARCH_IDS if a not in LAUNCH_PREFILL_SKIP],
+         "--shape", "prefill_32k", "--force"])
+    sweep_s = time.perf_counter() - t0
+    errors = [r for r in records if r["status"] == "error"]
+    if errors:
+        raise AssertionError("dry-run errors: " + "; ".join(
+            f"{r['arch']} {r['shape']}: {r['error']}" for r in errors))
+    n_ok = sum(r["status"] == "ok" for r in records)
+    print(f"  (a) {len(records)} dry-run records ({n_ok} ok) in "
+          f"{sweep_s:.2f} s on the host", flush=True)
+
+    # ---- (b) the counter against the card
+    cfg, params, gen = serve.build(SERVE_ARCH, reduced=False,
+                                   num_layers=SERVE_LAYERS, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ), generator=gen,
+                         device=dev, dtype=torch.int32)
+    lm.prefill(params, cfg, {"tokens": toks})       # warm-up
+    abstract = lm.abstract_params(cfg)
+    meta_toks = torch.empty((1, PREFILL_SEQ), dtype=torch.int32, device=meta)
+
+    def time_prefill():
+        _sync(dev)
+        t = time.perf_counter()
+        lm.prefill(params, cfg, {"tokens": toks})
+        _sync(dev)
+        return time.perf_counter() - t
+
+    prefill = _card_against_meta(
+        f"{cfg.name} {cfg.num_layers} layers prefill S={PREFILL_SEQ}",
+        lambda: lm.prefill(params, cfg, {"tokens": toks}),
+        lambda: lm.prefill(abstract, cfg, {"tokens": meta_toks}),
+        time_prefill, dev)
+    if prefill["launches"]["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"prefill flash launches {prefill['launches']}")
+    # the flash flops reported, against the config's own count: 4 * H * hd
+    # per unmasked causal pair, row i keeping min(i + 1, window) keys
+    rows = np.arange(1, PREFILL_SEQ + 1, dtype=np.int64)
+    want_flash = sum(4 * cfg.num_heads * cfg.head_dim_ * int(
+        np.minimum(rows, spec.window or PREFILL_SEQ).sum())
+        for spec in cfg.layout())
+    got_flash = prefill["kernel_cost"]["kernel:flash_attention"]["flops"]
+    print(f"  flash flops reported {got_flash:.6e}, the layout's count "
+          f"{want_flash:.6e}", flush=True)
+    if got_flash != want_flash:
+        raise AssertionError(f"flash flops {got_flash} != {want_flash}")
+    prefill["flash_flops_layout"] = want_flash
+    del params, toks, abstract
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                               num_layers=TRAIN_LAYERS)
+    opt = train.optimizer_for(tcfg, 3e-4)
+    mb = specs.policy_for(tcfg).num_microbatches
+    gen = torch.Generator(device=dev).manual_seed(0)
+    holder = {"state": lm.init_train_state(tcfg, opt, gen, dev)}
+    step = lm.make_train_step(tcfg, opt, mb)
+    ttoks = torch.randint(0, tcfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                          generator=gen, device=dev, dtype=torch.int32)
+
+    def train_once():
+        holder["state"], m = step(holder["state"], {"tokens": ttoks})
+        holder["loss"] = m["loss"]
+
+    def time_train():
+        _sync(dev)
+        t = time.perf_counter()
+        train_once()
+        _sync(dev)
+        return time.perf_counter() - t
+
+    train_once()                                     # warm-up
+    ts_meta = lm.abstract_train_state(tcfg, opt)
+    meta_ttoks = torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                             device=meta)
+    train_rec = _card_against_meta(
+        f"{tcfg.name} {TRAIN_LAYERS} layers AdamW step {mb} x "
+        f"({TRAIN_BATCH // mb} x {TRAIN_SEQ})", train_once,
+        lambda: step(ts_meta, {"tokens": meta_ttoks}), time_train, dev)
+    loss = float(holder["loss"])
+    mf_share = (model_flops(tcfg, TRAIN_SEQ, TRAIN_BATCH, "train")
+                / Hardware().peak_flops / train_rec["step_s"])
+    print(f"  train step: loss {loss:.4f}, model_flops share of the bf16 "
+          f"peak {mf_share:.3f}  [{card.line}]", flush=True)
+    if not math.isfinite(loss) or train_rec["launches"]["flash_attention"]:
+        raise AssertionError(f"train loss {loss}, launches "
+                             f"{train_rec['launches']}")
+    train_rec.update(loss=loss, model_flops_share=mf_share)
+    del holder, step, ttoks, ts_meta
+    torch.cuda.empty_cache()
+
+    # ---- (c) the pods' sync of one cell on 2 virtual pods
+    fcfg = get_config(TRAIN_ARCH)
+    mesh = make_production_mesh(multi_pod=True)
+    pods = pod_mesh(mesh.shape["pod"], dev)
+    _, local = pf.build_sync(fcfg, mesh, "dense")
+    cell = pf.random_cell(fcfg, local, pods)
+    ranked = sum(len(sh) >= 2 for sh in tree.leaves(local))
+    compacted = sum(m == "feddd" for m, _, _ in pf.MODES)
+    want = ranked * len(pods.devices) * compacted
+    scored = []
+    kernel = pf.channel_importance
+
+    def held(w_old, w_new, *, channel_axis=-1, coverage=None):
+        got = kernel(w_old, w_new, channel_axis=channel_axis,
+                     coverage=coverage)
+        a, c, b = _lib.split_at(tuple(w_new.shape),
+                                channel_axis % w_new.ndim)
+        ref = channel_importance_ref(w_old.reshape(1, a, c, b),
+                                     w_new.reshape(1, a, c, b), coverage)[0]
+        torch.testing.assert_close(got, ref, rtol=IMP_RTOL, atol=IMP_ATOL)
+        scored.append((got - ref).abs().max().item())
+        return got
+
+    pf.channel_importance = held
+    try:
+        for mode, d, q in pf.MODES:
+            pf.run_one(fcfg, mesh, pods, mode, d, q, cell)
+    finally:
+        pf.channel_importance = kernel
+    sync = []
+    for mode, d, q in pf.MODES:
+        rec, out = pf.run_one(fcfg, mesh, pods, mode, d, q, cell)
+        if not all(bool(torch.isfinite(t.float()).all())
+                   and t.device.type == torch.device(dev).type
+                   for o in out for t in tree.leaves(o)):
+            raise AssertionError(f"{rec['tag']}: synced shards not finite "
+                                 f"or off the card")
+        n_imp = ranked * len(pods.devices) if mode == "feddd" else 0
+        if rec["importance_launches"] != n_imp:
+            raise AssertionError(f"{rec['tag']}: importance launches "
+                                 f"{rec['importance_launches']} != {n_imp}")
+        kinds = {k: v for k, v in rec["collective_per_device"].items() if v}
+        print(f"  (c) {rec['tag']:>18}: "
+              f"{rec['collective_bytes_per_device'] / 1e6:.6f} MB/dev "
+              f"{kinds}, term {rec['collective_term_s'] * 1e3:.5f} ms on "
+              f"{Hardware().link_bw / 1e9:.0f} GB/s, wall "
+              f"{rec['wall_ms']:.3f} ms, importance "
+              f"{rec['importance_launches']}  [{card.line}]", flush=True)
+        sync.append(rec)
+        del out
+    launches_sync = sum(r["importance_launches"] for r in sync)
+    if launches_sync != want or len(scored) != want:
+        raise AssertionError(f"importance launches {launches_sync}, scores "
+                             f"held {len(scored)}, predicted {want}")
+    print(f"  (c) importance {launches_sync} launches = {ranked} rank-2+ "
+          f"leaves x {len(pods.devices)} pods x {compacted} compacted "
+          f"modes; {len(scored)} scores held, max |err| {max(scored):.3g}",
+          flush=True)
+    del cell
+    torch.cuda.empty_cache()
+
+    # ---- (d) one train step of each remaining family
+    families = {}
+    for arch, (seq, patches, frames) in FAMILY_TRAIN.items():
+        fam = get_config(arch)
+        t0 = time.perf_counter()
+        best, tried, search_s = depths[arch].get(FAMILY_SEARCH_TIMEOUT)
+        waited_s = time.perf_counter() - t0
+        if best is None:
+            raise AssertionError(f"{arch}: one layer does not fit")
+        fcut = dataclasses.replace(fam, num_layers=best["num_layers"])
+        _sync(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g = torch.Generator(device=dev).manual_seed(0)
+        fopt = train.optimizer_for(fcut, 3e-4)
+        state = lm.init_train_state(fcut, fopt, g, dev)
+        fstep = lm.make_train_step(fcut, fopt, 1)
+        batch = _family_batch(fam, seq, patches, frames,
+                              torch.device(dev), g)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = fstep(state, batch)
+        floss = float(m["loss"])
+        step_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        gnorm = float(m["grad_norm"])
+        del state, m, batch
+        torch.cuda.empty_cache()
+        tried_gib = [(t["num_layers"],
+                      round(t["peak_bytes_one_card"] / 2**30, 2))
+                     for t in tried]
+        print(f"  (d) {fam.name}: {best['num_layers']} of {fam.num_layers} "
+              f"layers (depths tried {tried_gib} GiB, {search_s:.2f} s in "
+              f"the worker, {waited_s:.2f} s waited), "
+              f"batch 1 x {seq}"
+              f"{f' + {patches} patches' if patches else ''}"
+              f"{f' + {frames} frames' if frames else ''}, "
+              f"{specs.policy_for(fcut).optimizer}: loss {floss:.4f}, grad "
+              f"norm {gnorm:.4g}, step {step_s:.3f} s; peak predicted "
+              f"{best['peak_bytes_one_card'] / 2**30:.2f} GiB, measured "
+              f"{peak / 2**30:.2f} GiB  [{card.line}]", flush=True)
+        if not (math.isfinite(floss) and math.isfinite(gnorm)):
+            raise AssertionError(f"{arch}: loss {floss}, grad norm {gnorm}")
+        families[arch] = dict(layers=best["num_layers"], seq=seq,
+                              patches=patches, frames=frames,
+                              optimizer=specs.policy_for(fcut).optimizer,
+                              loss=floss, grad_norm=gnorm, step_s=step_s,
+                              predicted_peak_bytes=best[
+                                  "peak_bytes_one_card"],
+                              measured_peak_bytes=peak, search_s=search_s,
+                              waited_s=waited_s, tried=tried)
+    wall = time.perf_counter() - t_phase
+    print(f"  launch phase wall {wall:.2f} s  [{card.line}]", flush=True)
+    return dict(sweep_s=sweep_s, records=records, prefill=prefill,
+                train=train_rec, sync=sync, sync_ranked_leaves=ranked,
+                sync_importance_launches=launches_sync,
+                sync_scores_held=len(scored),
+                sync_score_max_abs_err=max(scored), families=families,
+                phase_wall_s=wall)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -4498,6 +4920,7 @@ def main(argv=None) -> int:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {e}",
               file=sys.stderr)
         return 2
+    pool = None
     try:
         line = card_line()
         print(line, flush=True)
@@ -4505,6 +4928,7 @@ def main(argv=None) -> int:
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}", flush=True)
 
+        pool, depths = start_family_depths()
         path, secs, log = kernels.build()
         print(f"build: {secs:.2f} s -> {path.name}", flush=True)
         for ln in log.splitlines():
@@ -4539,10 +4963,16 @@ def main(argv=None) -> int:
         fed_out = federated_phase(card)
         moe_out = moe_phase(card)
         fam_out = families_phase(card)
+        torch.cuda.empty_cache()
+        launch_out = launch_phase(card, depths)
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
         traceback.print_exc()
         return 1
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
 
     checks["main"]["flash_attention"] = flash["main"]
     checks["max_abs_err"]["flash_attention"] = flash["max_abs_err"]
@@ -4590,7 +5020,11 @@ def main(argv=None) -> int:
                         "launches", "max_abs_err", "worst_row")}
                    for fam in ("jamba", "pixtral")},
                 launches_train=train_out["launches"][name],
-                launches_train_long=train_out["long"]["launches"][name])
+                launches_train_long=train_out["long"]["launches"][name],
+                launches_launch_prefill=launch_out["prefill"]["launches"][
+                    name],
+                launch_prefill_cost=launch_out["prefill"]["kernel_cost"].get(
+                    f"kernel:{name}"))
         if name == "sparse_agg":
             ew = checks["main"]["sparse_agg_elementwise"]
             line_kernels[-1].update(
@@ -4641,6 +5075,8 @@ def main(argv=None) -> int:
         if name == "importance":
             line_kernels[-1]["launches_federated_pods"] = fed_out[
                 "launches"]["importance"]
+            line_kernels[-1]["launches_perf_federated"] = launch_out[
+                "sync_importance_launches"]
             line_kernels[-1]["federated_pods_scores"] = dict(
                 held=fed_out["scores_held"],
                 max_abs_err=fed_out["score_max_abs_err"])
@@ -4675,7 +5111,8 @@ def main(argv=None) -> int:
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
             serving=serve_out, train=train_out, federated=fed_out,
-            moe=moe_out, families=fam_out, lm_importance=lm_importance,
+            moe=moe_out, families=fam_out, launch=launch_out,
+            lm_importance=lm_importance,
             summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]
@@ -4703,7 +5140,9 @@ def main(argv=None) -> int:
           "ms/token: " + ", ".join(
               f"{k} {fam_out[k]['prefill_s']:.4f} / "
               f"{fam_out[k]['decode']['ms_per_token']:.2f}"
-              for k in ("jamba", "xlstm", "pixtral", "whisper")),
+              for k in ("jamba", "xlstm", "pixtral", "whisper"))
+          + f"; launch phase {launch_out['phase_wall_s']:.2f} s (dry-run "
+          f"sweep {launch_out['sweep_s']:.2f} s)",
           flush=True)
     print(json.dumps({"kernels": line_kernels}))
     print(json.dumps({"ok": True, "device": {

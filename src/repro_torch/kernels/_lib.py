@@ -7,7 +7,8 @@ of the checkout; the library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Also here: the per-kernel launch counts (each wrapper adds one where it
-launches its kernel, nowhere else) and the helpers the wrappers share.
+launches its kernel, nowhere else), the cost a launch reports to an
+active cost counter, and the helpers the wrappers share.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -149,6 +151,22 @@ def route_launches(kernel: str, routes=None) -> Dict:
 def count_flag(kernel: str, flag: str) -> None:
     """Count a launch of ``kernel`` just made with the option ``flag``."""
     _flags[kernel, flag] += 1
+
+
+def report_cost(kernel: str, cost: Callable[[], Tuple[float, int]]
+                ) -> None:
+    """Report one launch's (flops, bytes), ``cost()``, to every active cost
+    counter (``launch.hlo_analysis.CostCounter``, a dispatch mode: the
+    dispatcher does not see a ctypes launch).  Without a dispatch mode on
+    the stack it returns at once and ``cost`` is never called."""
+    if not torch._C._len_torch_dispatch_stack():
+        return
+    sinks = [mode.kernel_cost for mode in _get_current_dispatch_mode_stack()
+             if hasattr(mode, "kernel_cost")]
+    if sinks:
+        flops, nbytes = cost()
+        for sink in sinks:
+            sink(kernel, flops, nbytes)
 
 
 def flag_launches(kernel: str, flag: str) -> int:

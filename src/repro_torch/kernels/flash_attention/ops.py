@@ -9,16 +9,21 @@
 
 The choice is static, on dtype and head dim (``route``); a bf16 input the
 ``sm90`` route cannot read raises, it is never sent to the other route.
+
+A ``meta`` input (the dry-run's abstract trace, asked for by name) gets
+an empty output of the kernel's shape; a launch and a meta call report
+the kernel's cost (:func:`cost`) to an active cost counter.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+from repro_torch.kernels.flash_attention.ref import (gqa_attention_ref,
+                                                     valid_pairs)
 
 HEAD_DIMS = (16, 32, 48, 64, 96, 128, 192, 256)
 SM90_HEAD_DIMS = (64, 128, 192, 256)
@@ -47,6 +52,16 @@ def route(dtype: torch.dtype, hd: int, strides: Iterable[int],
             f"(got {bad}) and their data 16-byte aligned (got {ptr_align}); "
             f"make the inputs contiguous")
     return "sm90"
+
+
+def cost(b: int, sq: int, skv: int, h: int, hkv: int, hd: int, causal: bool,
+         window: int, elem_bytes: int) -> Tuple[int, int]:
+    """(flops, bytes) of one call: 4 * hd flops per unmasked (query, key)
+    pair and head (q.k and p.v), and q, k, v read once and the output
+    written once."""
+    flops = 4 * b * h * hd * valid_pairs(sq, skv, bool(causal), int(window))
+    nbytes = (2 * b * sq * h * hd + 2 * b * skv * hkv * hd) * elem_bytes
+    return flops, nbytes
 
 
 def route_counts() -> Dict[str, int]:
@@ -108,6 +123,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.stride(3) != 1:
             raise ValueError(f"{name} must have unit stride over the head "
                              f"dim")
+    if all(t.device.type == "meta" for t in (q, k, v)):
+        out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+        _lib.report_cost("flash_attention", lambda: cost(
+            b, sq, skv, h, hkv, hd, causal, window, q.element_size()))
+        return out
     dev = _lib.kernel_device(q, k, v)
     if dev == "cpu":
         return gqa_attention_ref(q, k, v, causal=causal, window=window)
@@ -126,4 +146,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         _lib.launch("flash_attention", "feddd_flash_attention", *args,
                     _lib.DTYPE_CODES[q.dtype], device=q.device, route="fma")
+    _lib.report_cost("flash_attention", lambda: cost(
+        b, sq, skv, h, hkv, hd, causal, window, q.element_size()))
     return out

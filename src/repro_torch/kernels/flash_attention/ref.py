@@ -33,13 +33,24 @@ def band_mask(sq: int, skv: int, causal: bool, window: int,
 
 def valid_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     """Number of (query, key) pairs the mask lets through: the work an
-    exact kernel must do (``band_mask(...).sum()`` without the matrix)."""
-    total = 0
-    for i in range(sq):
-        hi = min(skv - 1, i) if causal else skv - 1
-        lo = max(0, i - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
+    exact kernel must do (``band_mask(...).sum()`` without the matrix).
+
+    Row i keeps the keys j in [0, skv) with j <= i (causal) and
+    j >= i - window + 1 (window): ``clip(i + 1) - clip(i - window + 1)``
+    with ``clip`` to [0, skv], summed in closed form."""
+    def ramp(m: int) -> int:       # sum of clip(t, 0, skv) for t in [0, m]
+        if m < 0:
+            return 0
+        if m <= skv:
+            return m * (m + 1) // 2
+        return skv * (skv + 1) // 2 + (m - skv) * skv
+
+    def rows(a: int) -> int:       # sum of clip(i + a, 0, skv), i < sq
+        return ramp(a + sq - 1) - ramp(a - 1)
+
+    upper = rows(1) if causal else sq * skv
+    lower = rows(1 - window) if window else 0
+    return upper - lower
 
 
 def gqa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -72,7 +72,9 @@ def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
     for one client, so every row has the bits of a one-client launch (the
     grouped engine, whose oracle is the per-client loop).  Launches count
     by route, "coverage" where the Eq. (21) division runs and "plain"
-    otherwise (:func:`route_counts`).
+    otherwise (:func:`route_counts`).  A launch reports its cost to an
+    active cost counter: 5 operations an element, both leaves read once,
+    the (N, C) fp32 scores written once.
     """
     if w_old.shape != w_new.shape or w_old.dtype != w_new.dtype:
         raise ValueError(f"w_old {tuple(w_old.shape)}/{w_old.dtype} and "
@@ -106,6 +108,10 @@ def channel_importance_batched(w_old: torch.Tensor, w_new: torch.Tensor, *,
                 out.data_ptr(), n, a, c, b, plan.vec, plan.splits,
                 _lib.DTYPE_CODES[w_old.dtype], device=w_old.device,
                 route="plain" if coverage is None else "coverage")
+    _lib.report_cost("importance", lambda: (
+        5 * w_old.numel(),
+        2 * w_old.numel() * w_old.element_size() + n * c * 4
+        + (0 if coverage is None else c * 4)))
     return out
 
 

@@ -1,4 +1,5 @@
-"""Client meshes for the client-sharded round engines.
+"""Client meshes for the client-sharded round engines, and the named
+shape of the reference's production mesh.
 
 The JAX package shards the fleet's client axis over a 1-D ``clients``
 ``jax.sharding.Mesh`` and runs each round's shards from one Python process
@@ -17,6 +18,7 @@ No constant here touches a device at import time.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -44,6 +46,38 @@ class ClientMesh:
     @property
     def num_shards(self) -> int:
         return len(self.devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """A named mesh shape with no devices behind it: what the dry-run and
+    the pods' sync read per device (``models.sharding.spec``,
+    ``local_shape``)."""
+
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        """The device count, as ``jax.sharding.Mesh.devices.size``."""
+        return math.prod(self.axis_sizes)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh, as a named shape: ``("data",
+    "model")`` ``(16, 16)`` = 256 devices a pod, or ``("pod", "data",
+    "model")`` ``(2, 16, 16)`` = 512 with two pods (``pod`` is the
+    cross-pod axis FedDD's sparse collectives compress).
+
+    No such cluster exists here, and the port has no SPMD partitioner:
+    the shape only sizes each device's block of a leaf."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
 
 
 def _visible(device: DeviceLike) -> Tuple[torch.device, ...]:

@@ -5,8 +5,8 @@
         --batch 4 --steps 32 [--device cpu]
 
 The counterpart of ``repro.launch.serve``, with its flags; the port runs
-on one card (the production mesh waits for ROADMAP A15 item 5) and adds
-``--device`` (default: cuda).  ``--reduced`` (the default)
+on one card (``launch.dryrun`` accounts for the production meshes) and
+adds ``--device`` (default: cuda).  ``--reduced`` (the default)
 picks the smoke-test variant of the architecture; ``--full-config`` the
 published one.  Every architecture of the registry serves: an enc-dec
 model (whisper) attends to the encoder's output over zero frames

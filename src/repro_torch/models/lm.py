@@ -26,6 +26,13 @@ a whole train state.  ``forward`` and ``loss_fn`` are differentiable
 ``prefill`` is the JAX package's ``prefill_32k`` dry-run function
 (``launch/dryrun.py``): the forward pass, keeping the last position's
 logits; it and the serve step run under ``torch.inference_mode``.
+
+For the dry-run (``launch/dryrun.py``): ``abstract_params``,
+``abstract_train_state`` and ``abstract_decode_state`` build the same
+trees on the ``meta`` device (shapes and dtypes, no data), and
+``param_pspecs`` / ``train_state_pspecs`` / ``decode_state_pspecs`` give
+each leaf's spec on a mesh (``models.sharding``), walking named tuples
+field by field as ``jax.tree_util`` does.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import blocks, layers
+from repro_torch.models import blocks, layers, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Optimizer, apply_updates
 
@@ -61,7 +68,8 @@ def encoder_plan_for(cfg: ModelConfig) -> Optional[blocks.StackPlan]:
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device: DeviceLike = None) -> Dict:
     """Random parameters with the JAX init's shapes, dtypes and scales,
-    drawn from ``generator`` (which must live on ``device``)."""
+    drawn from ``generator`` (which must live on ``device``;
+    :func:`abstract_params` passes a CPU generator that reads ``meta``)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -302,3 +310,141 @@ def make_serve_step(cfg: ModelConfig):
                                    enc=state.enc)
 
     return serve_step
+
+
+# ------------------------------------------------------ abstract inputs ----
+
+META = torch.device("meta")
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: the inits draw on
+    ``gen.device``, so through it they build meta tensors (``torch.randn``
+    takes a CPU generator for a meta tensor and draws nothing)."""
+
+    @property
+    def device(self) -> torch.device:
+        return META
+
+
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The parameter tree on ``meta``, without allocating (the dry-run's
+    input; ``jax.eval_shape`` of the init in the JAX package)."""
+    return init_model(cfg, _MetaGenerator(), META)
+
+
+def abstract_train_state(cfg: ModelConfig, opt: Optimizer) -> TrainState:
+    return init_train_state(cfg, opt, _MetaGenerator(), META)
+
+
+def abstract_decode_state(cfg: ModelConfig, batch_size: int, cache_len: int,
+                          enc_len: int = 0) -> DecodeState:
+    """The decode state on ``meta`` (the dry-run's input): the stacked
+    caches and recurrent states, ``pos`` 0 (a host int: the step's cost
+    does not depend on it, every step reads the whole cache under a
+    mask), and for enc-dec the cached encoder output (B, enc_len, D)."""
+    dt = _dtype(cfg)
+    st = blocks.init_stack_state(cfg, plan_for(cfg), batch_size, cache_len,
+                                 dt, META)
+    enc = (torch.empty((batch_size, enc_len, cfg.d_model), dtype=dt,
+                       device=META) if cfg.is_encdec else None)
+    return DecodeState(stack=st, pos=0, enc=enc)
+
+
+# ------------------------------------------------------- sharding specs ----
+
+_SPEC_BY_NAME_RANK = {
+    # name -> {rank: logical axes}
+    "table": {2: ("vocab", "table_embed")},
+    "wq": {3: ("embed", "heads", None), 2: ("embed", "inner")},
+    "wk": {3: ("embed", "kv_heads", None), 2: ("embed", "inner")},
+    "wv": {3: ("embed", "kv_heads", None), 2: ("embed", "inner")},
+    "wo": {3: ("heads", None, "embed")},
+    "w_up": {2: ("embed", "mlp"), 3: ("experts", "embed", None)},
+    "w_gate": {2: ("embed", "mlp"), 3: ("experts", "embed", None)},
+    "w_down": {2: ("mlp", "embed"), 3: ("experts", None, "embed")},
+    "router": {2: (None, None)},
+    "in_proj": {2: ("embed", "inner")},
+    "conv_w": {2: (None, "inner")},
+    "conv_b": {1: ("inner",)},
+    "x_proj": {2: ("inner", None)},
+    "dt_proj": {2: (None, "inner")},
+    "dt_bias": {1: ("inner",)},
+    "a_log": {2: ("inner", None)},
+    "d_skip": {1: ("inner",)},
+    "out_proj": {2: ("inner", "embed")},
+    "up": {2: ("embed", "inner")},
+    "down": {2: ("inner", "embed")},
+    "w_gates": {2: ("inner", None)},
+    "w_i": {2: ("inner", None)},
+    "w_f": {2: ("inner", None)},
+    "b_i": {1: (None,)},
+    "b_f": {1: (None,)},
+    "b_gates": {1: (None,)},
+}
+
+
+def _leaf_shape(leaf) -> Tuple[int, ...]:
+    """A tensor's shape; () for a host scalar."""
+    return tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+
+
+def _leaf_logical_axes(names: Tuple[str, ...], shape: Tuple[int, ...]
+                       ) -> Tuple:
+    stacked = "super" in names
+    base = names[-1] if names else None
+    rank = len(shape) - (1 if stacked else 0)
+    axes = _SPEC_BY_NAME_RANK.get(base, {}).get(rank)
+    if axes is None:
+        axes = (None,) * rank
+    if stacked:
+        axes = ("layers",) + axes
+    return axes
+
+
+def param_pspecs(cfg: ModelConfig, params_shape, mesh=None) -> Any:
+    """The spec of every leaf on ``mesh`` (divisibility-aware), in the
+    tree's structure.  Also right for a ``TrainState``: the optimizer's
+    moments mirror the parameter tree, so the lookup by name lands on the
+    same entries."""
+    del cfg
+
+    def _one(names, leaf):
+        shape = _leaf_shape(leaf)
+        return sharding.spec(*_leaf_logical_axes(names, shape), shape=shape,
+                             mesh=mesh)
+
+    return tree.map_named(_one, params_shape)
+
+
+train_state_pspecs = param_pspecs
+
+
+def decode_state_pspecs(cfg: ModelConfig, state_shape, mesh=None) -> Any:
+    """Specs for a ``DecodeState``: KV caches shard batch over data and
+    kv-heads over model; recurrent states shard batch (and mamba's inner
+    dim)."""
+    del cfg
+
+    def _one(names, leaf):
+        shape = _leaf_shape(leaf)
+        stacked = "super" in names
+        rank = len(shape) - (1 if stacked else 0)
+        base = names[-1] if names else None
+        if base in ("k", "v") and rank == 4:       # KV cache
+            axes = ("batch", "kv_seq", "kv_heads", None)
+        elif base == "conv" and rank == 3:         # mamba conv window
+            axes = ("batch", None, "inner")
+        elif base == "ssm" and rank == 3:          # mamba SSM state
+            axes = ("batch", "inner", None)
+        elif base == "enc" and rank == 3:          # cached encoder output
+            axes = ("batch", "seq", None)
+        elif rank >= 1 and base != "pos":          # lstm c/n/h/m etc.
+            axes = ("batch",) + (None,) * (rank - 1)
+        else:
+            axes = (None,) * rank
+        if stacked:
+            axes = ("layers",) + axes
+        return sharding.spec(*axes, shape=shape, mesh=mesh)
+
+    return tree.map_named(_one, state_shape)

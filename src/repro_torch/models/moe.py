@@ -90,7 +90,10 @@ def _positions_in_expert(flat_ids: torch.Tensor, e: int, cap: int
     dev = flat_ids.device
     order = torch.sort(flat_ids, stable=True).indices
     sorted_ids = flat_ids[order]
-    counts = torch.bincount(flat_ids, minlength=e)
+    # bincount as an index_add_ (exact for integers; bincount has no meta
+    # kernel, and the dry-run traces this on meta tensors)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, flat_ids, torch.ones_like(flat_ids, dtype=torch.int64))
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(n, device=dev) - starts[sorted_ids]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)

@@ -9,11 +9,18 @@ shape, a named tuple such as a KV cache).  :func:`keystr` renders a
 leaf's path as ``jax.tree_util.keystr`` does (``"['fc0']['w']"``,
 ``"[1]"``): coverage tables and ``always_upload`` predicates are keyed on
 those strings.
+
+:func:`named_leaves` and :func:`map_named` are the one other walk: the
+JAX package's, in which a named tuple (``TrainState``, ``DecodeState``,
+a layer's state) is a node walked field by field, each leaf named by the
+dict keys and field names on its way (what ``repro.models.lm``'s
+``_path_names`` reads from a path).  They serve the partition specs,
+which the JAX package keys on those names.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
 
 TreeDef = Any   # None for a leaf, else (kind, keys, child treedefs)
 KeyPath = Tuple  # (('dict', key) | ('list', index), ...)
@@ -116,3 +123,41 @@ def tree_map(fn: Callable, tree, *rest):
         if otd != td:
             raise ValueError("tree structure mismatch")
     return unflatten(td, [fn(*xs) for xs in zip(ls, *(o[0] for o in others))])
+
+
+def _is_named_tuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def named_leaves(node, names: Tuple[str, ...] = ()
+                 ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """``(names, leaf)`` in ``jax.tree_util`` order: dict keys sorted,
+    lists in order, named tuples field by field; ``names`` are the dict
+    keys and field names on the way.  ``None`` holds no leaf; a host int
+    (``DecodeState.pos``) is one.  On a tree without named tuples the
+    leaves are :func:`flatten`'s, in its order."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from named_leaves(node[k], names + (str(k),))
+    elif isinstance(node, list):
+        for v in node:
+            yield from named_leaves(v, names)
+    elif _is_named_tuple(node):
+        for f, v in zip(node._fields, node):
+            yield from named_leaves(v, names + (f,))
+    elif node is not None:
+        yield names, node
+
+
+def map_named(fn: Callable, node, names: Tuple[str, ...] = ()):
+    """``node`` with each leaf of :func:`named_leaves` replaced by
+    ``fn(names, leaf)``, in the same structure."""
+    if isinstance(node, dict):
+        return {k: map_named(fn, v, names + (str(k),))
+                for k, v in node.items()}
+    if isinstance(node, list):
+        return [map_named(fn, v, names) for v in node]
+    if _is_named_tuple(node):
+        return type(node)(*(map_named(fn, v, names + (f,))
+                            for f, v in zip(node._fields, node)))
+    return None if node is None else fn(names, node)

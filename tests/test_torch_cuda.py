@@ -1743,3 +1743,81 @@ def test_family_prefill_and_decode_on_card(arch, cuda_device, monkeypatch):
     dec = torch.stack(outs, 1)
     assert float((dec - full).abs().max()) <= 1e-4 * float(full.abs().max())
     assert all(f.is_cuda for nt in tree.leaves(state.stack) for f in nt)
+
+
+@pytest.mark.parametrize("dtype,hd,window", [(torch.bfloat16, 128, 0),
+                                             (torch.bfloat16, 64, 48),
+                                             (torch.float32, 32, 0)])
+def test_flash_meta_branch_cost_equals_the_launch(dtype, hd, window,
+                                                  cuda_device):
+    """The flash wrapper's meta branch (the dry-run's trace) reports the
+    same cost as a launch on the card, on either route, and allocates the
+    same output."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.hlo_analysis import CostCounter
+    counts = {}
+    for dev in (cuda_device, torch.device("meta")):
+        q = torch.randn((2, 300, 8, hd), device=dev, dtype=dtype)
+        kv = torch.randn((2, 300, 2, hd), device=dev, dtype=dtype)
+        before = kernels.launch_counts()["flash_attention"]
+        with CostCounter(dev.type) as c:
+            out = flash_ops.flash_attention(q, kv, kv, causal=True,
+                                            window=window)
+        assert out.shape == q.shape and out.dtype == dtype
+        launched = kernels.launch_counts()["flash_attention"] - before
+        assert launched == (1 if dev.type == "cuda" else 0)
+        counts[dev.type] = (c.by_op()["kernel:flash_attention"],
+                            c.by_op()["aten.empty.memory_format"],
+                            c.totals()["peak_live_bytes"])
+    assert counts["cuda"] == counts["meta"]
+    assert counts["cuda"][0]["flops"] == flash_ops.cost(
+        2, 300, 300, 8, 2, hd, True, window, q.element_size())[0]
+
+
+def test_perf_federated_on_card_matches_cpu(cuda_device, monkeypatch):
+    """The pods' sync of one cell on two virtual pods of the card against
+    two CPU pods, every mode: equal bytes per kind, equal kept channel
+    sets, shards within 1e-6 (dense: equal), importance launched once per
+    rank-2+ leaf and pod in the compacted modes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import perf_federated as pf
+    from repro_torch.launch.federated import pod_mesh
+    from repro_torch.launch.mesh import ProductionMesh
+    cfg = dataclasses.replace(get_config("granite_3_8b", reduced=True),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    mesh = ProductionMesh(("pod", "data", "model"), (2, 2, 2))
+    cpu_pods = pod_mesh(2, "cpu")
+    _, local = pf.build_sync(cfg, mesh, "dense")
+    olds, news = pf.random_cell(cfg, local, cpu_pods)
+    card_pods = pod_mesh(2, cuda_device)
+    card_cell = tuple([tree.tree_map(lambda t: t.to(cuda_device), p)
+                       for p in side] for side in (olds, news))
+    ranked = sum(len(s) >= 2 for s in tree.leaves(local))
+    real_topk = pf.compact_topk
+    for mode, d, q in pf.MODES:
+        runs = {}
+        for pods, cell in ((card_pods, card_cell),
+                           (cpu_pods, (olds, news))):
+            kept = []
+
+            def recording(values, scores, k):
+                compact, idx = real_topk(values, scores, k)
+                kept.append(sorted(idx.cpu().tolist()))
+                return compact, idx
+
+            monkeypatch.setattr(pf, "compact_topk", recording)
+            rec, out = pf.run_one(cfg, mesh, pods, mode, d, q, cell)
+            runs[pods.devices[0].type] = (rec, out, kept)
+        (rc, oc, kc), (rp, op, kp) = runs["cuda"], runs["cpu"]
+        assert rc["collective_per_device"] == rp["collective_per_device"]
+        assert rc["importance_launches"] == (2 * ranked if mode == "feddd"
+                                             else 0)
+        assert rp["importance_launches"] == 0
+        assert kc == kp
+        for a, b in zip(tree.leaves(oc), tree.leaves(op)):
+            if mode == "dense":
+                assert torch.equal(a.cpu(), b)
+            else:
+                torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)

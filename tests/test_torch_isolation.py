@@ -81,7 +81,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.launch.federated",
                  "repro_torch.federated_pods",
                  "repro_torch.configs.qwen3_moe_30b_a3b",
-                 "repro_torch.configs.granite_moe_1b_a400m"):
+                 "repro_torch.configs.granite_moe_1b_a400m",
+                 "repro_torch.models.sharding", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.hlo_analysis",
+                 "repro_torch.launch.analytic_cost",
+                 "repro_torch.launch.perf_federated"):
         assert must in res["modules"]
 
 

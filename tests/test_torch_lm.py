@@ -174,7 +174,8 @@ def test_worst_row_error_catches_one_tile_of_keys():
 @pytest.mark.parametrize("sq,skv,causal,window",
                          [(37, 37, True, 0), (37, 37, True, 5),
                           (37, 20, True, 0), (20, 37, False, 6),
-                          (64, 64, False, 0), (9, 9, True, 100)])
+                          (64, 64, False, 0), (9, 9, True, 100),
+                          (50, 10, True, 4), (12, 30, False, 5)])
 def test_valid_pairs_counts_the_mask(sq, skv, causal, window):
     want = int(band_mask(sq, skv, causal, window, "cpu").sum())
     assert valid_pairs(sq, skv, causal, window) == want

@@ -328,7 +328,7 @@ def test_train_state_round_trip_and_policy():
     assert int(step) == 0 and set(opt_state) == {"step", "m", "v"}
     from repro.launch import specs as jspecs
     assert specs.RUN_POLICY == {
-        k: specs.ArchRunPolicy(v.optimizer, v.num_microbatches)
+        k: specs.ArchRunPolicy(v.optimizer, v.num_microbatches, v.rules)
         for k, v in jspecs.RUN_POLICY.items()}
     assert specs.policy_for(tcfg).num_microbatches == 8
     w = {"w": torch.zeros(2, 3)}
