@@ -123,6 +123,18 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    prefill against the plain-attention route; and decode from an empty
    cache over 64 prompt tokens against ``lm.forward`` at every position
    (asserted in fp32, reported in bf16);
+6b. the serving path on a virtual (2, 2) (data, model) mesh of the card
+   (``lm_mesh_phase``): the same gemma3 placed by ``lm.place_params``
+   (each device's parameter bytes equal to ``local_shape``'s count), one
+   prefill of 2 x 32768 tokens (flash once per layer and device, 48 on
+   (1, 32768, 16/8, 128) blocks, sm90) and 32 decode steps at batch 4 on
+   the same tokens as the unmeshed run, both within 3e-2 of its logits;
+   qwen3-moe (4 layers) prefilled at 2 x 8192 on the expert-parallel
+   path (``moe.dispatch_counts``) against the unmeshed dispatch in 2
+   blocks: every expert flip a near-tie, rows whose last position kept
+   its experts within 5e-2, two meshed runs bit-equal; times and peaks
+   beside the unmeshed ones.  The flash kernel is also held against its
+   plain version and timed at the mesh shard's shape in phase 3;
 7. LM training: granite-3-8b at full width (d 4096, 32/8 heads, d_ff
    12800, vocab 49155) cut to 8 layers, AdamW (``launch.specs``'s
    policy), 8 microbatches, 8 x 2048 tokens a step: one warm-up and 3
@@ -193,7 +205,8 @@ hetero-a run's on the grouped engine and the loop (``launches_grouped``,
 (``launches_sharded`` on 4 virtual shards, ``launches_sharded_one``,
 ``launches_sharded_grouped``), and importance's N = 1 row under ``n1``,
 ``sparse_agg``'s elementwise mode under ``elementwise``, the prefill for
-flash attention, with the MoE, jamba and pixtral prefills', the
+flash attention, with the mesh's and the MoE, jamba and pixtral
+prefills', the
 training steps' and the launch phase's counted prefill beside them, and
 importance's federated-pods and whole-model-sync launches and its
 LM-leaf rows under ``lm_leaves``; ``sparse_agg``'s times are its
@@ -384,6 +397,24 @@ ROUTE_SEQ = 8192                          # kernel vs plain-attention route
 CONSIST_BATCH, CONSIST_T = 2, 64
 CONSIST_TOL_FP32 = 1e-4                   # of the largest |logit|
 ROUTE_TOL = 5e-2                          # bf16, of the largest |logit|
+
+# phase 6b, the serving path on a virtual (data, model) mesh of the card:
+# gemma3 as in phase 6 at batch 2 (the data axis splits it: flash runs on
+# each shard's (1, 32768, 16/8, 128) block) and qwen3-moe (4 layers) at
+# batch 2 x MOE_PREFILL_SEQ, which takes the expert-parallel path
+MESH_SHAPE = (2, 2)
+MESH_PREFILL_BATCH = 2
+MESH_TOL = 3e-2                           # bf16, of the largest |logit|
+MESH_MOE_BATCH, MESH_MOE_TOL = 2, 5e-2
+MESH_FLASH = (1, 32768, 16, 8, 128)       # one model shard's heads
+MESH_MOE_FLASH = (1, 8192, 16, 2, 128)    # qwen3-moe's, qk-normed
+# an expert the meshed MoE picked where the unmeshed run, given the same
+# routing in every layer, would not: at most this far below the unmeshed
+# k-th router logit, in units of that token's router-logit std over its
+# E experts.  A router input rounded differently by a relative r moves
+# each logit by ~r std; r is ~1% after two bf16 layers of the reduced
+# config on the CPU, a real routing fault moves an expert by ~1 std
+MESH_TIE_STD = 0.25
 
 TRAIN_ARCH = "granite_3_8b"               # train and federated phases
 TRAIN_LAYERS = 8
@@ -1398,13 +1429,26 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
             if s == PREFILL_SEQ and not window:
                 line_rec = rec
     del q, k, v
-    # the MoE prefill's shape (8 query heads a kv head), q and k
-    # RMS-normalised over head_dim as its qk-norm leaves them
-    q, k, v = qkv(*MOE_FLASH, torch.bfloat16)
-    q, k = (t.float() * torch.rsqrt(t.float().square().mean(-1, keepdim=True)
-                                    + 1e-6) for t in (q, k))
-    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    def qk_normed(shape):
+        """bf16 q, k, v with q and k RMS-normalised over head_dim, as
+        qwen3-moe's qk-norm leaves them."""
+        q, k, v = qkv(*shape, torch.bfloat16)
+        q, k = (t.float() * torch.rsqrt(t.float().square().mean(
+            -1, keepdim=True) + 1e-6) for t in (q, k))
+        return q.to(torch.bfloat16), k.to(torch.bfloat16), v
+
+    # the MoE prefill's shape (8 query heads a kv head), and a model
+    # shard's heads of it on the (2, 2) mesh
+    q, k, v = qk_normed(MOE_FLASH)
     moe_rec = measure(q, k, v, 0, gqa_attention_ref, " qk-normed")
+    q, k, v = qk_normed(MESH_MOE_FLASH)
+    mesh_moe_rec = measure(q, k, v, 0, gqa_attention_ref,
+                           " qk-normed mesh shard")
+    del q, k, v
+    # a model shard's heads on the (2, 2) mesh's gemma3 prefill
+    q, k, v = qkv(*MESH_FLASH, torch.bfloat16)
+    mesh_recs = {w: measure(q, k, v, w, chunked, " mesh shard")
+                 for w in SLICE_WINDOWS}
     del q, k, v
     # the families phase's prefills: jamba's attention layer and pixtral's
     # 40 layers (held against the plain version in row chunks)
@@ -1414,7 +1458,8 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
         fam[name] = measure(q, k, v, 0, chunked, f" {name}")
         del q, k, v
     return {"max_abs_err": max_err, "worst_row": worst_row, "main": line_rec,
-            "moe": moe_rec, **fam}
+            "moe": moe_rec, "mesh": mesh_recs, "mesh_moe": mesh_moe_rec,
+            **fam}
 
 
 def sdpa_yardstick(qt, kt, vt, window, flush, timer):
@@ -3733,6 +3778,356 @@ def serving_phase(dev="cuda") -> dict:
                 consistency_fp32=consist_fp32, consistency_bf16=consist_bf16)
 
 
+def _placed_bytes(placed, params) -> dict:
+    """Each device's bytes of a placement against ``local_shape``'s
+    count of one device (equal, or the phase fails)."""
+    from repro_torch.models import sharding
+    per_dev = sharding.device_bytes(placed)
+    want = sharding.local_bytes(params, placed.specs, placed.mesh)
+    if per_dev != [want] * placed.mesh.size:
+        raise AssertionError(f"bytes per device {per_dev}, local_shape "
+                             f"count {want}")
+    return dict(per_device=per_dev, local_shape=want)
+
+
+def _mesh_layer_routes(meshed: list, mesh, n_layers: int) -> list:
+    """The meshed prefill's routings (one per device and layer; block r
+    on row r) as one (ids (T, k), router probabilities (T, E)) a layer,
+    in token order, read from the devices of model column 0."""
+    import torch
+    if len(meshed) != n_layers * mesh.size:
+        raise AssertionError(f"{len(meshed)} meshed routings for "
+                             f"{n_layers} layers")
+    out = []
+    for layer in range(n_layers):
+        recs = meshed[layer * mesh.size:(layer + 1) * mesh.size]
+        col0 = [recs[k] for k in range(mesh.size) if mesh.col(k) == 0]
+        out.append(tuple(torch.cat(parts) for parts in zip(*col0)))
+    return out
+
+
+def _mesh_route_flips(ref: list, meshed: list, b: int, s: int):
+    """The meshed prefill's routings (:func:`_mesh_layer_routes`) against
+    the unmeshed one's (one per layer): how many tokens a layer sent to
+    other experts, the largest router gap (k-th minus (k+1)-th
+    probability, unmeshed) at them, and whether a row's last position is
+    among them in any layer."""
+    flips, gap, last = 0, 0.0, [False] * b
+    for (r_ids, r_probs), (m_ids, _) in zip(ref, meshed):
+        k = r_ids.shape[1]
+        diff = (r_ids.sort(-1).values != m_ids.sort(-1).values).any(-1)
+        idx = diff.nonzero().flatten()
+        if len(idx):
+            probs = r_probs[idx].sort(-1, descending=True).values
+            gap = max(gap, float((probs[:, k - 1] - probs[:, k]).max()))
+        flips += len(idx)
+        for r in range(b):
+            last[r] = last[r] or bool(diff[(r + 1) * s - 1])
+    return flips, gap, last
+
+
+@contextlib.contextmanager
+def _forced_routes(meshed: list, out: list):
+    """Route the i-th MoE call to the experts of ``meshed[i]`` (ids, router
+    probabilities), each token's gate weights taken from this run's own
+    router probabilities at those experts, normalised as ``moe.route``
+    does.  Appends, a layer: the tokens whose own top-k differs, how far
+    the forced set's weakest expert falls below this run's k-th router
+    logit, and the largest change of a router logit between the two runs
+    (centred a token), both in units of the token's router-logit std."""
+    import torch
+    from repro_torch.models import moe
+    real = moe.route
+    calls = iter(meshed)
+
+    def forced(p, x, mcfg):
+        ids, m_probs = next(calls)
+        _, _, aux = real(p, x, mcfg)
+        probs = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+        logp = probs.log()
+        std = logp.std(-1)
+        own = logp.topk(mcfg.top_k, -1).indices
+        kth = logp.gather(1, own[:, -1:]).squeeze(1)
+        below = (kth - logp.gather(1, ids).min(-1).values).clamp(min=0)
+        moved = m_probs.log() - logp
+        moved = (moved - moved.mean(-1, keepdim=True)).abs().max(-1).values
+        out.append(dict(
+            flips=int((own.sort(-1).values != ids.sort(-1).values).any(-1)
+                      .sum()),
+            below=float((below / std).max()),
+            moved=float((moved / std).max())))
+        top_p = torch.gather(probs, 1, ids)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        return ids, top_p.to(x.dtype), aux
+
+    moe.route = forced
+    try:
+        yield out
+    finally:
+        moe.route = real
+
+
+def lm_mesh_phase(card: Card, dev="cuda") -> dict:
+    """Phase 6b: the serving path on a virtual MESH_SHAPE (data, model)
+    mesh of the card, against the unmeshed path on the same weights and
+    inputs: gemma3-27b (phase 6's model) prefill at MESH_PREFILL_BATCH x
+    PREFILL_SEQ and DECODE_STEPS teacher-forced decode steps at
+    DECODE_BATCH, and qwen3-moe (MOE_LAYERS layers) prefill at
+    MESH_MOE_BATCH x MOE_PREFILL_SEQ on the expert-parallel path against
+    the unmeshed dispatch in 2 blocks."""
+    import functools
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.models import lm, moe, sharding
+
+    t_phase = time.perf_counter()
+    resident = _fresh_peak(dev)
+    mesh = LMMesh.virtual(dev, *MESH_SHAPE)
+    cfg, params, gen = serve.build(SERVE_ARCH, reduced=False,
+                                   num_layers=SERVE_LAYERS, device=dev)
+    _sync(dev)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    placed = lm.place_params(params, cfg, mesh)
+    _sync(dev)
+    place_s = time.perf_counter() - t0
+    alloc = torch.cuda.memory_allocated() - before
+    pbytes = _placed_bytes(placed, params)
+    if not sum(pbytes["per_device"]) <= alloc <= 1.01 * sum(
+            pbytes["per_device"]) + (1 << 20):
+        raise AssertionError(f"placement allocated {alloc} bytes for "
+                             f"{pbytes}")
+    print(f"  mesh {mesh.shape} (virtual, {mesh.size} shards of the card): "
+          f"{cfg.name} {cfg.num_layers} layers placed in {place_s:.2f} s, "
+          f"{pbytes['per_device'][0] / 2 ** 30:.3f} GiB of parameters a "
+          f"device (local_shape count {pbytes['local_shape'] / 2 ** 30:.3f}"
+          f"), allocated {alloc / 2 ** 30:.3f} GiB in all", flush=True)
+
+    # ---- prefill: the batch split over data, flash per device
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_PREFILL_BATCH,
+                                               PREFILL_SEQ), generator=gen,
+                           device=dev)
+    _fresh_peak(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    want = lm.prefill(params, cfg, {"tokens": tokens})
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    plain_peak = _peak_gb()
+    _fresh_peak(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = lm.prefill(placed, cfg, {"tokens": tokens}, mesh=mesh)
+    _sync(dev)
+    mesh_s = time.perf_counter() - t0
+    mesh_peak = _peak_gb()
+    g_counts, g_routes = kernels.launch_counts(), flash_ops.route_counts()
+    _want_flash(cfg, g_counts, g_routes, cfg.num_layers * mesh.size)
+    if tuple(got.shape) != tuple(want.shape) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"meshed prefill logits {tuple(got.shape)}")
+    prefill_err = _rel_err(got, want)
+    top1 = bool((got.argmax(-1) == want.argmax(-1)).all())
+    print(f"  prefill {MESH_PREFILL_BATCH} x {PREFILL_SEQ}: mesh {mesh_s:.3f}"
+          f" s (flash {g_routes}, {cfg.num_layers} layers x {mesh.size} "
+          f"devices), unmeshed {plain_s:.3f} s; max |diff| / max |logit| "
+          f"{prefill_err:.3g} (limit {MESH_TOL}), same top-1 {top1}; peak "
+          f"{mesh_peak:.2f} GiB meshed, {plain_peak:.2f} unmeshed "
+          f"({resident:.2f} resident at the start)  [{card.line}]",
+          flush=True)
+    if not prefill_err <= MESH_TOL:
+        raise AssertionError(f"meshed prefill differs by {prefill_err}")
+    del got, want
+    # once more, untimed: every device's flash output against the plain
+    # version on its very inputs
+    g_held = _prefill_flash_held(placed, cfg, {"tokens": tokens}, mesh)
+    print(f"  meshed prefill's own flash inputs, {g_held['launches']} "
+          f"launches: kernel vs plain max err {g_held['max_abs_err']:.3g}, "
+          f"worst row {g_held['worst_row']:.3g} of its scale (limit "
+          f"{ROW_TOL:.4g})", flush=True)
+    if g_held["launches"] != cfg.num_layers * mesh.size:
+        raise AssertionError(f"meshed prefill flash inputs: {g_held}")
+    del tokens
+
+    # ---- decode: the same DECODE_STEPS tokens fed to both, batch split
+    seq = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_STEPS),
+                        generator=gen, device=dev)
+
+    def decode(p, m):
+        st = lm.init_decode_state(p, cfg, DECODE_BATCH, DECODE_CACHE,
+                                  mesh=m)
+        step = lm.make_serve_step(cfg, m)
+        outs = []
+        _sync(dev)
+        t0 = time.perf_counter()
+        for t in range(DECODE_STEPS):
+            lg, st = step(p, st, seq[:, t:t + 1])
+            outs.append(lg)
+        _sync(dev)
+        return (torch.stack(outs, 1),
+                (time.perf_counter() - t0) / DECODE_STEPS * 1e3, st)
+
+    kernels.reset_launch_counts()
+    dec, dec_ms, st = decode(placed, mesh)
+    dec_counts = kernels.launch_counts()
+    dec0, dec0_ms, _ = decode(params, None)
+    if any(dec_counts.values()) or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"meshed decode launches {dec_counts}")
+    for shard in st.stack.shards:
+        for t, sp, full in zip(tree.named_values(shard),
+                               tree.named_values(st.stack.specs),
+                               tree.named_values(lm.abstract_decode_state(
+                                   cfg, DECODE_BATCH, DECODE_CACHE).stack)):
+            if t.device.type != torch.device(dev).type or tuple(
+                    t.shape) != sharding.local_shape(
+                    full.shape, sp, mesh):
+                raise AssertionError(f"cache block {tuple(t.shape)} under "
+                                     f"{sp}")
+    state_bytes = sharding.device_bytes(st.stack)
+    decode_err = _rel_err(dec, dec0)
+    print(f"  decode {DECODE_BATCH} x {DECODE_STEPS} steps (cache "
+          f"{DECODE_CACHE}): mesh {dec_ms:.2f} ms/token, unmeshed "
+          f"{dec0_ms:.2f}; max |diff| / max |logit| {decode_err:.3g} (limit "
+          f"{MESH_TOL}); cache {state_bytes[0] / 2 ** 20:.2f} MiB a device; "
+          f"launches {dec_counts}  [{card.line}]", flush=True)
+    if not decode_err <= MESH_TOL:
+        raise AssertionError(f"meshed decode differs by {decode_err}")
+    del dec, dec0, st, placed, params
+    torch.cuda.empty_cache()
+
+    # ---- qwen3-moe: the expert-parallel path against 2 blocks unmeshed
+    mcfg, mparams, mgen = serve.build(MOE_ARCH, reduced=False,
+                                      num_layers=MOE_LAYERS, device=dev)
+    mplaced = lm.place_params(mparams, mcfg, mesh)
+    mbytes = _placed_bytes(mplaced, mparams)
+    toks = torch.randint(0, mcfg.vocab_size, (MESH_MOE_BATCH,
+                                              MOE_PREFILL_SEQ),
+                         generator=mgen, device=dev)
+    blocked = functools.partial(moe.apply_moe, n_blocks=2)
+
+    def two_blocks():
+        real = moe.apply_moe
+        moe.apply_moe = blocked
+        try:
+            return lm.prefill(mparams, mcfg, {"tokens": toks})
+        finally:
+            moe.apply_moe = real
+
+    ref_routes, mesh_routes = [], []
+    moe.reset_dispatch_counts()
+    with _recorded_routes(ref_routes):
+        want = two_blocks()
+    ref_paths = moe.dispatch_counts()
+    moe.reset_dispatch_counts()
+    kernels.reset_launch_counts()
+    with _recorded_routes(mesh_routes):
+        got = lm.prefill(mplaced, mcfg, {"tokens": toks}, mesh=mesh)
+    paths = moe.dispatch_counts()
+    counts, routes = kernels.launch_counts(), flash_ops.route_counts()
+    _want_flash(mcfg, counts, routes, mcfg.num_layers * mesh.size)
+    if paths != {"one_block": 0, "blocked": 0, "ep": mcfg.num_layers} or \
+            ref_paths != {"one_block": 0, "blocked": mcfg.num_layers,
+                          "ep": 0}:
+        raise AssertionError(f"MoE dispatch paths: mesh {paths}, unmeshed "
+                             f"{ref_paths}")
+    mesh_layers = _mesh_layer_routes(mesh_routes, mesh, mcfg.num_layers)
+    flips, gap, last = _mesh_route_flips(ref_routes, mesh_layers,
+                                         MESH_MOE_BATCH, MOE_PREFILL_SEQ)
+    scale = want.float().abs().max()
+    row_err = [((got[r].float() - want[r].float()).abs().max()
+                / scale).item() for r in range(MESH_MOE_BATCH)]
+    held = [r for r in range(MESH_MOE_BATCH) if not last[r]]
+    moe_err = max((row_err[r] for r in held), default=None)
+    # the unmeshed dispatch once more, every layer routed as the mesh
+    # routed it: each row is held, and each routing difference is a tie
+    # of the router up to the rounding of its input
+    ties = []
+    with _forced_routes(mesh_layers, ties):
+        forced = two_blocks()
+    forced_err = ((got.float() - forced.float()).abs().max()
+                  / forced.float().abs().max()).item()
+    if len(ties) != mcfg.num_layers:
+        raise AssertionError(f"{len(ties)} forced routings for "
+                             f"{mcfg.num_layers} layers")
+    tie = max(t["below"] for t in ties)
+    moved = max(t["moved"] for t in ties)
+    m_held = _prefill_flash_held(mplaced, mcfg, {"tokens": toks}, mesh)
+    del ref_routes, mesh_routes
+    _sync(dev)
+    t0 = time.perf_counter()
+    again = lm.prefill(mplaced, mcfg, {"tokens": toks}, mesh=mesh)
+    _sync(dev)
+    moe_mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two_blocks()
+    _sync(dev)
+    moe_plain_s = time.perf_counter() - t0
+    if not torch.equal(again, got):
+        raise AssertionError("two meshed MoE prefills differ")
+    print(f"  {mcfg.name} {mcfg.num_layers} layers, prefill "
+          f"{MESH_MOE_BATCH} x {MOE_PREFILL_SEQ}: dispatch {paths} (2 blocks"
+          f" unmeshed: {ref_paths}), flash {routes}; mesh {moe_mesh_s:.4f} "
+          f"s, unmeshed {moe_plain_s:.4f} s; {mbytes['per_device'][0] / 2 ** 30:.3f}"
+          f" GiB of parameters a device; {flips} token-layers routed "
+          f"elsewhere (router probability gap <= {gap:.3g}); rows' max "
+          f"|diff| / max |logit| {[round(e, 5) for e in row_err]}, held "
+          f"rows {held} (a row whose last position flipped an expert is "
+          f"not held) {moe_err} (limit {MESH_MOE_TOL}); two meshed runs "
+          f"bit-equal  [{card.line}]", flush=True)
+    print(f"  unmeshed, routed as the mesh routed: max |diff| / max |logit| "
+          f"{forced_err:.3g} over every row (limit {MESH_MOE_TOL}); "
+          f"{[t['flips'] for t in ties]} tokens a layer where its own "
+          f"router differs, the mesh's weakest expert <= {tie:.3g} router-"
+          f"logit std below its k-th (limit {MESH_TIE_STD}); router logits "
+          f"moved <= {moved:.3g} std; flash on the meshed prefill's own "
+          f"inputs, {m_held['launches']} launches: max err "
+          f"{m_held['max_abs_err']:.3g}, worst row {m_held['worst_row']:.3g}"
+          f" (limit {ROW_TOL:.4g})  [{card.line}]", flush=True)
+    if moe_err is not None and not moe_err <= MESH_MOE_TOL:
+        raise AssertionError(f"meshed MoE prefill differs by {moe_err}")
+    if not forced_err <= MESH_MOE_TOL:
+        raise AssertionError(f"meshed MoE prefill differs from the unmeshed"
+                             f" one routed alike by {forced_err}")
+    if not tie <= MESH_TIE_STD:
+        raise AssertionError(f"the meshed MoE picked an expert {tie} "
+                             f"router-logit std below the k-th: {ties}")
+    if m_held["launches"] != mcfg.num_layers * mesh.size:
+        raise AssertionError(f"meshed MoE prefill flash inputs: {m_held}")
+    del mplaced, mparams, got, again, want, forced
+    wall = time.perf_counter() - t_phase
+    print(f"  lm mesh phase wall {wall:.2f} s  [{card.line}]", flush=True)
+    return dict(mesh=list(MESH_SHAPE), virtual=True, phase_wall_s=wall,
+                gemma=dict(arch=SERVE_ARCH, layers=cfg.num_layers,
+                           place_s=place_s, param_bytes=pbytes,
+                           allocated_bytes=alloc,
+                           prefill_batch=MESH_PREFILL_BATCH,
+                           prefill_seq=PREFILL_SEQ, prefill_s=mesh_s,
+                           prefill_plain_s=plain_s, prefill_err=prefill_err,
+                           prefill_same_top1=top1,
+                           prefill_peak_gib=mesh_peak,
+                           prefill_plain_peak_gib=plain_peak,
+                           resident_gib=resident,
+                           prefill_launches=g_counts,
+                           prefill_routes=g_routes, flash_held=g_held,
+                           decode_batch=DECODE_BATCH,
+                           decode_steps=DECODE_STEPS, decode_ms=dec_ms,
+                           decode_plain_ms=dec0_ms, decode_err=decode_err,
+                           decode_launches=dec_counts,
+                           cache_bytes=state_bytes),
+                moe=dict(arch=MOE_ARCH, layers=mcfg.num_layers,
+                         param_bytes=mbytes, batch=MESH_MOE_BATCH,
+                         seq=MOE_PREFILL_SEQ, dispatch=paths,
+                         dispatch_plain=ref_paths, prefill_s=moe_mesh_s,
+                         prefill_plain_s=moe_plain_s, flips=flips,
+                         max_gap=gap, row_err=row_err, held=held,
+                         err=moe_err, forced_err=forced_err, ties=ties,
+                         tie_std=tie, moved_std=moved, flash_held=m_held,
+                         launches=counts, routes=routes))
+
+
 def _peak_gb() -> float:
     import torch
     return torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4250,10 +4645,11 @@ def _want_flash(cfg, counts: dict, routes: dict, flash: int) -> None:
                              f"routes {routes}; want flash {flash} on sm90")
 
 
-def _prefill_flash_held(params, cfg, batch) -> dict:
-    """The prefill once more, untimed, each flash launch held against the
-    plain version on its very inputs (in row chunks) at 2e-2 and per row
-    within ROW_TOL of its scale -> launches, max error, worst row."""
+def _prefill_flash_held(params, cfg, batch, mesh=None) -> dict:
+    """The prefill (on ``mesh`` if given) once more, untimed, each flash
+    launch held against the plain version on its very inputs (in row
+    chunks) at 2e-2 and per row within ROW_TOL of its scale -> launches,
+    max error, worst row."""
     import torch
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import (
@@ -4275,7 +4671,7 @@ def _prefill_flash_held(params, cfg, batch) -> dict:
 
     flash_ops.flash_attention = held
     try:
-        lm.prefill(params, cfg, batch)
+        lm.prefill(params, cfg, batch, mesh=mesh)
     finally:
         flash_ops.flash_attention = kernel
     worst = max((r for _, r in errs), default=0.0)
@@ -4959,6 +5355,8 @@ def main(argv=None) -> int:
         shard_out = sharded_phase(card)
         serve_out = serving_phase()
         torch.cuda.empty_cache()
+        mesh_out = lm_mesh_phase(card)
+        torch.cuda.empty_cache()
         train_out = train_phase(card)
         fed_out = federated_phase(card)
         moe_out = moe_phase(card)
@@ -5019,6 +5417,21 @@ def main(argv=None) -> int:
                     k: fam_out[fam]["flash_held"][k] for k in (
                         "launches", "max_abs_err", "worst_row")}
                    for fam in ("jamba", "pixtral")},
+                launches_mesh_prefill=mesh_out["gemma"]["prefill_launches"][
+                    name],
+                launches_mesh_moe_prefill=mesh_out["moe"]["launches"][name],
+                mesh_shard_prefill={w: {k: flash["mesh"][w][k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err", "worst_row")}
+                    for w in SLICE_WINDOWS},
+                mesh_moe_shard_prefill={k: flash["mesh_moe"][k] for k in (
+                    "shape", "dtype", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "max_abs_err", "worst_row")},
+                **{f"{key}_inputs": {k: mesh_out[fam]["flash_held"][k]
+                                     for k in ("launches", "max_abs_err",
+                                               "worst_row")}
+                   for key, fam in (("mesh_prefill", "gemma"),
+                                    ("mesh_moe_prefill", "moe"))},
                 launches_train=train_out["launches"][name],
                 launches_train_long=train_out["long"]["launches"][name],
                 launches_launch_prefill=launch_out["prefill"]["launches"][
@@ -5110,7 +5523,8 @@ def main(argv=None) -> int:
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
-            serving=serve_out, train=train_out, federated=fed_out,
+            serving=serve_out, lm_mesh=mesh_out, train=train_out,
+            federated=fed_out,
             moe=moe_out, families=fam_out, launch=launch_out,
             lm_importance=lm_importance,
             summary=line_kernels),
@@ -5132,6 +5546,11 @@ def main(argv=None) -> int:
           "phase) rounds/s: " + ", ".join(
               f"{k} {v:.3f}" for k, v in shard_out["b"][
                   "rounds_per_s"].items())
+          + f"; LM mesh {MESH_SHAPE} prefill "
+          f"{mesh_out['gemma']['prefill_s']:.3f} s (unmeshed "
+          f"{mesh_out['gemma']['prefill_plain_s']:.3f}), "
+          f"decode {mesh_out['gemma']['decode_ms']:.2f} ms/token (unmeshed "
+          f"{mesh_out['gemma']['decode_plain_ms']:.2f})"
           + f"; LM train {train_out['s_per_step']:.4f} s/step, pods "
           f"{statistics.median(fed_out['s_per_round']):.4f} s/round, MoE "
           f"prefill {moe_out['prefill_s']:.4f} s, decode "

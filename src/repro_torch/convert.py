@@ -6,7 +6,9 @@ start from the JAX package's parameters hand them over as numpy arrays
 (``jax.device_get``) and convert here.  bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type) cross bit for bit; going back, bfloat16
 tensors come out as float32 arrays (exact) so no extension type is
-needed on this side.
+needed on this side.  :func:`lm_params_to_mesh` carries the JAX
+package's LM parameters onto an ``LMMesh``: every device gets its blocks
+of every leaf.
 """
 
 from __future__ import annotations
@@ -60,6 +62,14 @@ def lm_params_from_jax(numpy_tree, device: DeviceLike = None):
         if key not in numpy_tree:
             raise ValueError(f"not an LM parameter tree: no {key!r} entry")
     return to_torch(numpy_tree, device)
+
+
+def lm_params_to_mesh(numpy_tree, cfg, mesh):
+    """The JAX package's LM parameters placed on ``mesh`` (a
+    ``sharding.Placed``): :func:`lm_params_from_jax` on the host, then
+    each device's blocks under ``lm.param_pspecs`` copied to it."""
+    from repro_torch.models.lm import place_params
+    return place_params(lm_params_from_jax(numpy_tree, "cpu"), cfg, mesh)
 
 
 def train_state_from_jax(numpy_state, device: DeviceLike = None):

@@ -1,16 +1,20 @@
-"""Client meshes for the client-sharded round engines, and the named
-shape of the reference's production mesh.
+"""Device meshes: the client mesh of the client-sharded round engines,
+the LM's ``(data, model)`` mesh, and the named shape of the reference's
+production mesh.
 
 The JAX package shards the fleet's client axis over a 1-D ``clients``
-``jax.sharding.Mesh`` and runs each round's shards from one Python process
-(``shard_map``).  The port keeps that single-controller model: a
-:class:`ClientMesh` is a tuple of ``torch.device`` s, one per shard, and
+``jax.sharding.Mesh``, and the LM over a ``(data, model)`` mesh
+(``("pod", "data", "model")`` with pods), and runs every shard from one
+Python process (``shard_map`` and GSPMD).  The port keeps that
+single-controller model: a :class:`ClientMesh` is a tuple of
+``torch.device`` s, one per shard, an :class:`LMMesh` a grid of them, and
 one process drives every shard.  A mesh may repeat one device — virtual
 shards — so a one-card machine runs the whole multi-shard step (padding,
-per-shard partials, the compacted collective and its overflow) on its one
-card, as the JAX package's tests run P CPU devices with
-``--xla_force_host_platform_device_count``.  Rows of shards on distinct
-cards move with non-blocking copies.
+per-shard partials, the collectives) on its one card, as the JAX
+package's tests run P CPU devices with
+``--xla_force_host_platform_device_count``.  A mesh of virtual shards is
+only ever asked for by name (:meth:`LMMesh.virtual`); the host meshes
+use distinct cards.  Data of shards on distinct cards moves by copies.
 
 No constant here touches a device at import time.
 """
@@ -80,6 +84,81 @@ def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
     return ProductionMesh(("data", "model"), (16, 16))
 
 
+@dataclasses.dataclass(frozen=True)
+class LMMesh:
+    """The LM's device mesh: ``devices`` in row-major order over
+    ``axis_sizes``, named ``("data", "model")`` or ``("pod", "data",
+    "model")``.  Device ``k`` sits at ``coords(k)``; ``model`` is the
+    minor axis, so the devices of one model group (a *row*) are
+    consecutive.  Its names and sizes feed ``models.sharding.spec`` as a
+    :class:`ProductionMesh`'s do.  A device may repeat (virtual shards,
+    :meth:`virtual`)."""
+
+    devices: Tuple[torch.device, ...]
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    def __post_init__(self):
+        devs = tuple(torch.device(d) for d in self.devices)
+        sizes = tuple(int(n) for n in self.axis_sizes)
+        names = tuple(self.axis_names)
+        if names not in (("data", "model"), ("pod", "data", "model")):
+            raise ValueError(f"an LMMesh has axes ('data', 'model') or "
+                             f"('pod', 'data', 'model'); got {names}")
+        if len(sizes) != len(names) or min(sizes) < 1:
+            raise ValueError(f"axis sizes {sizes} for axes {names}")
+        if len(devs) != math.prod(sizes):
+            raise ValueError(f"{len(devs)} devices for a {sizes} mesh")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_sizes", sizes)
+        object.__setattr__(self, "axis_names", names)
+
+    @classmethod
+    def virtual(cls, device: DeviceLike, data: int, model: int,
+                pod: Optional[int] = None) -> "LMMesh":
+        """A mesh whose every shard is the one ``device``: the whole
+        multi-shard program on one card (or the CPU)."""
+        dev = resolve_device(device)
+        sizes = (data, model) if pod is None else (pod, data, model)
+        names = ("data", "model") if pod is None else ("pod", "data",
+                                                       "model")
+        return cls((dev,) * math.prod(sizes), sizes, names)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def n_model(self) -> int:
+        """Devices in a row: the size of the ``model`` axis."""
+        return self.axis_sizes[-1]
+
+    @property
+    def n_rows(self) -> int:
+        """Rows: the product of the ``pod`` and ``data`` axes."""
+        return self.size // self.n_model
+
+    def coords(self, k: int) -> dict:
+        """Device ``k``'s index along each axis."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names),
+                           reversed(self.axis_sizes)):
+            out[name] = k % n
+            k //= n
+        return out
+
+    def row(self, k: int) -> int:
+        return k // self.n_model
+
+    def col(self, k: int) -> int:
+        """Device ``k``'s index on the ``model`` axis."""
+        return k % self.n_model
+
+
 def _visible(device: DeviceLike) -> Tuple[torch.device, ...]:
     """The devices of ``device``'s type this run can use, in index order:
     every visible card for ``cuda``, the one CPU for ``cpu``."""
@@ -99,18 +178,17 @@ def _largest_divisor_leq(n: int, k: int) -> int:
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   device: DeviceLike = None) -> Tuple[Tuple[torch.device,
-                                                             ...], ...]:
-    """A small (data, model) grid of the visible devices, each axis size
-    clamped to a divisor of the device count so ``data * model`` tiles a
-    prefix of them exactly (asking for (3, 1) on 8 devices gives (2, 1)).
-    Returns the grid as rows of devices."""
+                   device: DeviceLike = None) -> LMMesh:
+    """A small (data, model) :class:`LMMesh` of the visible devices, each
+    axis size clamped to a divisor of the device count so ``data * model``
+    tiles a prefix of them exactly (asking for (3, 1) on 8 devices gives
+    (2, 1); a one-card host gives (1, 1)).  The counterpart of the JAX
+    package's ``make_host_mesh``."""
     devs = _visible(device)
     n = len(devs)
     data = _largest_divisor_leq(n, data)
     model = _largest_divisor_leq(n // data, model)
-    return tuple(tuple(devs[r * model:(r + 1) * model])
-                 for r in range(data))
+    return LMMesh(devs[:data * model], (data, model))
 
 
 def make_client_mesh(num_devices: Optional[int] = None,

@@ -4,9 +4,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_27b \
         --batch 4 --steps 32 [--device cpu]
 
-The counterpart of ``repro.launch.serve``, with its flags; the port runs
-on one card (``launch.dryrun`` accounts for the production meshes) and
-adds ``--device`` (default: cuda).  ``--reduced`` (the default)
+The counterpart of ``repro.launch.serve``, with its flags, and
+``--device`` (default: cuda).  ``--mesh D,M`` serves on a (data, model)
+``LMMesh`` of the visible cards, clamped as the JAX package's
+``make_host_mesh`` clamps; by default every card is on ``data`` (the JAX
+package's ``make_host_mesh(len(jax.devices()))``), so one card runs
+unmeshed.  ``--virtual`` asks for a mesh of that shape whose shards all
+sit on the one device (``LMMesh.virtual``).  On a mesh of several
+shards the dense and MoE families serve; the others raise
+``NotImplementedError`` (ROADMAP A19 item 3).  ``launch.dryrun``
+accounts for the production meshes.  ``--reduced`` (the default)
 picks the smoke-test variant of the architecture; ``--full-config`` the
 published one.  Every architecture of the registry serves: an enc-dec
 model (whisper) attends to the encoder's output over zero frames
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import LMMesh, make_host_mesh
 from repro_torch.models import lm
 
 
@@ -60,10 +68,11 @@ def build(arch: str, *, reduced: bool = True, num_layers: int = 0,
 
 def generate(params, cfg, state: lm.DecodeState, tok: torch.Tensor,
              steps: int, sampler=sample_greedy,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, mesh=None):
     """``steps`` serve steps from ``tok`` (B, 1), each fed the token sampled
-    from the last.  Returns (tokens (B, steps + 1), last logits, state)."""
-    serve = lm.make_serve_step(cfg)
+    from the last.  Returns (tokens (B, steps + 1), last logits, state).
+    On a ``mesh``, ``params`` and ``state`` are placed on it."""
+    serve = lm.make_serve_step(cfg, mesh)
     outs, logits = [tok], None
     for _ in range(steps):
         logits, state = serve(params, state, tok)
@@ -83,26 +92,46 @@ def main(argv=None):
     ap.add_argument("--sample", choices=("greedy", "topk"), default="topk")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="(data, model) mesh of the visible devices "
+                         "(default: every one on data)")
+    ap.add_argument("--virtual", action="store_true",
+                    help="put every shard of --mesh on the one device")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if args.virtual and not args.mesh:
+        ap.error("--virtual needs --mesh D,M")
+    if args.virtual:
+        mesh = LMMesh.virtual(dev, *map(int, args.mesh.split(",")))
+    elif args.mesh:
+        mesh = make_host_mesh(*map(int, args.mesh.split(",")), device=dev)
+    else:
+        n = torch.cuda.device_count() if dev.type == "cuda" else 1
+        mesh = make_host_mesh(n, 1, dev)
+    dev = mesh.devices[0]
     cfg, params, gen = build(args.arch, reduced=args.reduced, device=dev)
     cache_len = args.cache_len or args.steps + 8
     sampler = sample_topk if args.sample == "topk" else sample_greedy
+    on_mesh = mesh if mesh.size > 1 else None
+    if on_mesh is not None:
+        params = lm.place_params(params, cfg, mesh)
 
     enc = (torch.zeros((args.batch, 24, cfg.d_model), dtype=torch.bfloat16,
                        device=dev) if cfg.is_encdec else None)
     state = lm.init_decode_state(params, cfg, args.batch, cache_len,
-                                 enc_frames=enc)
+                                 enc_frames=enc, mesh=on_mesh)
     tok = torch.randint(0, cfg.vocab_size, (args.batch, 1), generator=gen,
                         device=dev, dtype=torch.int32)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    seq, _, _ = generate(params, cfg, state, tok, args.steps, sampler, gen)
+    seq, _, _ = generate(params, cfg, state, tok, args.steps, sampler, gen,
+                         mesh=on_mesh)
     seq = seq.cpu()                        # waits for the device
     dt = time.perf_counter() - t0
-    print(f"arch={cfg.name} device={dev} batch={args.batch} "
+    print(f"arch={cfg.name} device={dev} mesh={mesh.axis_sizes}"
+          f"{' virtual' if args.virtual else ''} batch={args.batch} "
           f"steps={args.steps} {dt / args.steps * 1e3:.1f} ms/token")
     print("request 0 token ids:", seq[0, :16].tolist(), "...")
     return seq

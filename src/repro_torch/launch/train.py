@@ -7,9 +7,12 @@ The counterpart of ``repro.launch.train``, with its flags, log lines,
 batch draws (``np.random.default_rng(0)`` over ``make_lm_dataset``; zero
 patch embeddings for a VLM, zero frames (B, 24, D) for enc-dec) and
 optimizer (``launch.specs.policy_for``: adafactor at 10x the learning
-rate where the policy says so, else AdamW).  The port runs on one card:
-the JAX package's production and host meshes have no counterpart here,
-and ``--device`` (default: cuda) picks the card or the CPU.
+rate where the policy says so, else AdamW).  The port trains on one
+card: the JAX package trains on its host or production mesh, and
+training on the port's ``LMMesh`` (FSDP gradients reduced over ``data``,
+the tensor-parallel backward) is ROADMAP A19 item 2; the mesh serves
+already (``launch.serve --mesh``).  ``--device`` (default: cuda) picks
+the card or the CPU.
 ``--num-layers`` cuts the depth, as ``launch.serve.build`` does.
 Checkpoints go through ``repro_torch.checkpoint.save_checkpoint``.
 """

@@ -10,7 +10,15 @@ The counterpart of ``repro.models.attention`` for the dense family:
   * decode: a single-token query against a static KV cache, ring-buffered
     for local layers,
   * cross-attention (enc-dec): decoder queries against the encoder
-    output, no mask and no rotary.
+    output, no mask and no rotary,
+  * head parallelism on a mesh (``self_attention_shard``,
+    ``decode_self_attention_shard``): a ``model`` shard projects its own
+    heads from its columns of ``wq``/``wk``/``wv`` (the weights are cut,
+    not q, so the flash kernel reads contiguous (B, S, H/M, hd) inputs),
+    attends, and projects out through its rows of ``wo``: a partial
+    (B, S, D) the caller sums over ``model``.  Where the kv heads do not
+    divide by the axis they are replicated, and a shard reads exactly the
+    kv heads its q heads map to.
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).  Matmuls run in
 the compute dtype, the softmax in fp32.  At ``s >= FLASH_MIN_SEQ`` the
@@ -30,7 +38,7 @@ causal and local modes route by what the call needs:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -244,10 +252,13 @@ class KVCache(NamedTuple):
 
 
 def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor,
-                          cache: KVCache, pos: int, *, mode: str
+                          cache: KVCache, pos: int, *, mode: str,
+                          kv_read: Optional[List[int]] = None
                           ) -> Tuple[torch.Tensor, KVCache]:
     """One-token decode.  x: (B, 1, D); pos: the current position (a host
-    int).  Returns (output (B, 1, D), the cache, updated in place)."""
+    int).  Returns (output (B, 1, D), the cache, updated in place).
+    ``kv_read``: the cache's kv heads the queries read (a head-parallel
+    shard of a replicated cache), all of them by default."""
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     c = cache.k.shape[1]
@@ -264,8 +275,68 @@ def decode_self_attention(p, cfg: ModelConfig, x: torch.Tensor,
     else:
         valid = (idx <= pos)[None, :]
     mask = valid[:, None, :]                      # (1, sq=1, C)
-    out = _sdpa(q, cache.k.to(q.dtype), cache.v.to(q.dtype), mask)
+    k, v = cache.k, cache.v
+    if kv_read is not None:
+        idx = torch.tensor(kv_read, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    out = _sdpa(q, k.to(q.dtype), v.to(q.dtype), mask)
     return _out_proj(out, p["wo"]), cache
+
+
+# ---------------------------------------------------- head parallelism -----
+
+def _kv_read(lo: int, h_l: int, group: int) -> List[int]:
+    """The kv heads q heads [lo, lo + h_l) read (q head h reads h //
+    group): each once where they serve equal runs of the local q heads
+    (a local GQA group), else one per q head (local MHA)."""
+    idx = [h // group for h in range(lo, lo + h_l)]
+    uniq = sorted(set(idx))
+    per = h_l // len(uniq)
+    if h_l % len(uniq) == 0 and idx == [uniq[i // per] for i in range(h_l)]:
+        return uniq
+    return idx
+
+
+def _shard_heads(p, cfg: ModelConfig, j: int):
+    """Shard ``j``'s view of its attention weights ``p`` (``wq`` cut to
+    its heads, ``wk``/``wv`` to its kv heads or whole): (the kv heads it
+    reads from the whole kv set, or None where they are cut with the
+    heads; whether its output is a partial sum).  The head dim and every
+    other setting of ``cfg`` hold per shard as they are."""
+    h, hkv = cfg.num_heads, cfg.num_kv_heads
+    h_l, hkv_l = p["wq"].shape[-2], p["wk"].shape[-2]
+    if h_l == h:
+        return None, False
+    if hkv_l < hkv:
+        return None, True
+    return _kv_read(j * h_l, h_l, h // hkv), True
+
+
+def self_attention_shard(p, cfg: ModelConfig, x: torch.Tensor, j: int, *,
+                         mode: str, window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, bool]:
+    """Model shard ``j`` of a head-parallel ``self_attention``: (its
+    output, whether that is a partial sum over ``model``)."""
+    kv_read, partial = _shard_heads(p, cfg, j)
+    if kv_read is not None:
+        idx = torch.tensor(kv_read, device=p["wk"].device)
+        p = dict(p, wk=p["wk"].index_select(-2, idx),
+                 wv=p["wv"].index_select(-2, idx))
+    return self_attention(p, cfg, x, mode=mode, window=window), partial
+
+
+def decode_self_attention_shard(p, cfg: ModelConfig, x: torch.Tensor,
+                                cache: KVCache, pos: int, j: int, *,
+                                mode: str
+                                ) -> Tuple[torch.Tensor, KVCache, bool]:
+    """Model shard ``j`` of a head-parallel decode step on its block of
+    the cache (its kv heads, or all of them where they are replicated:
+    then it writes every kv head, as each device of a real mesh does, and
+    reads those of its q heads).  Returns (output, cache, partial)."""
+    kv_read, partial = _shard_heads(p, cfg, j)
+    y, cache = decode_self_attention(p, cfg, x, cache, pos, mode=mode,
+                                     kv_read=kv_read)
+    return y, cache, partial
 
 
 # ------------------------------------------------------- cross-attention ---

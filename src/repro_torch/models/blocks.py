@@ -25,6 +25,17 @@ grad mode and so the attention route are the same in the recompute),
 the counterpart of ``jax.checkpoint(superblock)``; the JAX package's
 grouped checkpointing is off by default there (its env override is for
 analysis only) and is not ported.
+
+On an ``LMMesh`` (``apply_stack_mesh``, ``apply_stack_decode_mesh``)
+every device runs its share of each layer from its placed blocks
+(``models.sharding``): the layer's blocks gathered over the data axes
+just before use, the norms and residuals whole on every device of a row
+(replicated over ``model``), the attention heads, the MLP's hidden
+units and the experts cut over ``model``, and the row-parallel partials
+summed over ``model``.  A block replicated over ``data`` (a batch that
+does not divide) is computed on every device that holds it, as a real
+mesh does.  The dense and MoE families run there; the recurrent mixers,
+cross-attention and the VLM prefix on a mesh are ROADMAP A19 item 3.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
-from repro_torch.models import attention, layers, mlp, moe, ssm, xlstm
+from repro_torch.models import (attention, layers, mlp, moe, sharding, ssm,
+                                xlstm)
 from repro_torch.models.config import BlockSpec, ModelConfig, split_layout
 
 ATTN_MIXERS = ("attn", "attn_local")
@@ -281,3 +293,146 @@ def apply_stack_decode(params: Dict, cfg: ModelConfig, plan: StackPlan,
                                     view, pos, enc=enc)
         _store(view, new)
     return x, state
+
+
+# ------------------------------------------------------------ on a mesh ----
+
+@dataclasses.dataclass(frozen=True)
+class MeshBatch:
+    """Where a meshed pass's (B, S, D) activations lie: the mesh, the spec
+    of the residual stream (batch over the data axes where it divides),
+    and each device's rows of the B * S global tokens."""
+
+    mesh: Any
+    spec: Tuple
+    ranges: Tuple[Tuple[int, int], ...]
+    tokens: int
+
+    @staticmethod
+    def of(mesh, b: int, s: int, d: int) -> "MeshBatch":
+        spec = sharding.spec("batch", "seq", None, shape=(b, s, d),
+                             mesh=mesh)
+        ranges = tuple((lo * s, hi * s) for lo, hi in (
+            sharding.block_range(spec[0], mesh, k, b)
+            for k in range(mesh.size)))
+        return MeshBatch(mesh, spec, ranges, b * s)
+
+
+def _stacked_spec(specs):
+    """A stacked layer's specs without the leading ``layers`` entry."""
+    return tree.tree_map(lambda sp: sp[1:], specs)
+
+
+def _layer(placed: "sharding.Placed", key: str, idx: Optional[int]):
+    """Every device's blocks of one layer of the stack, and their specs."""
+    group = "super" if idx is not None else "rem"
+    shards = [sh[group][key] for sh in placed.shards]
+    specs = placed.specs[group][key]
+    if idx is None:
+        return shards, specs
+    return [_slice(sh, idx) for sh in shards], _stacked_spec(specs)
+
+
+def _local(shards, specs, name: str, mesh, k: int):
+    """Device k's ``name`` subtree of a layer, gathered over the data
+    axes."""
+    return sharding.local_tree([sh[name] for sh in shards], specs[name],
+                               mesh, k)
+
+
+def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
+                mb: MeshBatch, *, mode: str = "causal", states=None,
+                pos: int = 0):
+    """One layer on the mesh: prefill (``states`` None) or one decode
+    step on every device's block of its cache.  Returns (xs, aux)."""
+    mesh = mb.mesh
+    if spec.mixer not in ATTN_MIXERS or spec.cross_attention:
+        raise NotImplementedError(
+            f"the {spec.mixer} mixer{' with cross-attention' if spec.cross_attention else ''}"
+            f" on a mesh is ROADMAP A19 item 3")
+    ys, partial = [], False
+    for k in range(mesh.size):
+        norm = _local(shards, specs, "pre_norm", mesh, k)
+        h = layers.apply_norm(norm, xs[k], cfg.norm)
+        p = _local(shards, specs, "mixer", mesh, k)
+        if states is None:
+            y, partial = attention.self_attention_shard(
+                p, cfg, h, mesh.col(k), mode=_attn_mode(spec, mode),
+                window=spec.window)
+        else:
+            y, _, partial = attention.decode_self_attention_shard(
+                p, cfg, h, states[k], pos, mesh.col(k),
+                mode=_attn_mode(spec, "causal"))
+        ys.append(y)
+        del p
+    if partial:
+        ys = sharding.psum_model(ys, mesh)
+    xs = [x + y for x, y in zip(xs, ys)]
+    aux = None
+    if spec.ff == "dense":
+        ys = []
+        for k in range(mesh.size):
+            h = layers.apply_norm(_local(shards, specs, "post_norm", mesh, k),
+                                  xs[k], cfg.norm)
+            p = _local(shards, specs, "ff", mesh, k)
+            partial = p["w_up"].shape[-1] < cfg.d_ff
+            ys.append(mlp.apply_mlp(p, h, cfg.activation))
+            del p
+        if partial:
+            ys = sharding.psum_model(ys, mesh)
+        xs = [x + y for x, y in zip(xs, ys)]
+    elif spec.ff == "moe":
+        hs, ps = [], []
+        for k in range(mesh.size):
+            h = layers.apply_norm(_local(shards, specs, "post_norm", mesh, k),
+                                  xs[k], cfg.norm)
+            hs.append(h.reshape(-1, h.shape[-1]))
+            ps.append(_local(shards, specs, "ff", mesh, k))
+        ys, aux = moe.apply_moe_mesh(ps, hs, mb.ranges, mb.tokens, cfg.moe,
+                                     cfg.activation, mesh,
+                                     specs["ff"]["w_up"][0])
+        del ps
+        xs = [x + y.view(x.shape) for x, y in zip(xs, ys)]
+    elif spec.ff != "none":
+        raise ValueError(spec.ff)
+    return xs, aux
+
+
+def apply_stack_mesh(placed: "sharding.Placed", cfg: ModelConfig,
+                     plan: StackPlan, xs, mb: MeshBatch, *,
+                     mode: str = "causal"):
+    """``apply_stack`` on the mesh (inference only: no remat, no grad):
+    ``placed`` the stack's placed parameters, ``xs`` every device's
+    (B_k, S, D) residual.  Returns (xs, total moe_aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=mb.mesh.devices[0])
+    for i in range(plan.n_super):
+        for pi, spec in enumerate(plan.period):
+            shards, specs = _layer(placed, f"p{pi}", i)
+            xs, a = _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+            if a is not None:
+                aux = aux + a
+    for ri, spec in enumerate(plan.remainder):
+        shards, specs = _layer(placed, f"r{ri}", None)
+        xs, a = _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+        if a is not None:
+            aux = aux + a
+    return xs, aux
+
+
+def apply_stack_decode_mesh(placed: "sharding.Placed", cfg: ModelConfig,
+                            plan: StackPlan, xs, state: "sharding.Placed",
+                            pos: int, mb: MeshBatch):
+    """One decode step through the stack on the mesh; every device's
+    block of every cache (``state.shards[k]``) is written in place."""
+    for i in range(plan.n_super):
+        for pi, spec in enumerate(plan.period):
+            shards, specs = _layer(placed, f"p{pi}", i)
+            views = [_slice(st["super"][f"p{pi}"], i) for st in state.shards]
+            xs, _ = _mesh_block(shards, specs, cfg, spec, xs, mb,
+                                states=views, pos=pos)
+    for ri, spec in enumerate(plan.remainder):
+        shards, specs = _layer(placed, f"r{ri}", None)
+        views = [st["rem"][f"r{ri}"] for st in state.shards]
+        xs, _ = _mesh_block(shards, specs, cfg, spec, xs, mb, states=views,
+                            pos=pos)
+    return xs

@@ -13,6 +13,12 @@ must start from the JAX package's weights carry them over with
 ``lead`` prepends axes to every parameter an init makes: the stack draws
 the parameters of one period position for all ``n_super`` super-blocks at
 once, stacked as the JAX package's ``vmap`` stacks them.
+
+On a mesh the embedding is vocab-parallel (``vocab`` over ``model``):
+:func:`embed_tokens_shard` looks up a shard's own rows of the table and
+writes zeros for the rest (the partials sum over ``model`` to the
+lookup, exactly), and :func:`unembed` on a shard's rows gives its slice
+of the fp32 logits, soft-capped per shard.
 """
 
 from __future__ import annotations
@@ -88,6 +94,17 @@ def embed_tokens(p, tokens: torch.Tensor, *, scale: bool = False
         x = x * torch.tensor(math.sqrt(p["table"].shape[1]), dtype=x.dtype,
                              device=x.device)
     return x
+
+
+def embed_tokens_shard(p, tokens: torch.Tensor, lo: int, *,
+                       scale: bool = False) -> torch.Tensor:
+    """A vocab shard's partial lookup: ``p["table"]`` holds vocab rows
+    [lo, lo + V_l); tokens outside them get zeros."""
+    v_l = p["table"].shape[0]
+    mine = (tokens >= lo) & (tokens < lo + v_l)
+    x = embed_tokens(p, torch.where(mine, tokens - lo, 0), scale=scale)
+    return torch.where(mine[..., None], x, torch.zeros(
+        (), dtype=x.dtype, device=x.device))
 
 
 def unembed(p, x: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:

@@ -27,6 +27,20 @@ a whole train state.  ``forward`` and ``loss_fn`` are differentiable
 (``launch/dryrun.py``): the forward pass, keeping the last position's
 logits; it and the serve step run under ``torch.inference_mode``.
 
+On a ``(data, model)`` mesh (``launch.mesh.LMMesh``), ``forward``,
+``prefill``, ``init_decode_state`` and ``make_serve_step`` take
+``mesh=`` and parameters placed on it (:func:`place_params`, or
+``convert.lm_params_to_mesh`` from the JAX package's): every device runs
+its share from one process (``blocks.apply_stack_mesh``), with the batch
+over the data axes where it divides, the embedding and the logits
+vocab-parallel, and the KV caches per device as
+:func:`decode_state_pspecs` gives them (batch over data, kv heads over
+model), written in place.  The returned logits are gathered on the
+mesh's first device.  A one-device mesh runs the unmeshed code on its
+device.  The dense and MoE families serve on a mesh; the others raise
+``NotImplementedError`` there (ROADMAP A19 item 3), and training on a
+mesh is A19 item 2.
+
 For the dry-run (``launch/dryrun.py``): ``abstract_params``,
 ``abstract_train_state`` and ``abstract_decode_state`` build the same
 trees on the ``meta`` device (shapes and dtypes, no data), and
@@ -146,11 +160,17 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return layers.unembed(head, x, softcap=cfg.logits_softcap)
 
 
-def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S_text, V) fp32, moe_aux 0-d fp32): VLM logits
     cover the text positions only.  Differentiable; ``remat`` recomputes
-    each super-block in the backward pass."""
+    each super-block in the backward pass.  On a ``mesh`` (``params``
+    placed on it) it runs without autograd."""
+    if _meshed(params, cfg, mesh):
+        with torch.no_grad():
+            xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"])
+            return _logits_mesh(params, cfg, xs, mb), aux
+    params = _unwrap(params)
     x, aux = _decoder(params, cfg, batch, remat)
     return _logits(params, cfg, x), aux
 
@@ -249,16 +269,106 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
 
 
 @torch.inference_mode()
-def prefill(params, cfg: ModelConfig, batch: Dict) -> torch.Tensor:
+def prefill(params, cfg: ModelConfig, batch: Dict, mesh=None
+            ) -> torch.Tensor:
     """The last position's logits (B, V) fp32 of ``forward``.
 
     The final norm and the unembedding run on that position only: the
     same numbers as ``forward(...)[0][:, -1]``, without (B, S, V) fp32
     logits (34 GB at S = 32768 for a 262k vocabulary).  ``batch`` is
     ``forward``'s (``patch_embeds``, ``enc_frames`` where the family
-    takes them)."""
-    x, _ = _decoder(params, cfg, batch)
-    return _logits(params, cfg, x[:, -1])
+    takes them).  On a ``mesh``, ``params`` are placed on it."""
+    if _meshed(params, cfg, mesh):
+        xs, mb, _ = _decoder_mesh(params, cfg, batch["tokens"])
+        return _logits_mesh(params, cfg, [x[:, -1] for x in xs], mb)
+    x, _ = _decoder(_unwrap(params), cfg, batch)
+    return _logits(_unwrap(params), cfg, x[:, -1])
+
+
+# ------------------------------------------------------------ on a mesh ----
+
+def place_params(params, cfg: ModelConfig, mesh) -> sharding.Placed:
+    """``params`` cut into every device's blocks under
+    :func:`param_pspecs` and copied to them."""
+    return sharding.place(params, param_pspecs(cfg, params, mesh), mesh)
+
+
+def _unwrap(tree_or_placed):
+    """The tree of a one-device placement, or the tree itself."""
+    if isinstance(tree_or_placed, sharding.Placed):
+        return tree_or_placed.shards[0]
+    return tree_or_placed
+
+
+def _meshed(params, cfg: ModelConfig, mesh) -> bool:
+    """Whether a call runs the meshed path (a mesh of several devices):
+    checks that ``params`` are placed on ``mesh`` and that the family
+    runs on a mesh."""
+    if mesh is None:
+        if isinstance(params, sharding.Placed):
+            raise TypeError("placed parameters need their mesh= as well")
+        return False
+    if not isinstance(params, sharding.Placed) or params.mesh != mesh:
+        raise TypeError("on a mesh, pass the parameters placed on it "
+                        "(lm.place_params or convert.lm_params_to_mesh)")
+    if mesh.size == 1:
+        return False
+    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
+        raise NotImplementedError(
+            f"the {cfg.family} family on a mesh of several devices is "
+            f"ROADMAP A19 item 3")
+    return True
+
+
+def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig,
+                  tokens: torch.Tensor, state=None):
+    """Every device's residual stream after the stack: the prefill
+    (``state`` None) or one decode step on ``state`` (its caches written
+    in place).  Returns (xs, the MeshBatch, moe_aux)."""
+    mesh = params.mesh
+    b, s = tokens.shape
+    mb = blocks.MeshBatch.of(mesh, b, s, cfg.d_model)
+    toks = sharding.split(tokens, mb.spec[:2], mesh)
+    parts, partial = [], False
+    for k in range(mesh.size):
+        p = sharding.local_tree([sh["embed"] for sh in params.shards],
+                                params.specs["embed"], mesh, k)
+        v_l = p["table"].shape[0]
+        partial = v_l < cfg.vocab_size
+        lo = mesh.col(k) * v_l if partial else 0
+        parts.append(layers.embed_tokens_shard(p, toks[k], lo,
+                                               scale=cfg.embed_scale))
+    if partial:
+        parts = sharding.psum_model(parts, mesh)
+    xs = [x.to(_dtype(cfg)) for x in parts]
+    stack = sharding.Placed(mesh, params.specs["stack"],
+                            tuple(sh["stack"] for sh in params.shards))
+    if state is None:
+        xs, aux = blocks.apply_stack_mesh(stack, cfg, plan_for(cfg), xs, mb)
+    else:
+        xs = blocks.apply_stack_decode_mesh(stack, cfg, plan_for(cfg), xs,
+                                            state.stack, state.pos, mb)
+        aux = None
+    return xs, mb, aux
+
+
+def _logits_mesh(params: sharding.Placed, cfg: ModelConfig, xs,
+                 mb: "blocks.MeshBatch") -> torch.Tensor:
+    """The final norm and the vocab-parallel unembedding on every device,
+    the fp32 logits gathered on the mesh's first device."""
+    mesh = params.mesh
+    head = "lm_head" if "lm_head" in params.specs else "embed"
+    parts = []
+    for k in range(mesh.size):
+        norm = sharding.local_tree([sh["final_norm"] for sh in params.shards],
+                                   params.specs["final_norm"], mesh, k)
+        p = sharding.local_tree([sh[head] for sh in params.shards],
+                                params.specs[head], mesh, k)
+        x = layers.apply_norm(norm, xs[k], cfg.norm)
+        parts.append(layers.unembed(p, x, softcap=cfg.logits_softcap))
+    lspec = (mb.spec[0],) + (None,) * (parts[0].dim() - 2) + (
+        params.specs[head]["table"][0],)
+    return sharding.unsplit(parts, lspec, mesh)
 
 
 # ----------------------------------------------------------- serve step ----
@@ -271,11 +381,19 @@ class DecodeState(NamedTuple):
 
 def init_decode_state(params, cfg: ModelConfig, batch_size: int,
                       cache_len: int,
-                      enc_frames: Optional[torch.Tensor] = None
-                      ) -> DecodeState:
+                      enc_frames: Optional[torch.Tensor] = None,
+                      mesh=None) -> DecodeState:
     """Empty states on the parameters' device; for enc-dec, the encoder
     run once over ``enc_frames`` (B, S_enc, D), whose output every step
-    attends to."""
+    attends to.  On a ``mesh``, the stack is a ``sharding.Placed`` of
+    every device's blocks under :func:`decode_state_pspecs`, each
+    allocated on its device."""
+    if _meshed(params, cfg, mesh):
+        shapes = blocks.init_stack_state(cfg, plan_for(cfg), batch_size,
+                                         cache_len, _dtype(cfg), META)
+        return DecodeState(stack=sharding.zeros(
+            shapes, decode_state_pspecs(cfg, shapes, mesh), mesh), pos=0)
+    params = _unwrap(params)
     dev = params["embed"]["table"].device
     st = blocks.init_stack_state(cfg, plan_for(cfg), batch_size, cache_len,
                                  _dtype(cfg), dev)
@@ -288,16 +406,24 @@ def init_decode_state(params, cfg: ModelConfig, batch_size: int,
     return DecodeState(stack=st, pos=0, enc=enc)
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None):
     """serve_step(params, state, tokens (B, 1)) -> (logits (B, V), state).
 
     The states are written in place: the returned state holds the same
     tensors as the one passed in, with ``pos`` advanced by one.  VLM
-    decode is text only; enc-dec adds the sinusoid of ``pos``."""
+    decode is text only; enc-dec adds the sinusoid of ``pos``.  On a
+    ``mesh``, ``params`` and the state are placed on it and the logits
+    come back gathered on its first device."""
     plan = plan_for(cfg)
 
     @torch.inference_mode()
     def serve_step(params, state: DecodeState, tokens: torch.Tensor):
+        if _meshed(params, cfg, mesh):
+            xs, mb, _ = _decoder_mesh(params, cfg, tokens, state)
+            logits = _logits_mesh(params, cfg, [x[:, 0] for x in xs], mb)
+            return logits, DecodeState(stack=state.stack,
+                                       pos=state.pos + 1)
+        params = _unwrap(params)
         x = _embed(params, cfg, tokens)
         if cfg.is_encdec:
             x = x + layers.sinusoid_at(state.pos, cfg.d_model,

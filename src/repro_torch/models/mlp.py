@@ -2,6 +2,10 @@
 
 The counterpart of ``repro.models.mlp``.  ``gelu`` and ``geglu`` use the
 tanh approximation, which is what ``jax.nn.gelu`` computes by default.
+On a mesh (``blocks._mesh_block``) :func:`apply_mlp` runs on a ``model``
+shard's columns of ``w_up``/``w_gate`` and rows of ``w_down`` (the
+``mlp`` axis): its output is that shard's partial sum, summed over
+``model`` once.
 """
 
 from __future__ import annotations

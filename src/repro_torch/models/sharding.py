@@ -1,14 +1,26 @@
-"""Logical-axis sharding rules, as shapes: the counterpart of
-``repro.models.sharding`` without a partitioner.
+"""Logical-axis sharding rules, and the placement of trees on a mesh:
+the counterpart of ``repro.models.sharding``.
 
 Every parameter and state leaf carries *logical* axis names; a rules
-table maps them to the axes of a mesh (``launch.mesh.ProductionMesh``,
-``("data", "model")`` per pod with an optional leading ``"pod"``).  The
-JAX package hands the resulting ``PartitionSpec`` s to XLA's SPMD
-partitioner.  The port runs on one card and has no partitioner, so a
-spec here is only what the per-device accounting needs: a tuple with one
-entry per dimension (``None``, a mesh-axis name, or a tuple of names),
-and :func:`local_shape`, the block of a leaf one device holds under it.
+table maps them to the axes of a mesh (``launch.mesh.LMMesh`` or the
+named ``ProductionMesh``: ``("data", "model")`` per pod with an optional
+leading ``"pod"``).  A spec is a tuple with one entry per dimension
+(``None``, a mesh-axis name, or a tuple of names, the first the major
+one), and :func:`local_shape` the block of a leaf one device holds under
+it.
+
+The JAX package hands its ``PartitionSpec`` s to XLA's SPMD partitioner
+through ``shard()`` and ``named_sharding``.  The port has no
+partitioner; its twin of them is explicit placement on an ``LMMesh``:
+:func:`place` cuts every leaf into the blocks its spec gives each device
+and copies each block to its device (a :class:`Placed` tree),
+:func:`gather` puts the blocks back together, :func:`local_tree` gathers
+a layer's blocks over the non-``model`` axes just before use (the
+all-gather GSPMD inserts for FSDP-sharded fan-in), and
+:func:`psum_model` sums a row's partial results over ``model`` in a fixed
+order on the row's first device (the all-reduce after a row-parallel
+matmul).  The model's meshed paths (``models.lm`` with ``mesh=``) run
+every device's share from one process with these.
 
 Default rules (MaxText-style FSDP + TP), the reference's:
 
@@ -21,13 +33,16 @@ Default rules (MaxText-style FSDP + TP), the reference's:
   kv_heads  -> "model"
   seq, layers, conv, state, ...    -> replicated
 
-The reference's ``shard()`` and ``named_sharding`` have no twin: on one
-card they are the identity, and no torch op consumes a spec.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch import tree as tree_mod
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -124,6 +139,16 @@ def spec(*logical_axes: Optional[str],
     return tuple(out)
 
 
+def n_shards(logical: Optional[str], mesh) -> int:
+    """The product of the sizes of the mesh axes the rules map ``logical``
+    to (whether or not they divide a dimension)."""
+    sizes = _axis_sizes(mesh)
+    n = 1
+    for a in _axes(_rules.get(logical)):
+        n *= sizes.get(a, 1)
+    return n
+
+
 def _shards(entry: Entry, mesh) -> int:
     """How many blocks one spec entry cuts its dimension into."""
     sizes = _axis_sizes(mesh)
@@ -148,3 +173,208 @@ def local_shape(shape: Sequence[int], spec_: Spec, mesh
                              f"({e})")
         out.append(d // n)
     return tuple(out)
+
+
+# ------------------------------------------------------------ placement ----
+
+def _axes(entry: Entry) -> Tuple[str, ...]:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def _position(entry: Entry, coords: Dict[str, int], sizes: Dict[str, int],
+              over: Sequence[str]) -> Tuple[int, int]:
+    """(block index, block count) of a dimension under ``entry`` at
+    ``coords``, counting only the mesh axes in ``over`` (the first axis of
+    the entry is the major one, as in a ``PartitionSpec``)."""
+    pos, n = 0, 1
+    for a in _axes(entry):
+        if a in over:
+            pos = pos * sizes[a] + coords[a]
+            n *= sizes[a]
+    return pos, n
+
+
+def block_range(entry: Entry, mesh, k: int, n: int) -> Tuple[int, int]:
+    """The slice [lo, hi) of a dimension of ``n`` device ``k`` holds under
+    ``entry``."""
+    pos, c = _position(entry, mesh.coords(k), _axis_sizes(mesh),
+                       mesh.axis_names)
+    if n % c:
+        raise ValueError(f"dim {n} does not split into {c} blocks ({entry})")
+    return pos * (n // c), (pos + 1) * (n // c)
+
+
+def _block(t: torch.Tensor, spec_: Spec, mesh, k: int) -> torch.Tensor:
+    """Device ``k``'s block of ``t`` under ``spec_`` (a view)."""
+    if len(spec_) != t.dim():
+        raise ValueError(f"spec {spec_} for a rank-{t.dim()} leaf")
+    sizes, coords = _axis_sizes(mesh), mesh.coords(k)
+    idx = []
+    for d, e in zip(t.shape, spec_):
+        pos, n = _position(e, coords, sizes, mesh.axis_names)
+        if d % n:
+            raise ValueError(f"dim {d} does not split into {n} blocks ({e})")
+        idx.append(slice(pos * (d // n), (pos + 1) * (d // n)))
+    return t[tuple(idx)]
+
+
+def split(t: torch.Tensor, spec_: Spec, mesh) -> List[torch.Tensor]:
+    """Each device's block of an activation, on its device (a view where
+    the block already lies there: inputs are read, never written)."""
+    return [_block(t, spec_, mesh, k).to(mesh.devices[k])
+            for k in range(mesh.size)]
+
+
+def assemble(blocks: Sequence, spec_: Spec, mesh, ks: Sequence[int],
+             over: Sequence[str], device) -> torch.Tensor:
+    """The tensor the blocks of devices ``ks`` make along the mesh axes
+    ``over`` (other axes stay cut), on ``device``.  Devices holding the
+    same block (replicated) are read once; a single block needing no
+    assembly is returned as it is when it lies on ``device``."""
+    sizes = _axis_sizes(mesh)
+    first = blocks[ks[0]]
+    counts = [_position(e, mesh.coords(ks[0]), sizes, over)[1]
+              for e in spec_]
+    if all(n == 1 for n in counts):
+        return first.to(device)
+    out = torch.empty([d * n for d, n in zip(first.shape, counts)],
+                      dtype=first.dtype, device=device)
+    seen = set()
+    for k in ks:
+        coords = mesh.coords(k)
+        pos = tuple(_position(e, coords, sizes, over)[0] for e in spec_)
+        if pos in seen:
+            continue
+        seen.add(pos)
+        blk = blocks[k]
+        out[tuple(slice(p * d, (p + 1) * d)
+                  for p, d in zip(pos, blk.shape))].copy_(blk)
+    return out
+
+
+def unsplit(blocks: Sequence[torch.Tensor], spec_: Spec, mesh,
+            device=None) -> torch.Tensor:
+    """The inverse of :func:`split`: the whole tensor on ``device`` (the
+    mesh's first device by default)."""
+    return assemble(blocks, spec_, mesh, range(mesh.size), mesh.axis_names,
+                    mesh.devices[0] if device is None else device)
+
+
+def _paired(tree, specs) -> List[Tuple[Any, Spec]]:
+    """``(leaf, spec)`` pairs of ``tree`` and its spec tree, in
+    ``tree.named_leaves`` order; the two trees must name the same
+    leaves."""
+    a, b = list(tree_mod.named_leaves(tree)), list(
+        tree_mod.named_leaves(specs))
+    if [n for n, _ in a] != [n for n, _ in b]:
+        raise ValueError("specs do not match the tree")
+    return [(t, sp) for (_, t), (_, sp) in zip(a, b)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A tree placed on an ``LMMesh``: ``shards[k]`` is the tree of blocks
+    device ``k`` holds, each leaf's block cut by its entry in ``specs``
+    (a tree of the same structure, walked as ``tree.named_leaves``
+    walks: dicts, lists and named tuples)."""
+
+    mesh: Any
+    specs: Any
+    shards: Tuple[Any, ...]
+
+
+def place(tree, specs, mesh) -> Placed:
+    """Cut every tensor leaf of ``tree`` into the block ``specs`` gives
+    each device of ``mesh`` and copy it there: every device holds fresh
+    storage for its blocks, as a real mesh does, also where devices
+    repeat.  Host scalars are handed to every device as they are."""
+    pairs = _paired(tree, specs)
+    shards = []
+    for k, dev in enumerate(mesh.devices):
+        out = []
+        for t, sp in pairs:
+            if isinstance(t, torch.Tensor):
+                blk = _block(t, sp, mesh, k)
+                t = torch.empty(blk.shape, dtype=blk.dtype,
+                                device=dev).copy_(blk)
+            out.append(t)
+        shards.append(tree_mod.unflatten_named(tree, out))
+    return Placed(mesh, specs, tuple(shards))
+
+
+def gather(placed: Placed, device=None):
+    """The inverse of :func:`place`: the whole tree on ``device`` (the
+    mesh's first device by default), bit for bit."""
+    mesh = placed.mesh
+    dev = mesh.devices[0] if device is None else device
+    per_dev = [_paired(s, placed.specs) for s in placed.shards]
+    out = []
+    for i, (_, sp) in enumerate(per_dev[0]):
+        blocks = [ps[i][0] for ps in per_dev]
+        out.append(unsplit(blocks, sp, mesh, dev)
+                   if isinstance(blocks[0], torch.Tensor) else blocks[0])
+    return tree_mod.unflatten_named(placed.shards[0], out)
+
+
+def local_tree(shards: Sequence, specs, mesh, k: int):
+    """What device ``k`` computes with: each leaf of its subtree
+    ``shards[k]`` gathered over the non-``model`` axes from the devices
+    of its model column (FSDP fan-in all-gathered just before use), so
+    only the ``model``-sharded dims stay cut.  A leaf cut by no other axis
+    is device ``k``'s own block, not a copy."""
+    over = tuple(a for a in mesh.axis_names if a != "model")
+    col = [i for i in range(mesh.size) if mesh.col(i) == mesh.col(k)]
+    col = [k] + [i for i in col if i != k]     # read its own block first
+    per_dev = {i: _paired(shards[i], specs) for i in col}
+    out = []
+    for n, (_, sp) in enumerate(per_dev[k]):
+        blocks = {i: per_dev[i][n][0] for i in col}
+        out.append(assemble(blocks, sp, mesh, col, over, mesh.devices[k])
+                   if isinstance(blocks[k], torch.Tensor) else blocks[k])
+    return tree_mod.unflatten_named(shards[k], out)
+
+
+def psum_model(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """All-reduce over ``model``: each row's partials summed in model order
+    on the row's first device (so two runs are bit-equal), the sum handed
+    to every device of the row (the same tensor on a virtual mesh)."""
+    out: List[Optional[torch.Tensor]] = [None] * mesh.size
+    m = mesh.n_model
+    for r in range(mesh.n_rows):
+        ks = range(r * m, (r + 1) * m)
+        dev0 = mesh.devices[ks[0]]
+        total = parts[ks[0]]
+        for k in ks[1:]:
+            total = total + parts[k].to(dev0)
+        for k in ks:
+            out[k] = total.to(mesh.devices[k])
+    return out
+
+
+def zeros(shapes, specs, mesh) -> Placed:
+    """Every device's zero blocks of the abstract tree ``shapes`` (meta
+    tensors) under ``specs``, each allocated on its device."""
+    pairs = _paired(shapes, specs)
+    return Placed(mesh, specs, tuple(tree_mod.unflatten_named(shapes, [
+        torch.zeros(local_shape(t.shape, sp, mesh), dtype=t.dtype,
+                    device=dev) for t, sp in pairs]) for dev in mesh.devices))
+
+
+def device_bytes(placed: Placed) -> List[int]:
+    """The bytes of tensor blocks each device holds."""
+    return [sum(t.numel() * t.element_size()
+                for t in tree_mod.named_values(s)
+                if isinstance(t, torch.Tensor)) for s in placed.shards]
+
+
+def local_bytes(tree, specs, mesh) -> int:
+    """One device's bytes of ``tree`` by :func:`local_shape` (the same on
+    every device of a mesh)."""
+    total = 0
+    for t, sp in _paired(tree, specs):
+        if isinstance(t, torch.Tensor):
+            n = 1
+            for d in local_shape(t.shape, sp, mesh):
+                n *= d
+            total += n * t.element_size()
+    return total

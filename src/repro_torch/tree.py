@@ -10,12 +10,13 @@ leaf's path as ``jax.tree_util.keystr`` does (``"['fc0']['w']"``,
 ``"[1]"``): coverage tables and ``always_upload`` predicates are keyed on
 those strings.
 
-:func:`named_leaves` and :func:`map_named` are the one other walk: the
-JAX package's, in which a named tuple (``TrainState``, ``DecodeState``,
-a layer's state) is a node walked field by field, each leaf named by the
-dict keys and field names on its way (what ``repro.models.lm``'s
-``_path_names`` reads from a path).  They serve the partition specs,
-which the JAX package keys on those names.
+:func:`named_leaves`, :func:`map_named`, :func:`named_values` and
+:func:`unflatten_named` are the one other walk: the JAX package's, in
+which a named tuple (``TrainState``, ``DecodeState``, a layer's state)
+is a node walked field by field, each leaf named by the dict keys and
+field names on its way (what ``repro.models.lm``'s ``_path_names`` reads
+from a path).  They serve the partition specs, which the JAX package
+keys on those names, and the placement of trees on a mesh.
 """
 
 from __future__ import annotations
@@ -151,13 +152,41 @@ def named_leaves(node, names: Tuple[str, ...] = ()
 
 def map_named(fn: Callable, node, names: Tuple[str, ...] = ()):
     """``node`` with each leaf of :func:`named_leaves` replaced by
-    ``fn(names, leaf)``, in the same structure."""
+    ``fn(names, leaf)``, in the same structure.  ``fn`` is called in
+    :func:`named_leaves` order (dict keys sorted); a dict keeps its
+    insertion order."""
     if isinstance(node, dict):
-        return {k: map_named(fn, v, names + (str(k),))
-                for k, v in node.items()}
+        out = {k: map_named(fn, node[k], names + (str(k),))
+               for k in sorted(node)}
+        return {k: out[k] for k in node}
     if isinstance(node, list):
         return [map_named(fn, v, names) for v in node]
     if _is_named_tuple(node):
-        return type(node)(*(map_named(fn, v, names + (f,))
-                            for f, v in zip(node._fields, node)))
+        return type(node)(*[map_named(fn, v, names + (f,))
+                            for f, v in zip(node._fields, node)])
     return None if node is None else fn(names, node)
+
+
+def named_values(node) -> List:
+    """The leaves of :func:`named_leaves`, without their names."""
+    return [leaf for _, leaf in named_leaves(node)]
+
+
+def unflatten_named(like, values) -> Any:
+    """``like`` with its :func:`named_values` replaced by ``values``, in
+    that order: the inverse of :func:`named_values`."""
+    values = list(values)
+    it = iter(values)
+
+    def _next(names, _leaf):
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError(f"{len(values)} values for a tree with "
+                             f"more leaves") from None
+
+    out = map_named(_next, like)
+    if next(it, it) is not it:
+        raise ValueError(f"{len(values)} values for a tree with fewer "
+                         f"leaves")
+    return out

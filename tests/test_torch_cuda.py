@@ -1821,3 +1821,86 @@ def test_perf_federated_on_card_matches_cpu(cuda_device, monkeypatch):
                 assert torch.equal(a.cpu(), b)
             else:
                 torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+
+
+def _virtual_card_mesh(cuda_device):
+    from repro_torch.launch.mesh import LMMesh
+    return LMMesh.virtual(cuda_device, 2, 2)
+
+
+def test_meshed_prefill_and_serve_on_card_match_unmeshed(cuda_device,
+                                                         monkeypatch):
+    """A 4-layer reduced gemma3 (fp32) on a virtual (2, 2) mesh of the
+    card: flash launched once per layer and device (16) on its head
+    group, the meshed prefill and 12 serve steps within 1e-4 of the
+    unmeshed run on the card, every cache block on the card with its
+    ``local_shape``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, lm, sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3_27b", reduced=True),
+                              num_layers=4, param_dtype="float32",
+                              compute_dtype="float32")
+    monkeypatch.setattr(attention, "FLASH_MIN_SEQ", 32)
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(0), cuda_device)
+    mesh = _virtual_card_mesh(cuda_device)
+    placed = lm.place_params(params, cfg, mesh)
+    assert sharding.device_bytes(placed) == [sharding.local_bytes(
+        params, placed.specs, mesh)] * 4
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(1))
+    want = lm.prefill(params, cfg, {"tokens": toks})
+    kernels.reset_launch_counts()
+    got = lm.prefill(placed, cfg, {"tokens": toks}, mesh=mesh)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 4 * mesh.size
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+    step, step0 = lm.make_serve_step(cfg, mesh), lm.make_serve_step(cfg)
+    st = lm.init_decode_state(placed, cfg, 4, 12, mesh=mesh)
+    st0 = lm.init_decode_state(params, cfg, 4, 12)
+    seq = torch.randint(0, cfg.vocab_size, (4, 12), device=cuda_device)
+    for t in range(12):
+        a, st = step(placed, st, seq[:, t:t + 1])
+        b, st0 = step0(params, st0, seq[:, t:t + 1])
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for shard in st.stack.shards:
+        for t, sp, full in zip(tree.named_values(shard),
+                               tree.named_values(st.stack.specs),
+                               tree.named_values(st0.stack)):
+            assert t.is_cuda and tuple(t.shape) == sharding.local_shape(
+                full.shape, sp, mesh)
+
+
+def test_moe_takes_the_ep_path_on_a_card_mesh(cuda_device):
+    """Reduced qwen3-moe (fp32) on a virtual (2, 2) mesh of the card takes
+    the expert-parallel path in every layer and matches the unmeshed
+    dispatch in 2 blocks; two meshed runs are bit-equal."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen3_moe_30b_a3b", reduced=True),
+                              param_dtype="float32", compute_dtype="float32")
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(2), cuda_device)
+    mesh = _virtual_card_mesh(cuda_device)
+    placed = lm.place_params(params, cfg, mesh)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda_device)
+    moe.reset_dispatch_counts()
+    got = lm.prefill(placed, cfg, {"tokens": toks}, mesh=mesh)
+    assert moe.dispatch_counts() == {"one_block": 0, "blocked": 0,
+                                     "ep": cfg.num_layers}
+    again = lm.prefill(placed, cfg, {"tokens": toks}, mesh=mesh)
+    assert torch.equal(got, again)
+    real = moe.apply_moe
+    moe.apply_moe = functools.partial(real, n_blocks=2)
+    try:
+        want = lm.prefill(params, cfg, {"tokens": toks})
+    finally:
+        moe.apply_moe = real
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

@@ -85,7 +85,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.models.sharding", "repro_torch.launch.dryrun",
                  "repro_torch.launch.hlo_analysis",
                  "repro_torch.launch.analytic_cost",
-                 "repro_torch.launch.perf_federated"):
+                 "repro_torch.launch.perf_federated",
+                 "repro_torch.models.layers", "repro_torch.models.mlp",
+                 "repro_torch.models.blocks"):
         assert must in res["modules"]
 
 
@@ -202,6 +204,14 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         lm.init_model(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--steps", "1"])
+    # a mesh, virtual or of the host's cards, never steps down to the CPU
+    from repro_torch.launch.mesh import LMMesh, make_host_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMMesh.virtual(None, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh(2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--steps", "1", "--mesh", "2,2", "--virtual"])
 
 
 def test_tree_order_is_sorted_depth_first():

@@ -442,6 +442,30 @@ def test_named_walk_names_leaves_as_jax_paths_do():
         x is y for x, y in zip(walked, flat))
 
 
+def test_map_named_visits_in_named_leaves_order():
+    """``map_named`` calls its function in ``named_leaves`` order (dict
+    keys sorted) and keeps each dict's insertion order;
+    ``unflatten_named`` inverts ``named_values`` and rejects a value
+    count that does not fit the tree."""
+    t = {"z": [torch.zeros(1), _Pair(torch.zeros(2), None)],
+         "a": _Pair(torch.zeros(3), {"y": torch.zeros(4),
+                                     "x": [torch.zeros(5)]})}
+    seen = []
+    out = tree.map_named(lambda names, leaf: seen.append(names) or
+                         leaf.numel(), t)
+    assert seen == [names for names, _ in tree.named_leaves(t)]
+    assert list(out) == ["z", "a"] and list(out["a"].b) == ["y", "x"]
+    vals = tree.named_values(t)
+    assert [v.numel() for v in vals] == [3, 5, 4, 1, 2]
+    back = tree.unflatten_named(t, vals)
+    assert list(back) == ["z", "a"] and back["z"][1].b is None
+    assert all(x is y for x, y in zip(tree.named_values(back), vals))
+    assert tree.unflatten_named(t, range(5))["a"].b["x"] == [1]
+    for n in (4, 6):
+        with pytest.raises(ValueError):
+            tree.unflatten_named(t, range(n))
+
+
 def test_dryrun_cli_writes_then_reuses_its_cache(tmp_path, monkeypatch,
                                                  capsys):
     argv = ["--arch", "whisper_medium", "--shape", "decode_32k",

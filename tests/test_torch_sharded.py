@@ -120,7 +120,7 @@ def test_mesh_helpers_clamp_and_resolve():
     with pytest.raises(ValueError):
         ClientMesh(())
     grid = mesh_mod.make_host_mesh(data=3, model=1, device="cpu")
-    assert len(grid) == 1 and len(grid[0]) == 1
+    assert grid.axis_sizes == (1, 1) and grid.devices == (CPU,)
     assert [mesh_mod._largest_divisor_leq(6, k) for k in (4, 6, 9, 0)] == \
         [3, 6, 6, 1]
     # the CPU mesh of the JAX package clamps the same way
