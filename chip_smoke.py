@@ -142,6 +142,18 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    memory), a finite loss and no flash launch; one 2-layer step at 8192
    tokens, which takes the chunked attention route (no flash launch);
    the flash wrapper raising on inputs that require grad;
+7b. LM training on the virtual (2, 2) mesh (``lm_mesh_train_phase``):
+   phase 7's model, weights and tokens in 4 microbatches of 2 x 2048
+   (each data row 1 x 2048), meshed (``lm.place_train_state``,
+   ``make_train_step(mesh=)``) and unmeshed: the gathered gradients of
+   one ``value_and_grad`` within 3e-2 of each leaf's largest, the first
+   step's loss within 1e-2 and grad norm within 2e-2, each device's
+   parameter and moment bytes equal to ``local_shape``'s count, every
+   replica bit-equal after the step; one warm-up and 3 timed steps of
+   each (s/step, tokens/s, peak memory); one AdamW step of qwen3-moe (4
+   layers, 4 x 1024) on the expert-parallel path in every layer, its
+   loss within 5e-2 of the unmeshed 2-block forward routed as the mesh
+   routed; no flash launch;
 8. FedDD across pods (``python -m repro_torch.launch.federated``): the
    same model cut to 4 layers on 4 virtual pods of the card, 2 local SGD
    steps on 8 x 256 tokens, the allocation LP, 3 rounds: s/round, the
@@ -421,6 +433,11 @@ TRAIN_LAYERS = 8
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # 8 microbatches (policy_for)
 TRAIN_STEPS = 3                           # timed, after one warm-up step
 LONG_LAYERS, LONG_SEQ = 2, 8192           # one step on the chunked route
+# phase 7b, training on the virtual MESH_SHAPE mesh: phase 7's model and
+# tokens in MESH_TRAIN_MICRO microbatches of 2 x 2048 (each data row 1 x
+# 2048), against the unmeshed step at the same split; qwen3-moe one step
+MESH_TRAIN_MICRO = 4
+MESH_LOSS_TOL, MESH_GNORM_TOL = 1e-2, 2e-2    # bf16, relative
 FED_LAYERS, FED_PODS, FED_ROUNDS = 4, 4, 3
 FED_LOCAL_STEPS, FED_BATCH, FED_SEQ = 2, 8, 256
 MOE_ARCH, MOE_LAYERS = "qwen3_moe_30b_a3b", 4
@@ -4280,6 +4297,236 @@ def train_phase(card: Card, dev="cuda") -> dict:
                           launches=long_counts))
 
 
+def _replicas_bit_equal(placed) -> int:
+    """Every replica of every block equal to its first holder's, bit for
+    bit (the phase fails otherwise); returns how many were compared."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import sharding
+    per = [tree.named_values(sh) for sh in placed.shards]
+    n = 0
+    for i, sp in enumerate(tree.named_values(placed.specs)):
+        for ks in sharding.holders(sp, placed.mesh):
+            for k in ks[1:]:
+                if not torch.equal(per[k][i], per[ks[0]][i]):
+                    raise AssertionError(f"replica {k} of leaf {i} ({sp}) "
+                                         f"differs from device {ks[0]}'s")
+                n += 1
+    return n
+
+
+def _steps_timed(step, state, toks, dev, after_first=None):
+    """One warm-up and ``len(toks) - 1`` timed steps of ``step`` from
+    ``state`` (consumed): (s each step, losses, the first step's metrics,
+    peak GiB).  ``after_first(state)`` runs untimed after the first."""
+    times, losses, first = [], [], None
+    for i in range(len(toks)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, {"tokens": toks[i]})
+        losses.append(float(m["loss"]))           # waits for the device
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            first = {k: float(v) for k, v in m.items()}
+            if after_first is not None:
+                after_first(state)
+    del state, m
+    return times, losses, first, _peak_gb()
+
+
+def lm_mesh_train_phase(card: Card, dev="cuda") -> dict:
+    """Phase 7b: training on a virtual MESH_SHAPE (data, model) mesh of
+    the card.  granite-3-8b as in phase 7 (TRAIN_LAYERS layers, AdamW),
+    the same weights and tokens meshed (``lm.place_train_state``,
+    ``make_train_step(mesh=)``) and unmeshed, each in MESH_TRAIN_MICRO
+    microbatches of TRAIN_BATCH / MESH_TRAIN_MICRO x TRAIN_SEQ: the
+    gathered gradients of one ``value_and_grad`` within MESH_TOL of each
+    leaf's largest, the first step's loss and grad norm within
+    MESH_LOSS_TOL and MESH_GNORM_TOL, every device's parameter and moment
+    bytes equal to ``local_shape``'s count, every replica bit-equal after
+    the step; one warm-up and TRAIN_STEPS timed steps of each.  Then one
+    AdamW step of qwen3-moe (MOE_LAYERS layers) at MOE_TRAIN_BATCH x
+    MOE_TRAIN_SEQ on the mesh: the expert-parallel path in every layer
+    (forward and remat recompute), a finite loss within MESH_MOE_TOL of
+    the unmeshed 2-block forward routed as the mesh routed.  No flash
+    launch (training takes the chunked or plain attention route)."""
+    import dataclasses
+    import functools
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.models import lm, moe, sharding
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    resident = _fresh_peak(dev)
+    mesh = LMMesh.virtual(dev, *MESH_SHAPE)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+    opt = train.optimizer_for(cfg, 3e-4)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_model(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_STEPS + 1, TRAIN_BATCH,
+                                             TRAIN_SEQ), generator=gen,
+                         device=dev)
+    micro = {"tokens": toks[0, :TRAIN_BATCH // MESH_TRAIN_MICRO]}
+    kernels.reset_launch_counts()
+
+    # ---- one value_and_grad on the first microbatch, gathered
+    _, _, want = lm.value_and_grad(params, cfg, micro)
+    placed = lm.place_params(params, cfg, mesh)
+    _, _, got = lm.value_and_grad(placed, cfg, micro, mesh=mesh)
+    del placed
+    got = sharding.gather(got)
+    grad_errs = {"/".join(n): ((a.float() - b.float()).abs().max()
+                               / b.float().abs().max()).item()
+                 for (n, a), b in zip(tree.named_leaves(got),
+                                      tree.leaves(want))}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    del got, want
+    print(f"  {cfg.name} {cfg.num_layers} layers on a virtual {mesh.shape} "
+          f"mesh: gathered gradients of one {micro['tokens'].shape[0]} x "
+          f"{TRAIN_SEQ} microbatch within {grad_err:.3g} of each leaf's "
+          f"largest (limit {MESH_TOL}; worst {worst}, median "
+          f"{statistics.median(grad_errs.values()):.3g})", flush=True)
+    if not grad_err <= MESH_TOL:
+        raise AssertionError(f"meshed gradients differ by {grad_err}")
+
+    def fresh():
+        return lm.TrainState(params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+
+    # ---- unmeshed, then meshed, at the same split
+    _fresh_peak(dev)
+    times0, losses0, first0, peak0 = _steps_timed(
+        lm.make_train_step(cfg, opt, MESH_TRAIN_MICRO), fresh(), toks, dev)
+    box = [lm.place_train_state(fresh(), cfg, mesh)]  # the step's only ref
+    pbytes = _placed_bytes(box[0].params, params)
+    obytes = _placed_bytes(box[0].opt_state,
+                           lm.abstract_train_state(cfg, opt).opt_state)
+    _fresh_peak(dev)
+    checked = []
+    times, losses, first, peak = _steps_timed(
+        lm.make_train_step(cfg, opt, MESH_TRAIN_MICRO, mesh=mesh), box.pop(),
+        toks, dev, lambda st: checked.append(
+            _replicas_bit_equal(st.params)
+            + _replicas_bit_equal(st.opt_state)))
+    counts = kernels.launch_counts()
+    s_step, s_step0 = (statistics.median(times[1:]),
+                       statistics.median(times0[1:]))
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    loss_err = abs(first["loss"] - first0["loss"]) / abs(first0["loss"])
+    gnorm_err = abs(first["grad_norm"] - first0["grad_norm"]) / abs(
+        first0["grad_norm"])
+    print(f"  {MESH_TRAIN_MICRO} microbatches of "
+          f"{TRAIN_BATCH // MESH_TRAIN_MICRO} x {TRAIN_SEQ}: mesh steps (s, "
+          f"the first a warm-up) {[round(t, 4) for t in times]}, "
+          f"{s_step:.4f} s/step, {n_tok / s_step:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB; unmeshed {[round(t, 4) for t in times0]}, "
+          f"{s_step0:.4f} s/step, {n_tok / s_step0:.0f} tokens/s, peak "
+          f"{peak0:.2f} GiB ({resident:.2f} resident at the start); "
+          f"ratio {s_step / s_step0:.3f}  [{card.line}]", flush=True)
+    print(f"  first step: loss {first['loss']:.5f} mesh, "
+          f"{first0['loss']:.5f} unmeshed (rel {loss_err:.3g}, limit "
+          f"{MESH_LOSS_TOL}); grad norm {first['grad_norm']:.5f}, "
+          f"{first0['grad_norm']:.5f} (rel {gnorm_err:.3g}, limit "
+          f"{MESH_GNORM_TOL}); {checked[0]} replicas bit-equal after it; "
+          f"a device holds {pbytes['per_device'][0] / 2 ** 30:.3f} GiB of "
+          f"parameters and {obytes['per_device'][0] / 2 ** 30:.3f} GiB of "
+          f"moments (local_shape counts {pbytes['local_shape'] / 2 ** 30:.3f}"
+          f", {obytes['local_shape'] / 2 ** 30:.3f}); losses "
+          f"{[round(x, 4) for x in losses]} mesh, "
+          f"{[round(x, 4) for x in losses0]} unmeshed; launches {counts}",
+          flush=True)
+    if not (loss_err <= MESH_LOSS_TOL and gnorm_err <= MESH_GNORM_TOL):
+        raise AssertionError(f"meshed first step {first}, unmeshed {first0}")
+    if not all(math.isfinite(x) for x in losses + losses0) or any(
+            counts.values()):
+        raise AssertionError(f"mesh train losses {losses}, launches "
+                             f"{counts}")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- qwen3-moe: one AdamW step on the expert-parallel path
+    mcfg, mparams, mgen = serve.build(MOE_ARCH, reduced=False,
+                                      num_layers=MOE_LAYERS, device=dev)
+    mtoks = torch.randint(0, mcfg.vocab_size,
+                          (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ), generator=mgen,
+                          device=dev)
+    mopt = adamw(3e-4)
+    mst = lm.place_train_state(lm.TrainState(
+        mparams, mopt.init(mparams), torch.zeros((), dtype=torch.int32,
+                                                 device=dev)), mcfg, mesh)
+    routes = []
+    moe.reset_dispatch_counts()
+    kernels.reset_launch_counts()
+    _fresh_peak(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with _recorded_routes(routes):
+        mst, m = lm.make_train_step(mcfg, mopt, mesh=mesh)(
+            mst, {"tokens": mtoks})
+        moe_loss = float(m["loss"])
+    moe_s = time.perf_counter() - t0
+    moe_peak = _peak_gb()
+    paths, m_counts = moe.dispatch_counts(), kernels.launch_counts()
+    n_moe = _replicas_bit_equal(mst.params)
+    del mst, m
+    want_paths = {"one_block": 0, "blocked": 0, "ep": 2 * mcfg.num_layers}
+    if paths != want_paths or any(m_counts.values()) or not math.isfinite(
+            moe_loss):
+        raise AssertionError(f"meshed MoE step: dispatch {paths}, launches "
+                             f"{m_counts}, loss {moe_loss}")
+    layers_ = _mesh_layer_routes(routes[:mcfg.num_layers * mesh.size], mesh,
+                                 mcfg.num_layers)
+    del routes
+    ties = []
+    real = moe.apply_moe
+    moe.apply_moe = functools.partial(real, n_blocks=2)
+    try:
+        with torch.no_grad(), _forced_routes(layers_, ties):
+            ref_loss = float(lm.loss_fn(mparams, mcfg,
+                                        {"tokens": mtoks})[0])
+    finally:
+        moe.apply_moe = real
+    moe_err = abs(moe_loss - ref_loss) / abs(ref_loss)
+    print(f"  {mcfg.name} {mcfg.num_layers} layers, one AdamW step "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} on the mesh: {moe_s:.4f} s, "
+          f"dispatch {paths} (forward and remat recompute), loss "
+          f"{moe_loss:.5f}; the unmeshed 2-block forward routed as the mesh "
+          f"routed {ref_loss:.5f} (rel {moe_err:.3g}, limit "
+          f"{MESH_MOE_TOL}); {n_moe} replicas bit-equal; peak "
+          f"{moe_peak:.2f} GiB  [{card.line}]", flush=True)
+    if not moe_err <= MESH_MOE_TOL:
+        raise AssertionError(f"meshed MoE loss {moe_loss}, unmeshed routed "
+                             f"alike {ref_loss}")
+    del mparams
+    wall = time.perf_counter() - t_phase
+    print(f"  lm mesh train phase wall {wall:.2f} s  [{card.line}]",
+          flush=True)
+    return dict(mesh=list(MESH_SHAPE), virtual=True, phase_wall_s=wall,
+                arch=TRAIN_ARCH, layers=cfg.num_layers,
+                microbatches=MESH_TRAIN_MICRO, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, grad_err=grad_err, grad_errs=grad_errs,
+                step_s=times,
+                plain_step_s=times0, s_per_step=s_step,
+                plain_s_per_step=s_step0, tokens_per_s=n_tok / s_step,
+                plain_tokens_per_s=n_tok / s_step0, peak_gib=peak,
+                plain_peak_gib=peak0, resident_gib=resident, first=first,
+                plain_first=first0, loss_err=loss_err, gnorm_err=gnorm_err,
+                losses=losses, plain_losses=losses0, param_bytes=pbytes,
+                moment_bytes=obytes, replicas_checked=checked[0],
+                launches=counts,
+                moe=dict(arch=MOE_ARCH, layers=mcfg.num_layers,
+                         batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+                         step_s=moe_s, loss=moe_loss, ref_loss=ref_loss,
+                         err=moe_err, dispatch=paths, ties=ties,
+                         peak_gib=moe_peak, launches=m_counts,
+                         replicas_checked=n_moe))
+
+
 def federated_phase(card: Card, dev="cuda") -> dict:
     """``python -m repro_torch.launch.federated`` at granite-3-8b's full
     width cut to FED_LAYERS layers: FED_PODS virtual pods of the card,
@@ -5358,6 +5605,8 @@ def main(argv=None) -> int:
         mesh_out = lm_mesh_phase(card)
         torch.cuda.empty_cache()
         train_out = train_phase(card)
+        torch.cuda.empty_cache()
+        mesh_train_out = lm_mesh_train_phase(card)
         fed_out = federated_phase(card)
         moe_out = moe_phase(card)
         fam_out = families_phase(card)
@@ -5433,6 +5682,9 @@ def main(argv=None) -> int:
                    for key, fam in (("mesh_prefill", "gemma"),
                                     ("mesh_moe_prefill", "moe"))},
                 launches_train=train_out["launches"][name],
+                launches_mesh_train=mesh_train_out["launches"][name],
+                launches_mesh_moe_train=mesh_train_out["moe"]["launches"][
+                    name],
                 launches_train_long=train_out["long"]["launches"][name],
                 launches_launch_prefill=launch_out["prefill"]["launches"][
                     name],
@@ -5524,6 +5776,7 @@ def main(argv=None) -> int:
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
             serving=serve_out, lm_mesh=mesh_out, train=train_out,
+            lm_mesh_train=mesh_train_out,
             federated=fed_out,
             moe=moe_out, families=fam_out, launch=launch_out,
             lm_importance=lm_importance,
@@ -5551,7 +5804,9 @@ def main(argv=None) -> int:
           f"{mesh_out['gemma']['prefill_plain_s']:.3f}), "
           f"decode {mesh_out['gemma']['decode_ms']:.2f} ms/token (unmeshed "
           f"{mesh_out['gemma']['decode_plain_ms']:.2f})"
-          + f"; LM train {train_out['s_per_step']:.4f} s/step, pods "
+          + f"; LM train {train_out['s_per_step']:.4f} s/step, on the "
+          f"{MESH_SHAPE} mesh {mesh_train_out['s_per_step']:.4f} (unmeshed "
+          f"at its split {mesh_train_out['plain_s_per_step']:.4f}), pods "
           f"{statistics.median(fed_out['s_per_round']):.4f} s/round, MoE "
           f"prefill {moe_out['prefill_s']:.4f} s, decode "
           f"{moe_out['ms_per_token']:.2f} ms/token, train "

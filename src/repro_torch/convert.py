@@ -8,7 +8,7 @@ start from the JAX package's parameters hand them over as numpy arrays
 tensors come out as float32 arrays (exact) so no extension type is
 needed on this side.  :func:`lm_params_to_mesh` carries the JAX
 package's LM parameters onto an ``LMMesh``: every device gets its blocks
-of every leaf.
+of every leaf; :func:`train_state_to_mesh` a whole train state.
 """
 
 from __future__ import annotations
@@ -81,6 +81,15 @@ def train_state_from_jax(numpy_state, device: DeviceLike = None):
     params, opt_state, step = numpy_state
     return TrainState(lm_params_from_jax(params, device),
                       to_torch(opt_state, device), to_torch(step, device))
+
+
+def train_state_to_mesh(numpy_state, cfg, mesh):
+    """The JAX package's ``TrainState`` (as for
+    :func:`train_state_from_jax`) placed on ``mesh``:
+    ``lm.place_train_state`` of it, from the host."""
+    from repro_torch.models.lm import place_train_state
+    return place_train_state(train_state_from_jax(numpy_state, "cpu"), cfg,
+                             mesh)
 
 
 def train_state_to_numpy(state):

@@ -191,6 +191,43 @@ def make_host_mesh(data: int = 1, model: int = 1,
     return LMMesh(devs[:data * model], (data, model))
 
 
+def lm_mesh_from_flags(device: DeviceLike = None, *,
+                       shape: Optional[str] = None, virtual: bool = False,
+                       production: bool = False,
+                       multi_pod: bool = False) -> LMMesh:
+    """The mesh the serve and train entry points' flags ask for:
+    ``--production-mesh [--multi-pod]`` (the reference's
+    :func:`make_production_mesh` of the visible cards, ``("data",
+    "model")`` (16, 16) or ``("pod", "data", "model")`` (2, 16, 16); with
+    fewer cards it raises, naming the count, as ``jax.make_mesh`` does),
+    ``--mesh D,M`` (clamped to the visible cards as :func:`make_host_mesh`
+    clamps), ``--virtual`` (that shape with every shard on the one
+    device), or by default every visible card on ``data`` (the JAX
+    package's ``make_host_mesh(len(jax.devices()))``)."""
+    dev = resolve_device(device)
+    if production:
+        prod = make_production_mesh(multi_pod=multi_pod)
+        if virtual:
+            *pod, data, model = prod.axis_sizes
+            return LMMesh.virtual(dev, data, model,
+                                  pod=pod[0] if pod else None)
+        devs = _visible(dev)
+        if len(devs) < prod.size:
+            raise ValueError(f"Number of devices {len(devs)} must be >= "
+                             f"the product of mesh_shape {prod.axis_sizes}")
+        return LMMesh(devs[:prod.size], prod.axis_sizes, prod.axis_names)
+    if multi_pod:
+        raise ValueError("--multi-pod needs --production-mesh")
+    if virtual and not shape:
+        raise ValueError("--virtual needs --mesh D,M or --production-mesh")
+    if shape:
+        data, model = map(int, shape.split(","))
+        if virtual:
+            return LMMesh.virtual(dev, data, model)
+        return make_host_mesh(data, model, dev)
+    return make_host_mesh(len(_visible(dev)), 1, dev)
+
+
 def make_client_mesh(num_devices: Optional[int] = None,
                      device: DeviceLike = None) -> ClientMesh:
     """A ``clients`` mesh over up to ``num_devices`` of the visible devices

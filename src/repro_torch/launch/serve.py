@@ -9,10 +9,11 @@ The counterpart of ``repro.launch.serve``, with its flags, and
 ``LMMesh`` of the visible cards, clamped as the JAX package's
 ``make_host_mesh`` clamps; by default every card is on ``data`` (the JAX
 package's ``make_host_mesh(len(jax.devices()))``), so one card runs
-unmeshed.  ``--virtual`` asks for a mesh of that shape whose shards all
-sit on the one device (``LMMesh.virtual``).  On a mesh of several
-shards the dense and MoE families serve; the others raise
-``NotImplementedError`` (ROADMAP A19 item 3).  ``launch.dryrun``
+unmeshed.  ``--production-mesh`` asks for the reference's (16, 16)
+mesh, which needs 256 cards.  ``--virtual`` asks for a mesh of that
+shape whose shards all sit on the one device (``LMMesh.virtual``).  On
+a mesh of several shards the dense and MoE families serve; the others
+raise ``NotImplementedError`` (ROADMAP A19 item 3).  ``launch.dryrun``
 accounts for the production meshes.  ``--reduced`` (the default)
 picks the smoke-test variant of the architecture; ``--full-config`` the
 published one.  Every architecture of the registry serves: an enc-dec
@@ -32,7 +33,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import LMMesh, make_host_mesh
+from repro_torch.launch.mesh import lm_mesh_from_flags
 from repro_torch.models import lm
 
 
@@ -95,20 +96,15 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="D,M",
                     help="(data, model) mesh of the visible devices "
                          "(default: every one on data)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh (256 devices)")
     ap.add_argument("--virtual", action="store_true",
-                    help="put every shard of --mesh on the one device")
+                    help="put every shard of the mesh on the one device")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    if args.virtual and not args.mesh:
-        ap.error("--virtual needs --mesh D,M")
-    if args.virtual:
-        mesh = LMMesh.virtual(dev, *map(int, args.mesh.split(",")))
-    elif args.mesh:
-        mesh = make_host_mesh(*map(int, args.mesh.split(",")), device=dev)
-    else:
-        n = torch.cuda.device_count() if dev.type == "cuda" else 1
-        mesh = make_host_mesh(n, 1, dev)
+    mesh = lm_mesh_from_flags(args.device, shape=args.mesh,
+                              virtual=args.virtual,
+                              production=args.production_mesh)
     dev = mesh.devices[0]
     cfg, params, gen = build(args.arch, reduced=args.reduced, device=dev)
     cache_len = args.cache_len or args.steps + 8

@@ -1,20 +1,26 @@
-"""Training driver: the LM train step on one card.
+"""Training: the LM train step on a card or a mesh of them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_8b \
-        --steps 100 [--full-config --num-layers N] [--device cpu]
+        --steps 100 [--full-config --num-layers N] [--device cpu] \
+        [--mesh D,M [--virtual] | --production-mesh [--multi-pod]]
 
 The counterpart of ``repro.launch.train``, with its flags, log lines,
 batch draws (``np.random.default_rng(0)`` over ``make_lm_dataset``; zero
 patch embeddings for a VLM, zero frames (B, 24, D) for enc-dec) and
 optimizer (``launch.specs.policy_for``: adafactor at 10x the learning
-rate where the policy says so, else AdamW).  The port trains on one
-card: the JAX package trains on its host or production mesh, and
-training on the port's ``LMMesh`` (FSDP gradients reduced over ``data``,
-the tensor-parallel backward) is ROADMAP A19 item 2; the mesh serves
-already (``launch.serve --mesh``).  ``--device`` (default: cuda) picks
-the card or the CPU.
-``--num-layers`` cuts the depth, as ``launch.serve.build`` does.
-Checkpoints go through ``repro_torch.checkpoint.save_checkpoint``.
+rate where the policy says so, else AdamW).  Like the JAX package, it
+trains on a mesh: by default every visible card on ``data`` (the JAX
+package's ``make_host_mesh(len(jax.devices()))``; one card trains
+unmeshed), ``--mesh D,M`` a (data, model) ``LMMesh`` of the visible
+cards, ``--production-mesh [--multi-pod]`` the reference's (16, 16) or
+(2, 16, 16) one (256 or 512 cards), and ``--virtual`` that shape with
+every shard on the one device.  On a mesh of several shards the state
+is placed by ``lm.place_train_state`` and the dense and MoE families
+train (the others raise: ROADMAP A19 item 3).  ``--device`` (default:
+cuda) picks the card or the CPU.  ``--num-layers`` cuts the depth, as
+``launch.serve.build`` does.  Checkpoints go through
+``repro_torch.checkpoint.save_checkpoint``; on a mesh they hold the
+gathered parameters, the file an unmeshed run writes.
 """
 
 from __future__ import annotations
@@ -30,9 +36,9 @@ import torch
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import make_lm_dataset
-from repro_torch.device import resolve_device
 from repro_torch.launch import specs as specs_mod
-from repro_torch.models import lm
+from repro_torch.launch.mesh import lm_mesh_from_flags
+from repro_torch.models import lm, sharding
 from repro_torch.optim import adafactor, adamw
 
 
@@ -56,21 +62,36 @@ def main(argv=None):
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default="checkpoints")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="(data, model) mesh of the visible devices "
+                         "(default: every one on data)")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--virtual", action="store_true",
+                    help="put every shard of the mesh on the one device")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    mesh = lm_mesh_from_flags(args.device, shape=args.mesh,
+                              virtual=args.virtual,
+                              production=args.production_mesh,
+                              multi_pod=args.multi_pod)
+    dev = mesh.devices[0]
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
     opt = optimizer_for(cfg, args.lr)
-    print(f"arch={cfg.name} reduced={args.reduced} device={dev}")
+    print(f"arch={cfg.name} reduced={args.reduced} device={dev} "
+          f"mesh={mesh.shape}{' virtual' if args.virtual else ''}")
 
     toks = make_lm_dataset(vocab_size=cfg.vocab_size,
                            num_tokens=1 << 18, seed=0)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     state = lm.init_train_state(cfg, opt, gen, dev)
-    step_fn = lm.make_train_step(cfg, opt)
+    on_mesh = mesh if mesh.size > 1 else None
+    if on_mesh is not None:
+        state = lm.place_train_state(state, cfg, mesh)
+    step_fn = lm.make_train_step(cfg, opt, mesh=on_mesh)
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     metrics = {}
@@ -94,7 +115,9 @@ def main(argv=None):
         if args.checkpoint_every and step % args.checkpoint_every == 0:
             save_checkpoint(
                 Path(args.checkpoint_dir) / f"{cfg.name}_{step}.npz",
-                state.params, metadata={"step": step})
+                state.params if on_mesh is None
+                else sharding.gather(state.params),
+                metadata={"step": step})
     print("done.")
     return state, metrics
 

@@ -34,7 +34,10 @@ just before use, the norms and residuals whole on every device of a row
 units and the experts cut over ``model``, and the row-parallel partials
 summed over ``model``.  A block replicated over ``data`` (a batch that
 does not divide) is computed on every device that holds it, as a real
-mesh does.  The dense and MoE families run there; the recurrent mixers,
+mesh does.  The meshed stack is differentiable: autograd's transposes
+of the row sums and of the FSDP gathers land on the blocks each device
+read, and ``models.sharding.reduce_replicas`` completes the gradient.
+The dense and MoE families run there; the recurrent mixers,
 cross-attention and the VLM prefix on a mesh are ROADMAP A19 item 3.
 """
 
@@ -400,20 +403,46 @@ def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
 
 def apply_stack_mesh(placed: "sharding.Placed", cfg: ModelConfig,
                      plan: StackPlan, xs, mb: MeshBatch, *,
-                     mode: str = "causal"):
-    """``apply_stack`` on the mesh (inference only: no remat, no grad):
-    ``placed`` the stack's placed parameters, ``xs`` every device's
-    (B_k, S, D) residual.  Returns (xs, total moe_aux)."""
-    aux = torch.zeros((), dtype=torch.float32, device=mb.mesh.devices[0])
+                     mode: str = "causal", remat: bool = True):
+    """``apply_stack`` on the mesh: ``placed`` the stack's placed
+    parameters, ``xs`` every device's (B_k, S, D) residual.  Returns (xs,
+    total moe_aux).
+
+    Differentiable.  ``remat`` (where autograd records) runs each layer
+    under ``torch.utils.checkpoint``: its FSDP-gathered blocks and
+    activations are not kept for the backward but gathered and computed
+    again there, as GSPMD re-gathers under ``jax.checkpoint``; without it
+    every device would hold every layer's whole fan-in until the
+    backward.  Each device's stacked blocks are unbound once, as in
+    ``apply_stack``."""
+    mesh = mb.mesh
+    aux = torch.zeros((), dtype=torch.float32, device=mesh.devices[0])
+    ckpt = remat and torch.is_grad_enabled() and (
+        any(x.requires_grad for x in xs) or any(
+            t.requires_grad for sh in placed.shards
+            for t in tree.leaves(sh["super"])))
+    slices = {f"p{pi}": [tree.tree_map(lambda t: t.unbind(0),
+                                       sh["super"][f"p{pi}"])
+                         for sh in placed.shards]
+              for pi in range(len(plan.period))}
+
+    def layer(shards, specs, spec, xs):
+        if ckpt:
+            return checkpoint(_mesh_block, shards, specs, cfg, spec, xs, mb,
+                              mode=mode, use_reentrant=False)
+        return _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+
     for i in range(plan.n_super):
         for pi, spec in enumerate(plan.period):
-            shards, specs = _layer(placed, f"p{pi}", i)
-            xs, a = _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+            shards = [tree.tree_map(lambda u: u[i], sl)
+                      for sl in slices[f"p{pi}"]]
+            specs = _stacked_spec(placed.specs["super"][f"p{pi}"])
+            xs, a = layer(shards, specs, spec, xs)
             if a is not None:
                 aux = aux + a
     for ri, spec in enumerate(plan.remainder):
         shards, specs = _layer(placed, f"r{ri}", None)
-        xs, a = _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+        xs, a = layer(shards, specs, spec, xs)
         if a is not None:
             aux = aux + a
     return xs, aux

@@ -37,9 +37,14 @@ vocab-parallel, and the KV caches per device as
 :func:`decode_state_pspecs` gives them (batch over data, kv heads over
 model), written in place.  The returned logits are gathered on the
 mesh's first device.  A one-device mesh runs the unmeshed code on its
-device.  The dense and MoE families serve on a mesh; the others raise
-``NotImplementedError`` there (ROADMAP A19 item 3), and training on a
-mesh is A19 item 2.
+device.  Training runs there too: ``loss_fn``, ``value_and_grad`` and
+``make_train_step`` take ``mesh=`` and a state placed by
+:func:`place_train_state` (or ``convert.train_state_to_mesh``); the
+cross-entropy is vocab-parallel, each device's gradient is that of its
+blocks (``sharding.reduce_replicas`` sums the replicas) and the
+optimizer updates every device's blocks (``optim.update_placed``).  The
+dense and MoE families serve and train on a mesh; the others raise
+``NotImplementedError`` there (ROADMAP A19 item 3).
 
 For the dry-run (``launch/dryrun.py``): ``abstract_params``,
 ``abstract_train_state`` and ``abstract_decode_state`` build the same
@@ -59,7 +64,7 @@ from repro_torch import tree
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import blocks, layers, sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import Optimizer, apply_updates
+from repro_torch.optim import Optimizer, apply_updates, update_placed
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -164,22 +169,30 @@ def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S_text, V) fp32, moe_aux 0-d fp32): VLM logits
     cover the text positions only.  Differentiable; ``remat`` recomputes
-    each super-block in the backward pass.  On a ``mesh`` (``params``
-    placed on it) it runs without autograd."""
+    each super-block (on a ``mesh``, each layer) in the backward pass.
+    On a ``mesh`` (``params`` placed on it) the logits are gathered on
+    its first device."""
     if _meshed(params, cfg, mesh):
-        with torch.no_grad():
-            xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"])
-            return _logits_mesh(params, cfg, xs, mb), aux
+        xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"],
+                                    remat=remat)
+        return _logits_mesh(params, cfg, xs, mb), aux
     params = _unwrap(params)
     x, aux = _decoder(params, cfg, batch, remat)
     return _logits(params, cfg, x), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch: Dict, remat: bool = True
-            ) -> Tuple[torch.Tensor, Dict]:
+def loss_fn(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
+            mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross-entropy plus the MoE load-balance loss:
-    (total, {"ce", "moe_aux"})."""
-    logits, aux = forward(params, cfg, batch, remat=remat)
+    (total, {"ce", "moe_aux"}).  On a ``mesh`` the cross-entropy is
+    vocab-parallel (:func:`_ce_mesh`): no device holds the whole
+    logits."""
+    if _meshed(params, cfg, mesh):
+        xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"],
+                                    remat=remat)
+        ce = _ce_mesh(params, cfg, xs, mb, batch["tokens"])
+        return ce + aux, {"ce": ce, "moe_aux": aux}
+    logits, aux = forward(params, cfg, batch, remat=remat, mesh=mesh)
     labels = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]
     logz = torch.logsumexp(lg, dim=-1)
@@ -206,9 +219,17 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer,
 
 
 def value_and_grad(params, cfg: ModelConfig, batch: Dict,
-                   remat: bool = True):
+                   remat: bool = True, mesh=None):
     """(loss, metrics, grads) of :func:`loss_fn`; grads in the parameters'
-    dtypes, as ``jax.value_and_grad`` gives them."""
+    dtypes, as ``jax.value_and_grad`` gives them.  On a ``mesh`` the
+    grads are a ``sharding.Placed`` of every device's blocks, each the
+    whole gradient of its block (``sharding.reduce_replicas``)."""
+    if _meshed(params, cfg, mesh):
+        return _value_and_grad_mesh(params, cfg, batch, remat)
+    if mesh is not None:
+        loss, metrics, grads = value_and_grad(_unwrap(params), cfg, batch,
+                                              remat)
+        return loss, metrics, _rewrap(params, grads)
     leaves, td = tree.flatten(params)
     req = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
@@ -218,49 +239,72 @@ def value_and_grad(params, cfg: ModelConfig, batch: Dict,
             tree.unflatten(td, list(grads)))
 
 
+def _micro_grads(params, cfg: ModelConfig, batch: Dict, n: int,
+                 remat: bool, mesh):
+    """(loss, metrics, grads) of the whole batch: :func:`value_and_grad`,
+    or with ``n > 1`` its n microbatches' grads accumulated in fp32 and
+    divided by n (the loss is the mean, ``moe_aux`` reported 0, as in the
+    JAX package).  On a mesh every device accumulates its own blocks."""
+    if n <= 1:
+        return value_and_grad(params, cfg, batch, remat, mesh=mesh)
+    micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    grads = _map_blocks(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    lsum = None
+    for i in range(n):
+        l, _, g = value_and_grad(params, cfg,
+                                 {k: v[i] for k, v in micro.items()}, remat,
+                                 mesh=mesh)
+        for a, b in zip(_blocks(grads), _blocks(g)):
+            a.add_(b.float())
+        del g
+        lsum = l if lsum is None else lsum + l
+    div = torch.tensor(float(n), dtype=torch.float32, device=lsum.device)
+    for g in _blocks(grads):
+        g.div_(div.to(g.device))
+    loss = lsum / div
+    return loss, {"ce": loss, "moe_aux": torch.zeros_like(loss)}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
-                    num_microbatches: int = 1, remat: bool = True):
+                    num_microbatches: int = 1, remat: bool = True,
+                    mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     With ``num_microbatches > 1`` the batch is split along axis 0 and the
     gradients are accumulated in fp32 and divided by the count (the loss
     is the mean, ``moe_aux`` reported 0, as in the JAX package).  The
     optimizer writes its moments in place: the state passed in is
-    consumed (its parameters are not)."""
+    consumed (its parameters are not).
+
+    On a ``mesh`` the state is placed on it (:func:`place_train_state`):
+    each microbatch's batch goes over the data axes, every device
+    computes its blocks' gradients (``value_and_grad(mesh=)``), the grad
+    norm counts each distinct block once (``sharding.global_sq_norm``)
+    and the optimizer updates every device's blocks
+    (``optim.update_placed``).  A one-device mesh runs the unmeshed
+    step on its device."""
 
     def train_step(state: TrainState, batch: Dict):
-        if num_microbatches <= 1:
-            loss, metrics, grads = value_and_grad(state.params, cfg, batch,
-                                                  remat)
+        loss, metrics, grads = _micro_grads(state.params, cfg, batch,
+                                            num_microbatches, remat, mesh)
+        if isinstance(grads, sharding.Placed):
+            gnorm = torch.sqrt(sharding.global_sq_norm(grads))
+            updates, opt_state = update_placed(opt, grads, state.opt_state,
+                                               state.params)
+            del grads
+            params = sharding.Placed(mesh, state.params.specs, tuple(
+                apply_updates(p, u) for p, u in zip(state.params.shards,
+                                                    updates.shards)))
         else:
-            micro = {k: v.reshape((num_microbatches,
-                                   v.shape[0] // num_microbatches)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            grads = tree.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), state.params)
-            lsum = None
-            for i in range(num_microbatches):
-                l, _, g = value_and_grad(
-                    state.params, cfg, {k: v[i] for k, v in micro.items()},
-                    remat)
-                for a, b in zip(tree.leaves(grads), tree.leaves(g)):
-                    a.add_(b.float())
-                del g
-                lsum = l if lsum is None else lsum + l
-            n = torch.tensor(float(num_microbatches), dtype=torch.float32,
-                             device=lsum.device)
-            for g in tree.leaves(grads):
-                g.div_(n)
-            loss = lsum / n
-            metrics = {"ce": loss, "moe_aux": torch.zeros_like(loss)}
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in tree.leaves(grads)))
-        updates, opt_state = opt.update(grads, state.opt_state, state.params)
-        del grads
-        params = apply_updates(state.params, updates)
+            with torch.no_grad():
+                gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                       for g in tree.leaves(grads)))
+            updates, opt_state = opt.update(grads, state.opt_state,
+                                            state.params)
+            del grads
+            params = apply_updates(state.params, updates)
         del updates
         return TrainState(params, opt_state, state.step + 1), {
             "loss": loss, "grad_norm": gnorm, **metrics}
@@ -300,6 +344,71 @@ def _unwrap(tree_or_placed):
     return tree_or_placed
 
 
+def _rewrap(like, new_tree):
+    """``new_tree`` placed as ``like`` is: on its one device where
+    ``like`` is a one-device placement, else as it is."""
+    if isinstance(like, sharding.Placed):
+        return sharding.Placed(like.mesh, like.specs, (new_tree,))
+    return new_tree
+
+
+def _blocks(tree_or_placed):
+    """Every tensor block of a tree or of every device of a placement."""
+    if isinstance(tree_or_placed, sharding.Placed):
+        return [t for s in tree_or_placed.shards
+                for t in tree.named_values(s)]
+    return tree.leaves(tree_or_placed)
+
+
+def _map_blocks(fn, tree_or_placed):
+    """``fn`` over every block, keeping the tree or the placement."""
+    if isinstance(tree_or_placed, sharding.Placed):
+        return sharding.Placed(tree_or_placed.mesh, tree_or_placed.specs,
+                               tuple(tree.tree_map(fn, s)
+                                     for s in tree_or_placed.shards))
+    return tree.tree_map(fn, tree_or_placed)
+
+
+def place_train_state(state: TrainState, cfg: ModelConfig, mesh
+                      ) -> TrainState:
+    """A whole ``TrainState`` on ``mesh``: the parameters and the
+    optimizer state each a ``sharding.Placed`` under
+    :func:`train_state_pspecs` (AdamW's moments cut as the parameters,
+    adafactor's factored ``vr``/``vc`` whole on every device, as the JAX
+    package's specs leave them), ``step`` on the mesh's first device."""
+    specs = train_state_pspecs(cfg, state, mesh)
+    return TrainState(
+        params=sharding.place(state.params, specs.params, mesh),
+        opt_state=sharding.place(state.opt_state, specs.opt_state, mesh),
+        step=state.step.to(mesh.devices[0]))
+
+
+def _value_and_grad_mesh(params: sharding.Placed, cfg: ModelConfig,
+                         batch: Dict, remat: bool):
+    """:func:`value_and_grad` on the mesh: every device's blocks made
+    leaves that require grad, autograd through the meshed loss (each
+    block receives the gradient of the uses that read it), then the sum
+    over replicas."""
+    mesh = params.mesh
+    req = [[t.detach().requires_grad_(True) for t in tree.named_values(s)]
+           for s in params.shards]
+    live = sharding.Placed(mesh, params.specs, tuple(
+        tree.unflatten_named(s, r) for s, r in zip(params.shards, req)))
+    flat = [t for r in req for t in r]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, cfg, batch, remat, mesh=mesh)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    del live
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(flat, grads)]
+    n = len(req[0])
+    placed = sharding.Placed(mesh, params.specs, tuple(
+        tree.unflatten_named(s, grads[k * n:(k + 1) * n])
+        for k, s in enumerate(params.shards)))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            sharding.reduce_replicas(placed))
+
+
 def _meshed(params, cfg: ModelConfig, mesh) -> bool:
     """Whether a call runs the meshed path (a mesh of several devices):
     checks that ``params`` are placed on ``mesh`` and that the family
@@ -321,8 +430,8 @@ def _meshed(params, cfg: ModelConfig, mesh) -> bool:
 
 
 def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig,
-                  tokens: torch.Tensor, state=None):
-    """Every device's residual stream after the stack: the prefill
+                  tokens: torch.Tensor, state=None, remat: bool = True):
+    """Every device's residual stream after the stack: the forward
     (``state`` None) or one decode step on ``state`` (its caches written
     in place).  Returns (xs, the MeshBatch, moe_aux)."""
     mesh = params.mesh
@@ -344,7 +453,8 @@ def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig,
     stack = sharding.Placed(mesh, params.specs["stack"],
                             tuple(sh["stack"] for sh in params.shards))
     if state is None:
-        xs, aux = blocks.apply_stack_mesh(stack, cfg, plan_for(cfg), xs, mb)
+        xs, aux = blocks.apply_stack_mesh(stack, cfg, plan_for(cfg), xs, mb,
+                                          remat=remat)
     else:
         xs = blocks.apply_stack_decode_mesh(stack, cfg, plan_for(cfg), xs,
                                             state.stack, state.pos, mb)
@@ -369,6 +479,68 @@ def _logits_mesh(params: sharding.Placed, cfg: ModelConfig, xs,
     lspec = (mb.spec[0],) + (None,) * (parts[0].dim() - 2) + (
         params.specs[head]["table"][0],)
     return sharding.unsplit(parts, lspec, mesh)
+
+
+def _ce_mesh(params: sharding.Placed, cfg: ModelConfig, xs,
+             mb: "blocks.MeshBatch", tokens: torch.Tensor) -> torch.Tensor:
+    """The mean next-token cross-entropy, vocab-parallel: what GSPMD
+    compiles for the JAX package's ``shard(logits, "batch", "seq",
+    "vocab")`` then ``logsumexp``.  Each device takes its vocab shard's
+    logits of its batch rows; per row of the mesh, the shards' row max
+    (no gradient, as ``logsumexp`` stops it) combines over ``model``,
+    then their sums of ``exp`` and the gold logit from the shard that
+    owns the label, in model order on the row's first device.  The rows'
+    sums of ``logz - gold`` combine on the mesh's first device, divided
+    by ``B * (S - 1)``.  Each distinct (batch, vocab) block counts once:
+    a vocab replicated over ``model`` is read from the row's first
+    device, a batch replicated over data from its first row."""
+    mesh = params.mesh
+    head = "lm_head" if "lm_head" in params.specs else "embed"
+    cut = params.specs[head]["table"][0] is not None
+    b, s = tokens.shape
+    labels = sharding.split(tokens[:, 1:].long(), (mb.spec[0], None), mesh)
+    dev0 = mesh.devices[0]
+    total, seen = None, set()
+    for r in range(mesh.n_rows):
+        ks = range(r * mesh.n_model, (r + 1) * mesh.n_model)
+        rows = sharding.block_range(mb.spec[0], mesh, ks[0], b)
+        if rows in seen:
+            continue
+        seen.add(rows)
+        ks = ks if cut else ks[:1]
+        lead = mesh.devices[ks[0]]
+        parts = []
+        for k in ks:
+            norm = sharding.local_tree(
+                [sh["final_norm"] for sh in params.shards],
+                params.specs["final_norm"], mesh, k)
+            p = sharding.local_tree([sh[head] for sh in params.shards],
+                                    params.specs[head], mesh, k)
+            x = layers.apply_norm(norm, xs[k][:, :-1], cfg.norm)
+            lg = layers.unembed(p, x, softcap=cfg.logits_softcap)
+            parts.append((k, lg, mesh.col(k) * p["table"].shape[0]
+                          if cut else 0))
+        m = None
+        for _, lg, _ in parts:
+            mk = lg.detach().amax(-1).to(lead)
+            m = mk if m is None else torch.maximum(m, mk)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        sumexp = gold = None
+        for k, lg, lo in parts:
+            dev = lg.device
+            se = torch.exp(lg - m.to(dev)[..., None]).sum(-1).to(lead)
+            lab = labels[k] - lo
+            mine = (lab >= 0) & (lab < lg.shape[-1])
+            g = torch.gather(lg, -1, torch.where(mine, lab, 0)[..., None]
+                             )[..., 0]
+            g = torch.where(mine, g, torch.zeros((), dtype=g.dtype,
+                                                 device=dev)).to(lead)
+            sumexp = se if sumexp is None else sumexp + se
+            gold = g if gold is None else gold + g
+        row = torch.sum(torch.log(sumexp) + m - gold).to(dev0)
+        total = row if total is None else total + row
+    return total / torch.tensor(float(b * (s - 1)), dtype=torch.float32,
+                                device=dev0)
 
 
 # ----------------------------------------------------------- serve step ----

@@ -22,6 +22,14 @@ order on the row's first device (the all-reduce after a row-parallel
 matmul).  The model's meshed paths (``models.lm`` with ``mesh=``) run
 every device's share from one process with these.
 
+Autograd differentiates through them: the transpose of ``psum_model``
+hands each row's cotangent to every partial, and ``local_tree``'s copies
+(``CopySlices``) send each gathered slice's gradient to the block it was
+read from.  A block several devices hold (replicated over the axes its
+spec leaves out) gets only the gradient of the uses that read that
+copy; :func:`reduce_replicas` sums them, and :func:`global_sq_norm`
+counts each distinct block once.
+
 Default rules (MaxText-style FSDP + TP), the reference's:
 
   batch     -> ("pod", "data")     activations' batch dim
@@ -149,7 +157,7 @@ def n_shards(logical: Optional[str], mesh) -> int:
     return n
 
 
-def _shards(entry: Entry, mesh) -> int:
+def block_count(entry: Entry, mesh) -> int:
     """How many blocks one spec entry cuts its dimension into."""
     sizes = _axis_sizes(mesh)
     n = 1
@@ -167,7 +175,7 @@ def local_shape(shape: Sequence[int], spec_: Spec, mesh
         raise ValueError(f"spec {spec_} for a rank-{len(shape)} leaf")
     out = []
     for d, e in zip(shape, spec_):
-        n = _shards(e, mesh)
+        n = block_count(e, mesh)
         if d % n:
             raise ValueError(f"dim {d} does not split into {n} blocks "
                              f"({e})")
@@ -204,7 +212,7 @@ def block_range(entry: Entry, mesh, k: int, n: int) -> Tuple[int, int]:
     return pos * (n // c), (pos + 1) * (n // c)
 
 
-def _block(t: torch.Tensor, spec_: Spec, mesh, k: int) -> torch.Tensor:
+def block(t: torch.Tensor, spec_: Spec, mesh, k: int) -> torch.Tensor:
     """Device ``k``'s block of ``t`` under ``spec_`` (a view)."""
     if len(spec_) != t.dim():
         raise ValueError(f"spec {spec_} for a rank-{t.dim()} leaf")
@@ -221,7 +229,7 @@ def _block(t: torch.Tensor, spec_: Spec, mesh, k: int) -> torch.Tensor:
 def split(t: torch.Tensor, spec_: Spec, mesh) -> List[torch.Tensor]:
     """Each device's block of an activation, on its device (a view where
     the block already lies there: inputs are read, never written)."""
-    return [_block(t, spec_, mesh, k).to(mesh.devices[k])
+    return [block(t, spec_, mesh, k).to(mesh.devices[k])
             for k in range(mesh.size)]
 
 
@@ -294,7 +302,7 @@ def place(tree, specs, mesh) -> Placed:
         out = []
         for t, sp in pairs:
             if isinstance(t, torch.Tensor):
-                blk = _block(t, sp, mesh, k)
+                blk = block(t, sp, mesh, k)
                 t = torch.empty(blk.shape, dtype=blk.dtype,
                                 device=dev).copy_(blk)
             out.append(t)
@@ -348,6 +356,89 @@ def psum_model(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
             total = total + parts[k].to(dev0)
         for k in ks:
             out[k] = total.to(mesh.devices[k])
+    return out
+
+
+# ------------------------------------------------------------ gradients ----
+
+def holders(spec_: Spec, mesh) -> List[List[int]]:
+    """The devices holding each distinct block of a leaf under ``spec_``:
+    one group a block, each in device order, the groups in the order of
+    their first device.  The devices of a group differ only along the mesh
+    axes ``spec_`` does not use (``pod`` included): they hold replicas."""
+    used = {a for e in spec_ for a in _axes(e)}
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for k in range(mesh.size):
+        c = mesh.coords(k)
+        groups.setdefault(tuple(c[a] for a in mesh.axis_names if a in used),
+                          []).append(k)
+    return list(groups.values())
+
+
+def reduce_replicas(grads: Placed) -> Placed:
+    """Every block's gradient summed over the devices that hold the same
+    block: autograd gives each replica the gradient of the uses that read
+    it (:func:`local_tree` reads a block position once, from the first
+    holder of its column), so the whole gradient is their sum.  Summed in
+    device order on the first holder and handed back to every holder
+    (the same tensor where they share a device), so two runs are
+    bit-equal.  A leaf cut over every mesh axis is left as it is."""
+    mesh = grads.mesh
+    per_dev = [tree_mod.named_values(s) for s in grads.shards]
+    out = [list(v) for v in per_dev]
+    for i, sp in enumerate(tree_mod.named_values(grads.specs)):
+        if not isinstance(per_dev[0][i], torch.Tensor):
+            continue
+        for ks in holders(sp, mesh):
+            if len(ks) == 1:
+                continue
+            dev0 = mesh.devices[ks[0]]
+            total = per_dev[ks[0]][i]
+            for k in ks[1:]:
+                total = total + per_dev[k][i].to(dev0)
+            for k in ks:
+                out[k][i] = total.to(mesh.devices[k])
+    return Placed(mesh, grads.specs, tuple(
+        tree_mod.unflatten_named(s, o) for s, o in zip(grads.shards, out)))
+
+
+def global_sq_norm(placed: Placed) -> torch.Tensor:
+    """The sum of squares (fp32) of the whole tree a placement holds:
+    each distinct block counted once (its first holder's), leaf by leaf
+    and block by block in device order, summed on the mesh's first
+    device."""
+    mesh = placed.mesh
+    dev0 = mesh.devices[0]
+    per_dev = [tree_mod.named_values(s) for s in placed.shards]
+    total = torch.zeros((), dtype=torch.float32, device=dev0)
+    for i, sp in enumerate(tree_mod.named_values(placed.specs)):
+        for ks in holders(sp, mesh):
+            t = per_dev[ks[0]][i]
+            total = total + torch.sum(torch.square(t.float())).to(dev0)
+    return total
+
+
+def sum_blocks(parts: Sequence[torch.Tensor], spec_: Spec, summed: Entry,
+               mesh, device) -> torch.Tensor:
+    """The whole tensor the devices' partial blocks ``parts`` make: each
+    cut by ``spec_`` and a partial sum over the mesh axes of the entry
+    ``summed`` (those that cut a dimension a reduction removed).  Each
+    distinct (block, partial) is added once, in device order, on
+    ``device``."""
+    sizes = _axis_sizes(mesh)
+    shape = [d * block_count(e, mesh) for d, e in zip(parts[0].shape, spec_)]
+    out = torch.zeros(shape, dtype=parts[0].dtype, device=device)
+    seen = set()
+    for k, part in enumerate(parts):
+        coords = mesh.coords(k)
+        pos = tuple(_position(e, coords, sizes, mesh.axis_names)[0]
+                    for e in spec_)
+        key = pos + tuple(coords[a] for a in _axes(summed))
+        if key in seen:
+            continue
+        seen.add(key)
+        out[tuple(slice(p * d, (p + 1) * d)
+                  for p, d in zip(pos, part.shape))] += part.to(device)
     return out
 
 

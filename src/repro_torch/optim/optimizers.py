@@ -17,6 +17,14 @@ them: the state passed in is consumed, as the JAX drivers donate theirs
 to ``jit``, so an AdamW step needs the moments once (8 bytes a
 parameter), not twice.  The arithmetic is the JAX package's, operation
 for operation.
+
+On an ``LMMesh`` (:func:`update_placed`) grads, state and params are
+``models.sharding.Placed`` trees.  sgd and adam are elementwise: every
+device updates its own blocks.  Adafactor's row and column means of
+``g**2`` run over the whole leaf: the blocks' partial sums combine over
+the mesh axes that cut the leaf's last two dimensions, every device
+keeps ``vr``/``vc`` whole (the JAX package's specs replicate them) and
+updates its block from its slice of them.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.models import sharding
 
 Params = Any
 Grads = Any
@@ -36,6 +45,26 @@ Grads = Any
 class Optimizer:
     init: Callable[[Params], Any]
     update: Callable[[Grads, Any, Optional[Params]], Tuple[Any, Any]]
+    # the update on placed trees, where it is not elementwise
+    placed: Optional[Callable] = None
+
+
+def update_placed(opt: Optimizer, grads: sharding.Placed,
+                  state: sharding.Placed,
+                  params: Optional[sharding.Placed] = None):
+    """``opt.update`` on a mesh: (updates, state), each a ``Placed`` like
+    ``grads`` and ``state``.  The moments are written in place, as
+    ``update`` writes them."""
+    if opt.placed is not None:
+        return opt.placed(grads, state, params)
+    ps = params.shards if params is not None else (None,) * len(
+        grads.shards)
+    outs = [opt.update(g, s, p) for g, s, p in zip(grads.shards,
+                                                   state.shards, ps)]
+    return (sharding.Placed(grads.mesh, grads.specs,
+                            tuple(u for u, _ in outs)),
+            sharding.Placed(state.mesh, state.specs,
+                            tuple(s for _, s in outs)))
 
 
 def apply_updates(params: Params, updates: Any) -> Params:
@@ -166,4 +195,58 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30
         ups = tree.unflatten(td, [_u(g, s) for g, s in zip(g_l, s_l)])
         return ups, {"step": step, "v": state["v"]}
 
-    return Optimizer(init, update)
+    @torch.no_grad()
+    def placed(grads, state, params=None):
+        del params
+        mesh = grads.mesh
+        dev0 = mesh.devices[0]
+        specs = tree.leaves(grads.specs)
+        g_dev, s_dev = [], []
+        for g, st in zip(grads.shards, state.shards):
+            g_l, td = tree.flatten(g)
+            g_dev.append(g_l)
+            s_dev.append(tree.flatten_up_to(td, st["v"]))
+        steps = [st["step"] + 1 for st in state.shards]
+        betas = [1.0 - torch.pow(t.float(), -decay) for t in steps]
+        ups = [[] for _ in range(mesh.size)]
+        for i, sp in enumerate(specs):
+            gs = [g_l[i].float() for g_l in g_dev]
+            g2 = [torch.square(g) + eps for g in gs]
+            if "vr" in s_dev[0][i]:
+                # the whole leaf's row and column means, from the blocks'
+                # partial sums over the axes cutting the summed dimension
+                rows = sharding.sum_blocks([t.sum(-1) for t in g2], sp[:-1],
+                                           sp[-1], mesh, dev0)
+                cols = sharding.sum_blocks([t.sum(-2) for t in g2],
+                                           sp[:-2] + sp[-1:], sp[-2], mesh,
+                                           dev0)
+                rows = rows / (g2[0].shape[-1]
+                               * sharding.block_count(sp[-1], mesh))
+                cols = cols / (g2[0].shape[-2]
+                               * sharding.block_count(sp[-2], mesh))
+            else:
+                whole = sharding.sum_blocks(g2, sp, None, mesh, dev0)
+            for k, (s, beta) in enumerate(zip((sl[i] for sl in s_dev),
+                                              betas)):
+                dev = mesh.devices[k]
+                if "vr" in s:
+                    vr = s["vr"].mul_(beta).add_((1 - beta) * rows.to(dev))
+                    vc = s["vc"].mul_(beta).add_((1 - beta) * cols.to(dev))
+                    rm = sharding.block(vr.mean(-1, keepdim=True),
+                                        sp[:-2] + (None,), mesh, k)
+                    denom = (sharding.block(vr, sp[:-1], mesh, k)[..., None]
+                             * sharding.block(vc, sp[:-2] + sp[-1:], mesh,
+                                              k)[..., None, :]
+                             / torch.clamp(rm[..., None], min=eps))
+                else:
+                    v = s["v"].mul_(beta).add_((1 - beta) * whole.to(dev))
+                    denom = sharding.block(v, sp, mesh, k)
+                ups[k].append(-lr * gs[k] / torch.sqrt(
+                    torch.clamp(denom, min=eps)))
+        return (sharding.Placed(mesh, grads.specs, tuple(
+                    tree.unflatten(td, u) for u in ups)),
+                sharding.Placed(state.mesh, state.specs, tuple(
+                    {"step": t, "v": st["v"]}
+                    for t, st in zip(steps, state.shards))))
+
+    return Optimizer(init, update, placed)

@@ -1904,3 +1904,118 @@ def test_moe_takes_the_ep_path_on_a_card_mesh(cuda_device):
     finally:
         moe.apply_moe = real
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _forced_route(routes, mesh, n_layers):
+    """A ``moe.route`` that routes each call as the meshed step's forward
+    routed that layer (``routes``: every device's ids, layer by layer; a
+    block's ids read from model column 0), for an unmeshed step: its
+    forward, then its remat recompute in reverse layer order.  The gates
+    and the load-balance loss are ``route``'s, from the run's own router
+    probabilities at those experts.  Returns (route, the calls left)."""
+    cols = [k for k in range(mesh.size) if mesh.col(k) == 0]
+    fwd = [torch.cat([routes[layer * mesh.size + k] for k in cols])
+           for layer in range(n_layers)]
+    order = iter(fwd + fwd[::-1])
+
+    def forced(p, x, mcfg):
+        ids = next(order)
+        probs = torch.softmax(torch.matmul(x.float(), p["router"]), dim=-1)
+        top = torch.gather(probs, 1, ids)
+        top = top / torch.clamp(top.sum(-1, keepdim=True), min=1e-9)
+        flat = ids.reshape(-1)
+        ce = torch.zeros(mcfg.num_experts, device=x.device).index_add(
+            0, flat, torch.ones(flat.shape, device=x.device))
+        ce = ce / torch.clamp(ce.sum(), min=1.0)
+        aux = (probs.mean(dim=0) * ce).sum() * mcfg.num_experts
+        return ids, top.to(x.dtype), aux
+
+    return forced, order
+
+
+@pytest.mark.parametrize("arch", ["gemma3_27b", "qwen3_moe_30b_a3b"])
+def test_meshed_train_step_on_card_matches_unmeshed(cuda_device, arch,
+                                                    monkeypatch):
+    """A reduced fp32 AdamW step on a virtual (2, 2) mesh of the card at
+    S >= FLASH_MIN_SEQ (the chunked attention route: flash is never
+    launched under grad): loss and grad norm within 2e-5 of the unmeshed
+    step, moments within 2e-5 gathered, every replica bit-equal, every
+    block on the card with its ``local_shape``; two meshed steps from one
+    state are bit-equal.  qwen3-moe takes the expert-parallel path in
+    every layer (its forward and the remat recompute) and is held against
+    the unmeshed dispatch in 2 blocks routed as the mesh routed: at these
+    16384 tokens a layer's router sends ~1 near-tied token elsewhere once
+    its input is summed in another order (measured on the card), which
+    moves the gradients of that token's path."""
+    import dataclasses
+    import functools
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, lm, moe, sharding
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              param_dtype="float32", compute_dtype="float32")
+    params = lm.init_model(cfg, torch.Generator(device=cuda_device)
+                           .manual_seed(3), cuda_device)
+    mesh = _virtual_card_mesh(cuda_device)
+    opt = adamw(1e-3)
+    toks = torch.randint(0, cfg.vocab_size, (2, attention.FLASH_MIN_SEQ),
+                         device=cuda_device,
+                         generator=torch.Generator(device=cuda_device)
+                         .manual_seed(4))
+
+    def fresh():
+        p = tree.tree_map(torch.clone, params)
+        return lm.TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=cuda_device))
+
+    routes, real_route = [], moe.route
+
+    def recording(p, x, mcfg):
+        out = real_route(p, x, mcfg)
+        routes.append(out[0])
+        return out
+
+    kernels.reset_launch_counts()
+    moe.reset_dispatch_counts()
+    monkeypatch.setattr(moe, "route", recording)
+    got, gm = lm.make_train_step(cfg, opt, mesh=mesh)(
+        lm.place_train_state(fresh(), cfg, mesh), {"tokens": toks})
+    monkeypatch.setattr(moe, "route", real_route)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == 0
+    if cfg.moe is not None:
+        assert moe.dispatch_counts() == {"one_block": 0, "blocked": 0,
+                                         "ep": 2 * cfg.num_layers}
+    again, am = lm.make_train_step(cfg, opt, mesh=mesh)(
+        lm.place_train_state(fresh(), cfg, mesh), {"tokens": toks})
+    assert float(am["loss"]) == float(gm["loss"])
+    for a, b in zip(tree.leaves(sharding.gather(got.params)),
+                    tree.leaves(sharding.gather(again.params))):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(moe, "apply_moe",
+                        functools.partial(moe.apply_moe, n_blocks=2))
+    left = iter(())
+    if cfg.moe is not None:
+        forced, left = _forced_route(routes, mesh, cfg.num_layers)
+        monkeypatch.setattr(moe, "route", forced)
+    want, wm = lm.make_train_step(cfg, opt)(fresh(), {"tokens": toks})
+    monkeypatch.undo()
+    assert next(left, None) is None          # every forced routing taken
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 2e-5 * abs(float(wm[k]))
+    for a, b in zip(tree.leaves(sharding.gather(got.opt_state)),
+                    tree.leaves(want.opt_state)):
+        assert float((a.float() - b.float()).abs().max()) <= 2e-5
+    for placed in (got.params, got.opt_state):
+        per = [tree.named_values(sh) for sh in placed.shards]
+        for i, sp in enumerate(tree.named_values(placed.specs)):
+            for ks in sharding.holders(sp, mesh):
+                for k in ks[1:]:
+                    assert torch.equal(per[k][i], per[ks[0]][i])
+    for sh in got.params.shards:
+        for t, full, sp in zip(tree.named_values(sh),
+                               tree.named_values(params),
+                               tree.named_values(got.params.specs)):
+            assert t.is_cuda and tuple(t.shape) == sharding.local_shape(
+                full.shape, sp, mesh)

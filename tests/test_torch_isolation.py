@@ -214,6 +214,17 @@ def test_lm_entry_points_raise_without_a_card(monkeypatch):
         serve.main(["--steps", "1", "--mesh", "2,2", "--virtual"])
 
 
+def test_train_on_a_mesh_raises_without_a_card(monkeypatch):
+    """The train entry point's meshes, virtual or of the host's cards, never
+    step down to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.launch import train
+    for argv in (["--mesh", "2,2", "--virtual"], ["--mesh", "2,2"],
+                 ["--production-mesh", "--virtual"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--steps", "1"] + argv)
+
+
 def test_tree_order_is_sorted_depth_first():
     t = {"b": {"y": 1, "x": 2}, "a": 3, "c": {"z": {"k": 4}}}
     leaves, td = tree.flatten(t)

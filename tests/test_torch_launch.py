@@ -23,6 +23,11 @@
   named as ``jax.tree_util`` paths are.
 * ``python -m repro_torch.launch.dryrun`` writes its records and then
   reuses them.
+* The serve and train entry points take the reference's mesh flags: ``launch.serve
+  --production-mesh`` and ``launch.train --production-mesh
+  [--multi-pod]`` parse and raise with the device count, as
+  ``jax.make_mesh`` does, and ``--virtual`` gives the reference's axis
+  names and sizes (no step runs on 256 shards).
 """
 
 import collections
@@ -52,7 +57,8 @@ from repro_torch.launch import analytic_cost, dryrun, hlo_analysis, specs
 from repro_torch.launch.hlo_analysis import (CostCounter,
                                              costly_device_differences,
                                              op_differences)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch import serve, train
+from repro_torch.launch.mesh import lm_mesh_from_flags, make_production_mesh
 from repro_torch.models import lm, sharding
 from repro_torch.optim import adafactor, adamw
 
@@ -548,3 +554,48 @@ def test_max_depth_finds_the_deepest_cut_that_fits():
         best, tried = dryrun.max_depth(cfg, batch, limit)
         assert (best and best["num_layers"]) == want
         assert len(tried) <= 5
+
+
+# ------------------------------------------- the entry points' meshes ----
+
+@pytest.mark.parametrize("argv,shape", [
+    (["serve", "--production-mesh"], (16, 16)),
+    (["train", "--production-mesh"], (16, 16)),
+    (["train", "--production-mesh", "--multi-pod"], (2, 16, 16))])
+def test_production_mesh_flags_parse_and_raise_with_the_count(argv, shape):
+    """The reference's command lines parse in the port's entry points; with one
+    CPU device the production mesh raises, naming the count, as
+    ``jax.make_mesh`` does."""
+    main = {"serve": serve.main, "train": train.main}[argv[0]]
+    with pytest.raises(ValueError, match=rf"Number of devices 1 must be >= "
+                       rf"the product of mesh_shape \({', '.join(map(str, shape))}\)"):
+        main(argv[1:] + ["--device", "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_virtual_production_mesh_has_the_reference_axes(multi_pod):
+    want = make_production_mesh(multi_pod=multi_pod)
+    got = lm_mesh_from_flags("cpu", production=True, multi_pod=multi_pod,
+                             virtual=True)
+    assert (got.axis_names, got.axis_sizes, got.size) == (
+        want.axis_names, want.axis_sizes, want.size)
+    assert got.axis_names == (("pod", "data", "model") if multi_pod
+                              else ("data", "model"))
+    assert got.size == (512 if multi_pod else 256)
+    assert set(got.devices) == {torch.device("cpu")}
+    # the specs cut each leaf on it as on the named shape
+    sp = sharding.spec("embed", "mlp", shape=(4096, 12800), mesh=got)
+    assert sp == sharding.spec("embed", "mlp", shape=(4096, 12800),
+                               mesh=want)
+    assert sharding.local_shape((4096, 12800), sp, got) == \
+        sharding.local_shape((4096, 12800), sp, want)
+
+
+def test_lm_mesh_from_flags():
+    assert lm_mesh_from_flags("cpu").axis_sizes == (1, 1)
+    assert lm_mesh_from_flags("cpu", shape="2,2").axis_sizes == (1, 1)
+    assert lm_mesh_from_flags("cpu", shape="2,2", virtual=True).size == 4
+    with pytest.raises(ValueError, match="--multi-pod"):
+        lm_mesh_from_flags("cpu", multi_pod=True)
+    with pytest.raises(ValueError, match="--virtual"):
+        lm_mesh_from_flags("cpu", virtual=True)

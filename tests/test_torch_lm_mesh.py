@@ -36,28 +36,46 @@ import textwrap
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import lm as jax_lm
+from repro.optim import optimizers as jopt
 from repro_torch import tree
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.convert import lm_params_from_jax, lm_params_to_mesh
+from repro_torch.convert import (lm_params_from_jax, lm_params_to_mesh,
+                                 to_numpy, train_state_to_mesh)
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.launch.mesh import LMMesh
 from repro_torch.models import blocks, lm, moe, sharding
 from repro_torch.models.config import MoEConfig
+from repro_torch.optim import optimizers as topt
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 TOL = 1e-4                       # of the largest fp32 logit
 MESHES = {"gemma": [(2, 2), (4, 1), (1, 4)], "moe": [(2, 2), (4, 1)]}
+TRAIN_MESHES = {"gemma": [(2, 2), (4, 1)], "moe": [(2, 2), (4, 1)]}
+LR = 1e-3                        # AdamW's, one step from the JAX state
 B = 4
 SEQ = {"gemma": 20, "moe": 256}  # 20 > the reduced window; 1024 MoE tokens
 STEPS = {"gemma": 20, "moe": 8}
 LAYER_D, LAYER_T = 64, (4, 256)
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the meshed passes run many small ops, which a
+    thread pool per xdist worker oversubscribes many times over; and
+    bit-for-bit comparisons of two runs need a fixed GEMM blocking."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfgs(name):
@@ -91,8 +109,10 @@ from repro.configs import get_config
 from repro.launch.mesh import make_host_mesh
 from repro.models import lm, moe
 from repro.models.config import MoEConfig
+from repro.optim import adamw
 assert len(jax.devices()) == 4
 MESHES = %(meshes)r
+TRAIN_MESHES, LR = %(train)r, %(lr)r
 B, SEQ, STEPS = %(b)r, %(seq)r, %(steps)r
 ARCH = {"gemma": "gemma3_27b", "moe": "qwen3_moe_30b_a3b"}
 out = {}
@@ -167,6 +187,23 @@ for name, shapes in MESHES.items():
                 out[f"{key}/ids/{layer}"] = ids
                 out[f"{key}/dropped/{layer}"] = dropped(ids, e, cap, nb)
             assert len(tags) == len(routers)
+    # one AdamW step from (p, zero moments): its loss, grad norm, moments
+    # and params (the step's gradient is m / (1 - b1))
+    opt = adamw(LR)
+    for shape in TRAIN_MESHES[name]:
+        key = f"{name}/{shape[0]}x{shape[1]}/train"
+        with jax.sharding.set_mesh(make_host_mesh(*shape)):
+            st, m = jax.jit(lm.make_train_step(cfg, opt))(
+                lm.TrainState(p, opt.init(p), jnp.zeros((), jnp.int32)),
+                {"tokens": jnp.asarray(toks)})
+        for k_ in ("loss", "grad_norm"):
+            out[f"{key}/{k_}"] = np.asarray(m[k_])
+        for part in ("m", "v"):
+            for i, leaf in enumerate(jax.tree_util.tree_leaves(
+                    st.opt_state[part])):
+                out[f"{key}/{part}/{i}"] = np.asarray(leaf)
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(st.params)):
+            out[f"{key}/param/{i}"] = np.asarray(leaf)
 
 # one MoE layer alone: the EP path on (2, 2), the blocked path on (4, 1)
 mcfg = MoEConfig(num_experts=4, top_k=2, d_ff_expert=32,
@@ -189,6 +226,24 @@ with jax.sharding.set_mesh(make_host_mesh(4, 1)):
     out["layer/blocked"] = np.asarray(jax.jit(
         lambda p, x: moe._apply_moe_gspmd(p, x, mcfg, "swiglu")[0])(p, x))
 out["layer/one"] = np.asarray(moe._apply_moe_gspmd(p, x, mcfg, "swiglu")[0])
+# the gradients of <y, ct> + aux through the EP path and the blocked path
+# at its 2 blocks on (2, 2): the same function
+ct = jax.random.normal(jax.random.fold_in(key, 2), x.shape)
+out["layer/ct"] = np.asarray(ct)
+with jax.sharding.set_mesh(make_host_mesh(2, 2)):
+    info = moe._ep_mesh_info(t_all, 4)
+    assert moe._data_shards(t_all) == info[2] == 2
+    paths = {"ep": lambda p, x: moe._apply_moe_ep(p, x, mcfg, "swiglu", info),
+             "blocked": lambda p, x: moe._apply_moe_gspmd(p, x, mcfg,
+                                                          "swiglu")}
+    for tag, fn in paths.items():
+        def f(p, x, fn=fn):
+            y, a = fn(p, x)
+            return jnp.sum(y * ct) + a
+        gp, gx = jax.jit(jax.grad(f, argnums=(0, 1)))(p, x)
+        for k_, v_ in gp.items():
+            out[f"layer/grad_{tag}/{k_}"] = np.asarray(v_)
+        out[f"layer/grad_{tag}/x"] = np.asarray(gx)
 np.savez(sys.argv[1], **out)
 """
 
@@ -199,7 +254,8 @@ def jax4(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     code = textwrap.dedent(_JAX) % dict(
-        meshes=MESHES, b=B, seq=SEQ, steps=STEPS, d=LAYER_D, t=LAYER_T)
+        meshes=MESHES, b=B, seq=SEQ, steps=STEPS, d=LAYER_D, t=LAYER_T,
+        train=TRAIN_MESHES, lr=LR)
     run = subprocess.run([sys.executable, "-c", code, str(path)], env=env,
                          timeout=300, capture_output=True, text=True)
     assert run.returncode == 0, run.stderr[-4000:]
@@ -512,3 +568,358 @@ def test_serve_main_on_a_virtual_mesh(capsys):
     with pytest.raises(NotImplementedError, match="A19 item 3"):
         serve.main(["--arch", "xlstm_1p3b", "--device", "cpu", "--steps",
                     "1", "--mesh", "2,1", "--virtual"])
+
+
+# ------------------------------------------------------------ training ----
+
+def _adam_first_step_close(p0, got, want, m) -> None:
+    """``tests/test_torch_train.py``'s rule for Adam's first step: params
+    at 2e-5 wherever the step's gradient g = m / (1 - b1) is 0 or |g| >=
+    1e-6 (over 99% of the elements); where |g| is ~eps a gradient two
+    summation orders give 1e-9 apart moves a parameter by a share of lr,
+    so there the step's own bound, lr * (1 + wd * |p|)."""
+    n_cond = n_all = 0
+    for p, a, b, mi in zip(p0, got, want, m):
+        err = np.abs(np.asarray(a) - np.asarray(b))
+        g = np.asarray(mi) / np.float32(0.1)
+        conditioned = (np.abs(g) >= 1e-6) | (g == 0)
+        assert float(err[conditioned].max(initial=0.0)) <= 2e-5
+        assert np.all(err <= LR * (1 + 0.1 * np.abs(p)) + 2e-5)
+        n_cond += int(conditioned.sum())
+        n_all += conditioned.size
+    assert n_cond > 0.99 * n_all
+
+
+def _replicas_equal(placed) -> int:
+    """Asserts every replica of every block equals its first holder's, bit
+    for bit; returns how many replicas were compared."""
+    per = [tree.named_values(sh) for sh in placed.shards]
+    n = 0
+    for i, sp in enumerate(tree.named_values(placed.specs)):
+        for ks in sharding.holders(sp, placed.mesh):
+            for k in ks[1:]:
+                assert torch.equal(per[k][i], per[ks[0]][i])
+                n += 1
+    return n
+
+
+def _local_shapes(placed, whole) -> None:
+    for sh in placed.shards:
+        for t, full, sp in zip(tree.named_values(sh),
+                               tree.named_values(whole),
+                               tree.named_values(placed.specs)):
+            assert tuple(t.shape) == sharding.local_shape(full.shape, sp,
+                                                          placed.mesh)
+
+
+@pytest.mark.parametrize("name,shape", [(n, s) for n in TRAIN_MESHES
+                                        for s in TRAIN_MESHES[n]],
+                         ids=lambda v: v if isinstance(v, str)
+                         else f"{v[0]}x{v[1]}")
+def test_train_step_matches_the_jax_mesh(jax4, name, shape, monkeypatch):
+    """One AdamW step on the mesh from the JAX package's state, carried by
+    ``convert.train_state_to_mesh``: loss and grad norm at 2e-5, the
+    gathered gradients of ``value_and_grad(mesh=)`` at 1e-4 of each leaf's
+    largest (the JAX step's is m / (1 - b1)), m and v leaf for leaf at
+    1e-6, and the params by ``tests/test_torch_train.py``'s rule for
+    Adam's first step (2e-5 wherever g = 0 or |g| >= 1e-6, the step's
+    own bound elsewhere).  MoE layers route as the JAX mesh routes and
+    drop the same assignments, in the forward and in the recompute
+    (remat, in reverse layer order).  After the step every replica is
+    bit-equal and every block has ``local_shape``'s shape."""
+    jcfg, tcfg = _cfgs(name)
+    jp = _jax_params(jax4, name, jcfg)
+    js = jax_lm.TrainState(jp, jopt.adamw(LR).init(jp),
+                           jnp.zeros((), jnp.int32))
+    mesh = _mesh(shape)
+    ts = train_state_to_mesh(jax.device_get(js), tcfg, mesh)
+    whole = lm_params_from_jax(jax.device_get(jp), "cpu")
+    _local_shapes(ts.params, whole)
+    toks = torch.from_numpy(_tokens(name, jcfg))
+    key = f"{name}/{shape[0]}x{shape[1]}"
+    n = tcfg.num_layers
+
+    rec = _Dispatches(monkeypatch) if tcfg.moe is not None else None
+    moe.reset_dispatch_counts()
+    _, _, grads = lm.value_and_grad(ts.params, tcfg, {"tokens": toks},
+                                    mesh=mesh)
+    if rec is not None:
+        ep = bool(jax4[f"{key}/path"])
+        assert moe.dispatch_counts()["ep" if ep else "blocked"] == 2 * n
+        nb = mesh.n_rows if ep else moe.n_blocks(B * SEQ[name], mesh.n_rows)
+        layers_ = rec.layers(mesh, ep, nb)
+        assert len(layers_) == 2 * n
+        for i, (ids, dropped) in enumerate(layers_[:n]):
+            np.testing.assert_array_equal(ids.numpy(),
+                                          jax4[f"{key}/ids/{i}"])
+            np.testing.assert_array_equal(dropped,
+                                          jax4[f"{key}/dropped/{i}"])
+            again_ids, again_dropped = layers_[2 * n - 1 - i]
+            assert torch.equal(again_ids, ids)
+            np.testing.assert_array_equal(again_dropped, dropped)
+        monkeypatch.undo()
+    _replicas_equal(grads)
+    b1 = np.float32(0.1)
+    for i, g in enumerate(tree.leaves(to_numpy(sharding.gather(grads)))):
+        want = jax4[f"{key}/train/m/{i}"] / b1
+        assert np.abs(g - want).max() <= 1e-4 * max(np.abs(want).max(),
+                                                    1e-30)
+
+    p0 = tree.leaves(to_numpy(whole))
+    ts2, tm = lm.make_train_step(tcfg, topt.adamw(LR), mesh=mesh)(
+        ts, {"tokens": toks})
+    for k in ("loss", "grad_norm"):
+        want = float(jax4[f"{key}/train/{k}"])
+        assert abs(float(tm[k]) - want) <= 2e-5 * max(1.0, abs(want)), k
+    assert int(ts2.step) == 1
+    opt = sharding.gather(ts2.opt_state)
+    for part in ("m", "v"):
+        for i, got in enumerate(tree.leaves(to_numpy(opt[part]))):
+            np.testing.assert_allclose(got, jax4[f"{key}/train/{part}/{i}"],
+                                       rtol=0, atol=1e-6)
+    _adam_first_step_close(
+        p0, tree.leaves(to_numpy(sharding.gather(ts2.params))),
+        [jax4[f"{key}/train/param/{i}"] for i in range(len(p0))],
+        [jax4[f"{key}/train/m/{i}"] for i in range(len(p0))])
+    assert _replicas_equal(ts2.params) + _replicas_equal(ts2.opt_state) > 0
+    _local_shapes(ts2.params, whole)
+    _local_shapes(sharding.Placed(mesh, ts2.opt_state.specs["m"], tuple(
+        sh["m"] for sh in ts2.opt_state.shards)), whole)
+
+
+def test_jax_ep_gradient_equals_its_blocked_gradient(jax4):
+    """The JAX package's ``_apply_moe_ep`` differentiates a ``psum``
+    inside ``shard_map(check_vma=False)``; its gradient (params and
+    input, aux loss included) equals the blocked path's at the same 2
+    blocks.  The port's EP path on (2, 2) and its blocked path on (2, 1)
+    (2 blocks), under autograd and ``reduce_replicas``, give the same
+    gradients."""
+    p, x, mcfg = _layer_inputs(jax4)
+    ct = torch.from_numpy(jax4["layer/ct"])
+    names = ["router", "w_up", "w_gate", "w_down", "x"]
+    for k in names:
+        want = jax4[f"layer/grad_blocked/{k}"]
+        assert _rel(jax4[f"layer/grad_ep/{k}"], want) <= 1e-5, k
+    for shape, path in (((2, 2), "ep"), ((2, 1), "blocked")):
+        mesh = _mesh(shape)
+        specs = lm.param_pspecs(None, p, mesh)
+        placed = sharding.place(p, specs, mesh)
+        req = [{k: t.requires_grad_(True) for k, t in sh.items()}
+               for sh in placed.shards]
+        xr = x.clone().requires_grad_(True)
+        moe.reset_dispatch_counts()
+        y, aux = _layer_on_mesh_live(req, specs, xr, mcfg, mesh)
+        assert moe.dispatch_counts()[path] == 1
+        grads = torch.autograd.grad(torch.sum(y * ct) + aux,
+                                    [t for sh in req for t in sh.values()]
+                                    + [xr])
+        flat = list(grads[:-1])
+        g = sharding.gather(sharding.reduce_replicas(sharding.Placed(
+            mesh, specs, tuple(dict(zip(sh, flat[i * len(sh):
+                                                 (i + 1) * len(sh)]))
+                               for i, sh in enumerate(req)))))
+        for k in names[:-1]:
+            assert _rel(g[k], jax4[f"layer/grad_{path}/{k}"]) <= 1e-5, k
+        assert _rel(grads[-1], jax4[f"layer/grad_{path}/x"]) <= 1e-5
+
+
+def _layer_on_mesh_live(shards, specs, x, mcfg, mesh):
+    """One MoE layer on ``mesh`` from every device's blocks ``shards``
+    (which may require grad): (y gathered, aux)."""
+    ps = [sharding.local_tree(shards, specs, mesh, k)
+          for k in range(mesh.size)]
+    b, s, d = x.shape
+    mb = blocks.MeshBatch.of(mesh, b, s, d)
+    xs = [t.reshape(-1, d) for t in sharding.split(x, mb.spec, mesh)]
+    ys, aux = moe.apply_moe_mesh(ps, xs, mb.ranges, mb.tokens, mcfg,
+                                 "swiglu", mesh, specs["w_up"][0])
+    return sharding.unsplit([y.view(-1, s, d) for y in ys], mb.spec,
+                            mesh), aux
+
+
+def test_reduce_replicas_and_global_sq_norm_by_hand():
+    """On a (2, 2) mesh: a leaf cut by data and model has no replicas; one
+    cut by data only is summed over model; a replicated one over all
+    four devices, in device order, the sum handed to every holder; the
+    squared norm counts each distinct block once."""
+    mesh = _mesh((2, 2))
+    specs = {"full": ("data", "model"), "rows": ("data", None),
+             "rep": (None,)}
+    shards = tuple({"full": torch.full((1, 1), 1.0 + k),
+                    "rows": torch.full((1, 2), 10.0 * (k + 1)),
+                    "rep": torch.tensor([2.0 ** k, 0.5])}
+                   for k in range(4))
+    red = sharding.reduce_replicas(sharding.Placed(mesh, specs, shards))
+    assert [float(sh["full"]) for sh in red.shards] == [1.0, 2.0, 3.0, 4.0]
+    assert [sh["rows"].tolist() for sh in red.shards] == \
+        [[[30.0, 30.0]]] * 2 + [[[70.0, 70.0]]] * 2
+    assert all(sh["rep"].tolist() == [15.0, 2.0] for sh in red.shards)
+    assert red.shards[0]["rep"] is red.shards[3]["rep"]
+    assert sharding.holders(("data", None), mesh) == [[0, 1], [2, 3]]
+    assert sharding.holders((None,), mesh) == [[0, 1, 2, 3]]
+    pod = LMMesh.virtual("cpu", 2, 1, pod=2)       # replicas over pod too
+    assert sharding.holders(("data", None), pod) == [[0, 2], [1, 3]]
+    want = (1 + 4 + 9 + 16) + 2 * 900 + 2 * 4900 + (15 ** 2 + 4)
+    assert float(sharding.global_sq_norm(red)) == want
+    # the whole tree's norm, whatever the placement
+    t = {"a": torch.randn(4, 6), "b": torch.randn(6)}
+    sq = sum(float(torch.sum(v * v)) for v in t.values())
+    for sp in ({"a": ("data", "model"), "b": ("model",)},
+               {"a": (None, "data"), "b": (None,)}):
+        got = float(sharding.global_sq_norm(sharding.place(t, sp, mesh)))
+        assert abs(got - sq) <= 1e-5 * sq
+
+
+def test_gathered_blocks_carry_gradients_back():
+    """``assemble``'s copies into a fresh tensor are recorded by autograd
+    (``CopySlices``): each block read gets the gradient of its slice, and
+    a block no device read gets none."""
+    mesh = _mesh((2, 2))
+    w = torch.randn(4, 6)
+    placed = sharding.place({"w": w}, {"w": ("data", "model")}, mesh)
+    leaves = [sh["w"].requires_grad_(True) for sh in placed.shards]
+    full = sharding.local_tree([{"w": t} for t in leaves],
+                               {"w": ("data", "model")}, mesh, 0)["w"]
+    assert full.shape == (4, 3) and full.grad_fn is not None
+    ct = torch.randn(4, 3)
+    g = torch.autograd.grad((full * ct).sum(), leaves, allow_unused=True)
+    assert torch.equal(g[0], ct[:2]) and torch.equal(g[2], ct[2:])
+    assert g[1] is None and g[3] is None
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+def test_meshed_adafactor_equals_unmeshed(shape):
+    """Adafactor on placed blocks (the row and column means over the
+    whole leaf, ``vr``/``vc`` whole on every device), gathered, equals
+    adafactor on the whole tree at 1e-6 over 3 steps; the replicas of
+    ``vr``/``vc`` are bit-equal."""
+    cfg = get_config("gemma3_27b", reduced=True)
+    params = lm.init_model(dataclasses.replace(cfg, param_dtype="float32"),
+                           torch.Generator().manual_seed(5), "cpu")
+    mesh = _mesh(shape)
+    opt = topt.adafactor(1e-2)
+    state = opt.init(params)
+    specs = lm.train_state_pspecs(cfg, lm.TrainState(params, state, None),
+                                  mesh)
+    pp = sharding.place(params, specs.params, mesh)
+    ps = sharding.place(state, specs.opt_state, mesh)
+    assert all(sp == (None,) * len(sp) for sp in
+               tree.named_values(specs.opt_state["v"]))
+    gen = torch.Generator().manual_seed(6)
+    for _ in range(3):
+        grads = tree.tree_map(lambda p: torch.randn(p.shape, generator=gen),
+                              params)
+        up, state = opt.update(grads, state, params)
+        params = topt.apply_updates(params, up)
+        gp = sharding.place(grads, specs.params, mesh)
+        ups, ps = topt.update_placed(opt, gp, ps, pp)
+        pp = sharding.Placed(mesh, pp.specs, tuple(
+            topt.apply_updates(p, u) for p, u in zip(pp.shards, ups.shards)))
+    for a, b in zip(tree.leaves(sharding.gather(pp)), tree.leaves(params)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    for a, b in zip(tree.leaves(sharding.gather(ps)), tree.leaves(state)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=1e-6)
+    assert _replicas_equal(ps) > 0
+
+
+def _gemma_state(opt, seed=8):
+    _, tcfg = _cfgs("gemma")
+    params = lm.init_model(tcfg, torch.Generator().manual_seed(seed), "cpu")
+    return tcfg, lm.TrainState(params, opt.init(params),
+                               torch.zeros((), dtype=torch.int32))
+
+
+def test_microbatched_meshed_step_matches_unmeshed():
+    """A (2, 2) AdamW step of 2 microbatches (each split over data) within
+    2e-5 of the unmeshed one: loss, grad norm and moments, and the params
+    by Adam's first-step rule."""
+    opt = topt.adamw(LR)
+    tcfg, state = _gemma_state(opt)
+    p0 = tree.leaves(to_numpy(state.params))
+    toks = torch.from_numpy(_tokens("gemma", tcfg))
+    mesh = _mesh((2, 2))
+    placed = lm.place_train_state(state, tcfg, mesh)
+    got, gm = lm.make_train_step(tcfg, opt, 2, mesh=mesh)(
+        placed, {"tokens": toks})
+    want, wm = lm.make_train_step(tcfg, opt, 2)(state, {"tokens": toks})
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 2e-5 * abs(float(wm[k]))
+    for a, b in zip(tree.leaves(sharding.gather(got.opt_state)),
+                    tree.leaves(want.opt_state)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0, atol=2e-5)
+    _adam_first_step_close(p0, tree.leaves(to_numpy(sharding.gather(
+        got.params))), tree.leaves(to_numpy(want.params)),
+        tree.leaves(to_numpy(want.opt_state["m"])))
+    assert _replicas_equal(got.params) > 0
+
+
+def test_pod_mesh_step_equals_the_flat_step():
+    """A ("pod", "data", "model") (2, 1, 2) step equals the flat (2, 2)
+    step bit for bit: the same rows, the same replicas, the same sums in
+    the same order."""
+    opt = topt.adamw(LR)
+    out = []
+    for m in (_mesh((2, 2)), LMMesh.virtual("cpu", 1, 2, pod=2)):
+        tcfg, state = _gemma_state(opt)
+        toks = torch.from_numpy(_tokens("gemma", tcfg))
+        st = lm.place_train_state(state, tcfg, m)
+        step = lm.make_train_step(tcfg, opt, mesh=m)
+        for _ in range(2):
+            st, metrics = step(st, {"tokens": toks})
+        out.append((st, metrics))
+    (a, am), (b, bm) = out
+    assert float(am["loss"]) == float(bm["loss"])
+    assert float(am["grad_norm"]) == float(bm["grad_norm"])
+    for x, y in zip(tree.leaves(sharding.gather(a.params))
+                    + tree.leaves(sharding.gather(a.opt_state)),
+                    tree.leaves(sharding.gather(b.params))
+                    + tree.leaves(sharding.gather(b.opt_state))):
+        assert torch.equal(x, y)
+
+
+def test_one_device_mesh_trains_unmeshed_and_others_raise():
+    """A (1, 1) mesh runs the unmeshed step on its device (bit-equal) and
+    keeps the state placed; the families outside the slice raise on a
+    mesh of several devices."""
+    opt = topt.adamw(LR)
+    tcfg, state = _gemma_state(opt)
+    toks = torch.from_numpy(_tokens("gemma", tcfg))
+    one = _mesh((1, 1))
+    placed = lm.place_train_state(state, tcfg, one)
+    got, gm = lm.make_train_step(tcfg, opt, mesh=one)(placed,
+                                                      {"tokens": toks})
+    assert isinstance(got.params, sharding.Placed)
+    want, wm = lm.make_train_step(tcfg, opt)(state, {"tokens": toks})
+    assert float(gm["loss"]) == float(wm["loss"])
+    for a, b in zip(tree.leaves(got.params.shards[0]),
+                    tree.leaves(want.params)):
+        assert torch.equal(a, b)
+    cfg = get_config("xlstm_1p3b", reduced=True)
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = _mesh((2, 1))
+    with pytest.raises(NotImplementedError, match="A19 item 3"):
+        lm.value_and_grad(lm.place_params(params, cfg, mesh), cfg,
+                          {"tokens": torch.zeros((2, 4), dtype=torch.long)},
+                          mesh=mesh)
+
+
+def test_train_main_on_a_virtual_mesh_checkpoints_gathered_params(
+        tmp_path, capsys):
+    """``launch.train --mesh 2,2 --virtual`` on the CPU: the reference's
+    log lines, and a checkpoint equal bit for bit to the gathered
+    params."""
+    state, metrics = train.main([
+        "--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu",
+        "--mesh", "2,2", "--virtual", "--checkpoint-every", "2",
+        "--checkpoint-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "arch=granite-3-8b reduced=True device=cpu" in out
+    assert "mesh={'data': 2, 'model': 2} virtual" in out
+    assert "step     2  loss=" in out and out.strip().endswith("done.")
+    assert isinstance(state.params, sharding.Placed)
+    assert np.isfinite(float(metrics["loss"])) and int(state.step) == 2
+    whole = sharding.gather(state.params)
+    back, meta = load_checkpoint(tmp_path / "granite-3-8b_2.npz", whole)
+    assert meta["step"] == 2
+    for a, b in zip(tree.leaves(back), tree.leaves(whole)):
+        assert torch.equal(a, b)
