@@ -493,6 +493,38 @@ FAMILY_TRAIN = {JAMBA_ARCH: (2048, 0, 0), PIXTRAL_ARCH: (1024, 256, 0),
                 WHISPER_ARCH: (448, 0, 1500), XLSTM_ARCH: (512, 0, 0)}
 FAMILY_SEARCH_TIMEOUT = 900      # s: (d) waits this long for a depth
 FAMILY_TRAIN_LIMIT = 70 * 2 ** 30   # the dry-run's one-card peak, bytes
+# phase 10b, the four families on the virtual MESH_SHAPE mesh against the
+# unmeshed path on the same weights and inputs (``lm.place_params``): jamba
+# cut to its first MESH_JAMBA_LAYERS layers (Mamba + dense, attention +
+# MoE: 11.9 B parameters), xlstm over one period in fp32 (bf16 drifts with
+# depth), pixtral MESH_PIXTRAL_LAYERS layers, whisper whole; a prefill at
+# batch MESH_FAMILY_BATCH, FAMILY_DECODE_STEPS teacher-forced decode steps
+# at FAMILY_DECODE_BATCH, and one AdamW step at MESH_FAMILY_BATCH x
+# MESH_FAMILY_TRAIN's tokens at MESH_FAMILY_TRAIN_LAYERS layers (0: all;
+# AdamW's moments of jamba's 11.9 B parameters alone would take 95 GB).
+# Jamba trains 2 x 1024 tokens, the tokens of FAMILY_TRAIN's 1 x 2048: a
+# Mamba layer keeps its out-of-place scan passes for the backward, and at
+# 2 x 2048 they overflowed the card (77.8 GB allocated)
+MESH_FAMILY_BATCH = 2
+MESH_JAMBA_LAYERS, MESH_PIXTRAL_LAYERS = 2, 12
+MESH_FAMILY_TOL = {JAMBA_ARCH: FAMILY_TOL[JAMBA_ARCH],
+                   XLSTM_ARCH: XLSTM_FP32_TOL, PIXTRAL_ARCH: MESH_TOL,
+                   WHISPER_ARCH: FAMILY_TOL[WHISPER_ARCH]}
+MESH_FAMILY_TRAIN_LAYERS = {JAMBA_ARCH: 1, XLSTM_ARCH: XLSTM_CONSIST_LAYERS,
+                            PIXTRAL_ARCH: 8, WHISPER_ARCH: 0}
+MESH_FAMILY_TRAIN = dict(FAMILY_TRAIN, **{JAMBA_ARCH: (1024, 0, 0)})
+# the train half's backward: each leaf of one value_and_grad's gathered
+# gradients within MESH_GRAD_TOL of the unmeshed leaf in L2 norm, the first
+# step's grad norm within MESH_GNORM_TOL.  In bf16 the meshed and the
+# unmeshed gradients are each ~1.5e-2 from the fp32 ones and apart by as
+# much (tests/test_torch_lm_mesh_families.py
+# ::test_meshed_bf16_gradients_as_close_to_fp32_as_unmeshed), ~2.8e-2 for
+# pixtral's 8 full-width layers; a missing sum or a misplaced transpose
+# moves a whole leaf, O(1)
+MESH_GRAD_TOL = 5e-2
+# the flash kernel on one model shard's heads of those prefills
+JAMBA_MESH_FLASH = (1, JAMBA_PREFILL, 32, 4, 128)
+PIXTRAL_MESH_FLASH = (1, 256 + PIXTRAL_TEXT, 16, 4, 128)
 
 
 # ---- the PRNG phase: known answers the card's threefry must reproduce.
@@ -1469,8 +1501,11 @@ def flash_checks(card: Card, flush, records: list, dev="cuda",
     del q, k, v
     # the families phase's prefills: jamba's attention layer and pixtral's
     # 40 layers (held against the plain version in row chunks)
+    # and a model shard's heads of each on the (2, 2) mesh (phase 10b)
     fam = {}
-    for name, shape in (("jamba", JAMBA_FLASH), ("pixtral", PIXTRAL_FLASH)):
+    for name, shape in (("jamba", JAMBA_FLASH), ("pixtral", PIXTRAL_FLASH),
+                        ("jamba_mesh", JAMBA_MESH_FLASH),
+                        ("pixtral_mesh", PIXTRAL_MESH_FLASH)):
         q, k, v = qkv(*shape, torch.bfloat16)
         fam[name] = measure(q, k, v, 0, chunked, f" {name}")
         del q, k, v
@@ -3892,7 +3927,6 @@ def lm_mesh_phase(card: Card, dev="cuda") -> dict:
     DECODE_BATCH, and qwen3-moe (MOE_LAYERS layers) prefill at
     MESH_MOE_BATCH x MOE_PREFILL_SEQ on the expert-parallel path against
     the unmeshed dispatch in 2 blocks."""
-    import functools
     import torch
     from repro_torch import kernels, tree
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -4023,15 +4057,9 @@ def lm_mesh_phase(card: Card, dev="cuda") -> dict:
     toks = torch.randint(0, mcfg.vocab_size, (MESH_MOE_BATCH,
                                               MOE_PREFILL_SEQ),
                          generator=mgen, device=dev)
-    blocked = functools.partial(moe.apply_moe, n_blocks=2)
-
     def two_blocks():
-        real = moe.apply_moe
-        moe.apply_moe = blocked
-        try:
-            return lm.prefill(mparams, mcfg, {"tokens": toks})
-        finally:
-            moe.apply_moe = real
+        return _two_blocks(lambda: lm.prefill(mparams, mcfg,
+                                              {"tokens": toks}))
 
     ref_routes, mesh_routes = [], []
     moe.reset_dispatch_counts()
@@ -4351,7 +4379,6 @@ def lm_mesh_train_phase(card: Card, dev="cuda") -> dict:
     the unmeshed 2-block forward routed as the mesh routed.  No flash
     launch (training takes the chunked or plain attention route)."""
     import dataclasses
-    import functools
     import torch
     from repro_torch import kernels, tree
     from repro_torch.configs import get_config
@@ -4483,14 +4510,9 @@ def lm_mesh_train_phase(card: Card, dev="cuda") -> dict:
                                  mcfg.num_layers)
     del routes
     ties = []
-    real = moe.apply_moe
-    moe.apply_moe = functools.partial(real, n_blocks=2)
-    try:
-        with torch.no_grad(), _forced_routes(layers_, ties):
-            ref_loss = float(lm.loss_fn(mparams, mcfg,
-                                        {"tokens": mtoks})[0])
-    finally:
-        moe.apply_moe = real
+    with torch.no_grad(), _forced_routes(layers_, ties):
+        ref_loss = float(_two_blocks(lambda: lm.loss_fn(
+            mparams, mcfg, {"tokens": mtoks})[0]))
     moe_err = abs(moe_loss - ref_loss) / abs(ref_loss)
     print(f"  {mcfg.name} {mcfg.num_layers} layers, one AdamW step "
           f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_SEQ} on the mesh: {moe_s:.4f} s, "
@@ -5165,6 +5187,405 @@ def families_phase(card: Card, dev="cuda") -> dict:
     return out
 
 
+def _mesh_family_model(arch: str, layers: int, fp32: bool, dev):
+    """``serve.build`` of ``arch`` at full width (``layers`` > 0 cuts its
+    depth), in fp32 if asked: (cfg, params, generator)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import serve
+    cfg, params, gen = serve.build(arch, reduced=False, num_layers=layers,
+                                   device=dev)
+    if fp32:
+        params = tree.tree_map(lambda t: t.float(), params)
+        cfg = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+    _sync(dev)
+    return cfg, params, gen
+
+
+def _mesh_family_batch(cfg, b: int, seq: int, patches: int, frames: int,
+                       gen, dev) -> dict:
+    """Random tokens (b, seq), and the patch embeddings and encoder frames
+    the family takes, in its dtype."""
+    import torch
+    dt = torch.float32 if cfg.param_dtype == "float32" else torch.bfloat16
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (b, seq),
+                                   generator=gen, device=dev)}
+    for key, n in (("patch_embeds", patches), ("enc_frames", frames)):
+        if n:
+            out[key] = torch.randn((b, n, cfg.d_model), generator=gen,
+                                   device=dev).to(dt)
+    return out
+
+
+def _two_blocks(fn):
+    """``fn()`` with the MoE dispatched in 2 blocks, as the (2, 2) mesh's
+    2 rows dispatch it."""
+    import functools
+    from repro_torch.models import moe
+    real = moe.apply_moe
+    moe.apply_moe = functools.partial(real, n_blocks=2)
+    try:
+        return fn()
+    finally:
+        moe.apply_moe = real
+
+
+def _teacher_forced(params, cfg, seq, frames, dev, mesh=None):
+    """FAMILY_DECODE_STEPS serve steps fed ``seq``'s tokens from empty
+    states: (logits (B, steps, V), ms per step, the state)."""
+    import torch
+    from repro_torch.models import lm
+    b, steps = seq.shape
+    st = lm.init_decode_state(params, cfg, b, steps, enc_frames=frames,
+                              mesh=mesh)
+    step = lm.make_serve_step(cfg, mesh)
+    outs = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lg, st = step(params, st, seq[:, t:t + 1])
+        outs.append(lg)
+    _sync(dev)
+    return torch.stack(outs, 1), (time.perf_counter() - t0) / steps * 1e3, st
+
+
+def _mesh_family_serve(card: Card, arch: str, mesh, dev) -> dict:
+    """Phase 10b's serving half for one family: the unmeshed prefill and
+    teacher-forced decode, then the same on the mesh (the whole
+    parameters freed where they and the mesh's gathered blocks would not
+    fit together, and gathered back after), flash launches and every
+    device's bytes asserted, each launch held on its own inputs; MoE
+    layers compared as ``lm_mesh_phase`` compares them."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import lm, moe, sharding
+    from repro_torch.models.attention import FLASH_MIN_SEQ
+
+    t0 = time.perf_counter()
+    resident = _fresh_peak(dev)
+    layers = {JAMBA_ARCH: MESH_JAMBA_LAYERS, PIXTRAL_ARCH: MESH_PIXTRAL_LAYERS,
+              XLSTM_ARCH: XLSTM_CONSIST_LAYERS}.get(arch, 0)
+    cfg, params, gen = _mesh_family_model(arch, layers, arch == XLSTM_ARCH,
+                                          dev)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    tol = MESH_FAMILY_TOL[arch]
+    b = MESH_FAMILY_BATCH
+    text = {JAMBA_ARCH: JAMBA_PREFILL, XLSTM_ARCH: XLSTM_PREFILL,
+            PIXTRAL_ARCH: PIXTRAL_TEXT, WHISPER_ARCH: WHISPER_DEC}[arch]
+    patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+    frames_n = cfg.encoder_seq_cap if cfg.is_encdec else 0
+    batch = _mesh_family_batch(cfg, b, text, patches, frames_n, gen, dev)
+    warm = dict(batch, tokens=batch["tokens"][:, :64])
+    seq = torch.randint(0, cfg.vocab_size, (FAMILY_DECODE_BATCH,
+                                            FAMILY_DECODE_STEPS),
+                        generator=gen, device=dev)
+    frames = (_mesh_family_batch(cfg, FAMILY_DECODE_BATCH, 1, 0, frames_n,
+                                 gen, dev)["enc_frames"] if frames_n
+              else None)
+    n_attn = sum(s.mixer in ("attn", "attn_local") for s in cfg.layout())
+    flash = n_attn * mesh.size if text + patches >= FLASH_MIN_SEQ else 0
+    n_moe = sum(s.ff == "moe" for s in cfg.layout())
+    ref = ((lambda p, bt: _two_blocks(lambda: lm.prefill(p, cfg, bt)))
+           if n_moe else (lambda p, bt: lm.prefill(p, cfg, bt)))
+    print(f"  {cfg.name} d={cfg.d_model} layers={cfg.num_layers}"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''} "
+          f"{cfg.param_dtype}: {n_params / 1e9:.3f} B params; prefill {b} x "
+          f"({f'{patches} patches + ' if patches else ''}"
+          f"{f'{frames_n} frames + ' if frames_n else ''}{text} tokens)",
+          flush=True)
+
+    # ---- unmeshed: prefill (MoE in 2 blocks), teacher-forced decode
+    ref(params, warm)
+    _fresh_peak(dev)
+    ref_routes = []
+    t1 = time.perf_counter()
+    with _recorded_routes(ref_routes):
+        want = ref(params, batch)
+    _sync(dev)
+    plain_s = time.perf_counter() - t1
+    plain_peak = _peak_gb()
+    dec0, dec0_ms, _ = _teacher_forced(params, cfg, seq, frames, dev)
+
+    # ---- the mesh
+    placed = lm.place_params(params, cfg, mesh)
+    pbytes = _placed_bytes(placed, params)
+    if n_moe:     # jamba: the MoE layer's gathered experts need the room
+        del params
+        torch.cuda.empty_cache()
+    lm.prefill(placed, cfg, warm, mesh=mesh)
+    _fresh_peak(dev)
+    mesh_routes, mesh_dec_routes = [], []
+    moe.reset_dispatch_counts()
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    with _recorded_routes(mesh_routes):
+        got = lm.prefill(placed, cfg, batch, mesh=mesh)
+    _sync(dev)
+    mesh_s = time.perf_counter() - t1
+    mesh_peak = _peak_gb()
+    counts, routes = kernels.launch_counts(), flash_ops.route_counts()
+    paths = moe.dispatch_counts()
+    _want_flash(cfg, counts, routes, flash)
+    if tuple(got.shape) != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name} meshed prefill logits "
+                             f"{tuple(got.shape)}")
+    held = (_prefill_flash_held(placed, cfg, batch, mesh) if flash
+            else None)
+    if held is not None and held["launches"] != flash:
+        raise AssertionError(f"{cfg.name} meshed flash inputs: {held}")
+    moe.reset_dispatch_counts()
+    kernels.reset_launch_counts()
+    with _recorded_routes(mesh_dec_routes):
+        dec, dec_ms, st = _teacher_forced(placed, cfg, seq, frames, dev,
+                                          mesh)
+    dec_paths, dec_counts = moe.dispatch_counts(), kernels.launch_counts()
+    if any(dec_counts.values()) or not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name} meshed decode launches "
+                             f"{dec_counts}")
+    shapes = lm.abstract_decode_state(cfg, FAMILY_DECODE_BATCH,
+                                      FAMILY_DECODE_STEPS, frames_n)
+    sbytes = _placed_bytes(st.stack, shapes.stack)
+    if frames_n:
+        sbytes["enc"] = _placed_bytes(st.enc, shapes.enc)
+    replicas = (_replicas_bit_equal(st.stack) + _replicas_bit_equal(placed)
+                + (_replicas_bit_equal(st.enc) if frames_n else 0))
+    del st
+    rec = dict(arch=arch, layers=cfg.num_layers, dtype=cfg.param_dtype,
+               n_params=n_params, resident_gib=resident, batch=b,
+               prefill_text=text, patches=patches, frames=frames_n,
+               param_bytes=pbytes, state_bytes=sbytes, tol=tol,
+               prefill_s=mesh_s, prefill_plain_s=plain_s,
+               prefill_peak_gib=mesh_peak, prefill_plain_peak_gib=plain_peak,
+               prefill_launches=counts, prefill_routes=routes,
+               flash_held=held, decode_batch=FAMILY_DECODE_BATCH,
+               decode_steps=FAMILY_DECODE_STEPS, decode_ms=dec_ms,
+               decode_plain_ms=dec0_ms, decode_launches=dec_counts,
+               replicas_checked=replicas)
+
+    rec["prefill_err"] = _rel_err(got, want)
+    rec["decode_err"] = _rel_err(dec, dec0)
+    if n_moe:
+        # the mesh's routings: the prefill's EP blocks by row, decode's one
+        # block routed whole on every device (device 0's read)
+        if paths != {"one_block": 0, "blocked": 0, "ep": n_moe} or \
+                dec_paths != {"one_block": n_moe * FAMILY_DECODE_STEPS,
+                              "blocked": 0, "ep": 0}:
+            raise AssertionError(f"{cfg.name} meshed dispatch: prefill "
+                                 f"{paths}, decode {dec_paths}")
+        mesh_layers = _mesh_layer_routes(mesh_routes, mesh, n_moe)
+        flips, gap, last = _mesh_route_flips(ref_routes, mesh_layers, b,
+                                             text)
+        params = sharding.gather(placed)
+        del placed
+        torch.cuda.empty_cache()
+        ties, dec_ties = [], []
+        with _forced_routes(mesh_layers, ties):
+            forced = ref(params, batch)
+        with _forced_routes(mesh_dec_routes[::mesh.size], dec_ties):
+            dec_forced, _, _ = _teacher_forced(params, cfg, seq, frames, dev)
+        scale = want.float().abs().max()
+        row_err = [((got[r].float() - want[r].float()).abs().max()
+                    / scale).item() for r in range(b)]
+        rows = [r for r in range(b) if not last[r]]
+        rec.update(dispatch=paths, decode_dispatch=dec_paths, flips=flips,
+                   max_gap=gap, row_err=row_err, held_rows=rows,
+                   forced_err=_rel_err(got, forced),
+                   decode_forced_err=_rel_err(dec, dec_forced),
+                   ties=ties + dec_ties,
+                   tie_std=max(t["below"] for t in ties + dec_ties),
+                   moved_std=max(t["moved"] for t in ties + dec_ties))
+        bad = [rec["forced_err"], rec["decode_forced_err"]] + [
+            row_err[r] for r in rows]
+        del forced, dec_forced
+    else:
+        bad = [rec["prefill_err"], rec["decode_err"]]
+    del params, got, want, dec, dec0
+    if len(ref_routes) != n_moe or len(mesh_dec_routes) != \
+            n_moe * FAMILY_DECODE_STEPS * mesh.size:
+        raise AssertionError(f"{cfg.name} routings recorded: "
+                             f"{len(ref_routes)}, {len(mesh_dec_routes)}")
+    rec["wall_s"] = time.perf_counter() - t0
+    print(f"  {cfg.name} on {mesh.shape}: prefill {rec['prefill_s']:.4f} s "
+          f"(unmeshed {rec['prefill_plain_s']:.4f}), flash {routes} held on "
+          f"its own inputs {held}; decode {FAMILY_DECODE_BATCH} x "
+          f"{FAMILY_DECODE_STEPS}: {dec_ms:.2f} ms/token (unmeshed "
+          f"{dec0_ms:.2f}); max |diff| / max |logit| prefill "
+          f"{rec['prefill_err']:.3g}, decode {rec['decode_err']:.3g} (limit "
+          f"{tol}); {pbytes['per_device'][0] / 2 ** 30:.3f} GiB of "
+          f"parameters and {sbytes['per_device'][0] / 2 ** 20:.2f} MiB of "
+          f"decode state a device (local_shape counts); {replicas} replicas "
+          f"bit-equal after decode; peak {mesh_peak:.2f} GiB meshed, "
+          f"{plain_peak:.2f} unmeshed ({resident:.2f} resident); "
+          f"{rec['wall_s']:.1f} s  [{card.line}]", flush=True)
+    if n_moe:
+        print(f"  {cfg.name} MoE: dispatch {paths} / decode {dec_paths}; "
+              f"{flips} token-layers routed elsewhere in the prefill (gap <= "
+              f"{gap:.3g}); rows {[round(e, 5) for e in rec['row_err']]} "
+              f"held {rows}; routed as the mesh routed: prefill "
+              f"{rec['forced_err']:.3g}, decode "
+              f"{rec['decode_forced_err']:.3g} (limit {tol}); the mesh's "
+              f"weakest expert <= {rec['tie_std']:.3g} router-logit std "
+              f"below the k-th (limit {MESH_TIE_STD})", flush=True)
+        if not rec["tie_std"] <= MESH_TIE_STD:
+            raise AssertionError(f"{cfg.name}: the mesh picked an expert "
+                                 f"{rec['tie_std']} std below the k-th")
+    if not all(e <= tol for e in bad):
+        raise AssertionError(f"{cfg.name} meshed against unmeshed: {bad} "
+                             f"(limit {tol})")
+    return rec
+
+
+def _mesh_family_train(card: Card, arch: str, mesh, dev) -> dict:
+    """Phase 10b's training half at MESH_FAMILY_BATCH x MESH_FAMILY_TRAIN's
+    tokens: one ``value_and_grad`` unmeshed and on the mesh, each leaf's
+    gathered gradient within MESH_GRAD_TOL of it in L2 norm (its largest
+    element's error reported); then AdamW steps unmeshed and on the mesh
+    from the same state (the unmeshed one freed first): the first steps'
+    losses within MESH_LOSS_TOL and grad norms within MESH_GNORM_TOL,
+    every device's parameter and moment bytes ``local_shape``'s, every
+    replica bit-equal after the first step, no kernel launched; a second
+    step of each timed."""
+    import torch
+    from repro_torch import kernels, tree
+    from repro_torch.models import lm, sharding
+    from repro_torch.optim import adamw
+
+    cfg, params, gen = _mesh_family_model(
+        arch, MESH_FAMILY_TRAIN_LAYERS[arch], arch == XLSTM_ARCH, dev)
+    batch = _mesh_family_batch(cfg, MESH_FAMILY_BATCH,
+                               *MESH_FAMILY_TRAIN[arch], gen, dev)
+    opt = adamw(3e-4)
+    kernels.reset_launch_counts()
+
+    def errs(got, want):
+        """Each leaf's |difference| over |gradient|: (largest over
+        largest, the L2 norm over the L2 norm)."""
+        out = {}
+        for (n, a), b in zip(tree.named_leaves(got), tree.leaves(want)):
+            d, b = a.float() - b.float(), b.float()
+            out["/".join(n)] = ((d.abs().max() / b.abs().max()).item(),
+                                (d.norm() / b.norm()).item())
+        return out
+
+    def worst(e, i):
+        name = max(e, key=lambda n: e[n][i])
+        return name, e[name][i], statistics.median(v[i] for v in e.values())
+
+    # ---- one value_and_grad, gathered, against the unmeshed one
+    _, _, want = lm.value_and_grad(params, cfg, batch)
+    placed = lm.place_params(params, cfg, mesh)
+    _, _, got = lm.value_and_grad(placed, cfg, batch, mesh=mesh)
+    del placed
+    grad_errs = errs(sharding.gather(got), want)
+    grad_counts = kernels.launch_counts()
+    del got, want
+    torch.cuda.empty_cache()
+    l2_leaf, grad_err, l2_med = worst(grad_errs, 1)
+    max_leaf, grad_max_err, max_med = worst(grad_errs, 0)
+    print(f"  {cfg.name} {cfg.num_layers} layers, gathered gradients of one "
+          f"{MESH_FAMILY_BATCH} x {MESH_FAMILY_TRAIN[arch]} batch, "
+          f"{len(grad_errs)} leaves: |diff| / |grad| (L2) worst "
+          f"{grad_err:.3g} ({l2_leaf}), median {l2_med:.3g} (limit "
+          f"{MESH_GRAD_TOL}); max |diff| / max |grad| worst "
+          f"{grad_max_err:.3g} ({max_leaf}), median {max_med:.3g}",
+          flush=True)
+    if not grad_err <= MESH_GRAD_TOL or any(grad_counts.values()):
+        raise AssertionError(f"{cfg.name} meshed gradients differ by "
+                             f"{grad_err} ({l2_leaf}); launches "
+                             f"{grad_counts}")
+
+    def fresh():
+        return lm.TrainState(params, opt.init(params), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+
+    def two(state, mesh_=None):
+        """The first step (its loss and grad norm, and the replicas after
+        it) and a second, timed: (loss, grad norm, s, peak GiB,
+        replicas)."""
+        _fresh_peak(dev)
+        kernels.reset_launch_counts()
+        step = lm.make_train_step(cfg, opt, mesh=mesh_)
+        state, m = step(state, batch)
+        loss = float(m["loss"])                    # waits for the device
+        gnorm = float(m["grad_norm"])
+        replicas = 0 if mesh_ is None else (
+            _replicas_bit_equal(state.params)
+            + _replicas_bit_equal(state.opt_state))
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        return loss, gnorm, time.perf_counter() - t1, _peak_gb(), replicas
+
+    loss0, gnorm0, s0, peak0, _ = two(fresh())
+    box = [lm.place_train_state(fresh(), cfg, mesh)]   # the step's only ref
+    pbytes = _placed_bytes(box[0].params, params)
+    obytes = _placed_bytes(box[0].opt_state,
+                           lm.abstract_train_state(cfg, opt).opt_state)
+    loss, gnorm, s, peak, replicas = two(box.pop(), mesh)
+    counts = kernels.launch_counts()
+    del params
+    err = abs(loss - loss0) / abs(loss0)
+    gnorm_err = abs(gnorm - gnorm0) / abs(gnorm0)
+    print(f"  {cfg.name} {cfg.num_layers} layers, AdamW at "
+          f"{MESH_FAMILY_BATCH} x {MESH_FAMILY_TRAIN[arch]} (tokens, "
+          f"patches, frames), the second step timed: mesh {s:.4f} s, first "
+          f"loss {loss:.5f}, grad norm {gnorm:.5g}, peak {peak:.2f} GiB; "
+          f"unmeshed {s0:.4f} s, loss {loss0:.5f}, grad norm {gnorm0:.5g}, "
+          f"peak {peak0:.2f} GiB (rel {err:.3g}, limit {MESH_LOSS_TOL}; "
+          f"{gnorm_err:.3g}, limit {MESH_GNORM_TOL}); "
+          f"{pbytes['per_device'][0] / 2 ** 30:.3f} GiB of parameters and "
+          f"{obytes['per_device'][0] / 2 ** 30:.3f} GiB of moments a device; "
+          f"{replicas} replicas bit-equal; launches {counts}  [{card.line}]",
+          flush=True)
+    if not (math.isfinite(loss) and err <= MESH_LOSS_TOL
+            and gnorm_err <= MESH_GNORM_TOL) or any(counts.values()):
+        raise AssertionError(f"{cfg.name} meshed step loss {loss}, grad "
+                             f"norm {gnorm}, unmeshed {loss0}, {gnorm0}, "
+                             f"launches {counts}")
+    return dict(layers=cfg.num_layers, tokens=MESH_FAMILY_TRAIN[arch],
+                batch=MESH_FAMILY_BATCH, step_s=s, plain_step_s=s0,
+                loss=loss, plain_loss=loss0, loss_err=err, grad_norm=gnorm,
+                plain_grad_norm=gnorm0, grad_norm_err=gnorm_err,
+                grad_err=grad_err, grad_worst=l2_leaf,
+                grad_max_err=grad_max_err,
+                peak_gib=peak,
+                plain_peak_gib=peak0, param_bytes=pbytes,
+                moment_bytes=obytes, replicas_checked=replicas,
+                launches=counts)
+
+
+def lm_mesh_families_phase(card: Card, dev="cuda") -> dict:
+    """Phase 10b: jamba, xlstm, pixtral and whisper on a virtual
+    MESH_SHAPE (data, model) mesh of the card against the unmeshed path on
+    the same weights and inputs (see MESH_FAMILY_TOL and the constants
+    beside it): each family's prefill, teacher-forced decode and one
+    AdamW step."""
+    import torch
+    from repro_torch.launch.mesh import LMMesh
+
+    t_phase = time.perf_counter()
+    mesh = LMMesh.virtual(dev, *MESH_SHAPE)
+    out = {}
+    for name, arch in (("jamba", JAMBA_ARCH), ("xlstm", XLSTM_ARCH),
+                       ("pixtral", PIXTRAL_ARCH), ("whisper", WHISPER_ARCH)):
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = arch != XLSTM_ARCH and tf32
+        try:
+            out[name] = _mesh_family_serve(card, arch, mesh, dev)
+            torch.cuda.empty_cache()
+            out[name]["train"] = _mesh_family_train(card, arch, mesh, dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  lm mesh families phase wall {out['wall_s']:.2f} s  "
+          f"[{card.line}]", flush=True)
+    return out
+
+
 def _device_totals(counter) -> dict:
     """Flops and bytes of a count's device ops (host-side ops left out)."""
     ops = {k: v for k, v in counter.by_op().items()
@@ -5611,6 +6032,8 @@ def main(argv=None) -> int:
         moe_out = moe_phase(card)
         fam_out = families_phase(card)
         torch.cuda.empty_cache()
+        mesh_fam_out = lm_mesh_families_phase(card)
+        torch.cuda.empty_cache()
         launch_out = launch_phase(card, depths)
         torch.cuda.synchronize()
     except Exception:      # any failed phase: report it and exit non-zero
@@ -5658,9 +6081,20 @@ def main(argv=None) -> int:
                     name],
                 launches_pixtral_prefill=fam_out["pixtral"][
                     "prefill_launches"][name],
+                **{f"launches_mesh_{fam}_prefill": mesh_fam_out[fam][
+                    "prefill_launches"][name]
+                   for fam in ("jamba", "xlstm", "pixtral", "whisper")},
+                launches_mesh_families_train={
+                    fam: mesh_fam_out[fam]["train"]["launches"][name]
+                    for fam in ("jamba", "xlstm", "pixtral", "whisper")},
                 **{f"{fam}_prefill": {k: flash[fam][k] for k in (
                     "shape", "dtype", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "max_abs_err", "worst_row")}
+                   for fam in ("jamba", "pixtral", "jamba_mesh",
+                               "pixtral_mesh")},
+                **{f"{fam}_mesh_prefill_inputs": {
+                    k: mesh_fam_out[fam]["flash_held"][k] for k in (
+                        "launches", "max_abs_err", "worst_row")}
                    for fam in ("jamba", "pixtral")},
                 **{f"{fam}_prefill_inputs": {
                     k: fam_out[fam]["flash_held"][k] for k in (
@@ -5778,7 +6212,8 @@ def main(argv=None) -> int:
             serving=serve_out, lm_mesh=mesh_out, train=train_out,
             lm_mesh_train=mesh_train_out,
             federated=fed_out,
-            moe=moe_out, families=fam_out, launch=launch_out,
+            moe=moe_out, families=fam_out,
+            lm_mesh_families=mesh_fam_out, launch=launch_out,
             lm_importance=lm_importance,
             summary=line_kernels),
             indent=1))
@@ -5814,6 +6249,15 @@ def main(argv=None) -> int:
           "ms/token: " + ", ".join(
               f"{k} {fam_out[k]['prefill_s']:.4f} / "
               f"{fam_out[k]['decode']['ms_per_token']:.2f}"
+              for k in ("jamba", "xlstm", "pixtral", "whisper"))
+          + f"; on the {MESH_SHAPE} mesh prefill s / decode ms/token / s "
+          "per train step (unmeshed): " + ", ".join(
+              f"{k} {mesh_fam_out[k]['prefill_s']:.4f} / "
+              f"{mesh_fam_out[k]['decode_ms']:.2f} / "
+              f"{mesh_fam_out[k]['train']['step_s']:.4f} ("
+              f"{mesh_fam_out[k]['prefill_plain_s']:.4f} / "
+              f"{mesh_fam_out[k]['decode_plain_ms']:.2f} / "
+              f"{mesh_fam_out[k]['train']['plain_step_s']:.4f})"
               for k in ("jamba", "xlstm", "pixtral", "whisper"))
           + f"; launch phase {launch_out['phase_wall_s']:.2f} s (dry-run "
           f"sweep {launch_out['sweep_s']:.2f} s)",

@@ -11,9 +11,9 @@ The counterpart of ``repro.launch.serve``, with its flags, and
 package's ``make_host_mesh(len(jax.devices()))``), so one card runs
 unmeshed.  ``--production-mesh`` asks for the reference's (16, 16)
 mesh, which needs 256 cards.  ``--virtual`` asks for a mesh of that
-shape whose shards all sit on the one device (``LMMesh.virtual``).  On
-a mesh of several shards the dense and MoE families serve; the others
-raise ``NotImplementedError`` (ROADMAP A19 item 3).  ``launch.dryrun``
+shape whose shards all sit on the one device (``LMMesh.virtual``).
+Every family serves on a mesh of several shards, as unmeshed.
+``launch.dryrun``
 accounts for the production meshes.  ``--reduced`` (the default)
 picks the smoke-test variant of the architecture; ``--full-config`` the
 published one.  Every architecture of the registry serves: an enc-dec

@@ -15,8 +15,8 @@ unmeshed), ``--mesh D,M`` a (data, model) ``LMMesh`` of the visible
 cards, ``--production-mesh [--multi-pod]`` the reference's (16, 16) or
 (2, 16, 16) one (256 or 512 cards), and ``--virtual`` that shape with
 every shard on the one device.  On a mesh of several shards the state
-is placed by ``lm.place_train_state`` and the dense and MoE families
-train (the others raise: ROADMAP A19 item 3).  ``--device`` (default:
+is placed by ``lm.place_train_state``; every family of the registry
+trains there.  ``--device`` (default:
 cuda) picks the card or the CPU.  ``--num-layers`` cuts the depth, as
 ``launch.serve.build`` does.  Checkpoints go through
 ``repro_torch.checkpoint.save_checkpoint``; on a mesh they hold the

@@ -18,7 +18,8 @@ The counterpart of ``repro.models.attention`` for the dense family:
     attends, and projects out through its rows of ``wo``: a partial
     (B, S, D) the caller sums over ``model``.  Where the kv heads do not
     divide by the axis they are replicated, and a shard reads exactly the
-    kv heads its q heads map to.
+    kv heads its q heads map to.  ``cross_attention_shard`` splits the
+    decoder-to-encoder attention the same way.
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, Hkv, hd).  Matmuls run in
 the compute dtype, the softmax in fp32.  At ``s >= FLASH_MIN_SEQ`` the
@@ -312,16 +313,23 @@ def _shard_heads(p, cfg: ModelConfig, j: int):
     return _kv_read(j * h_l, h_l, h // hkv), True
 
 
-def self_attention_shard(p, cfg: ModelConfig, x: torch.Tensor, j: int, *,
-                         mode: str, window: Optional[int] = None
-                         ) -> Tuple[torch.Tensor, bool]:
-    """Model shard ``j`` of a head-parallel ``self_attention``: (its
-    output, whether that is a partial sum over ``model``)."""
+def _shard_view(p, cfg: ModelConfig, j: int) -> Tuple[dict, bool]:
+    """Shard ``j``'s weights with ``wk``/``wv`` cut to the kv heads its q
+    heads read, and whether its output is a partial sum."""
     kv_read, partial = _shard_heads(p, cfg, j)
     if kv_read is not None:
         idx = torch.tensor(kv_read, device=p["wk"].device)
         p = dict(p, wk=p["wk"].index_select(-2, idx),
                  wv=p["wv"].index_select(-2, idx))
+    return p, partial
+
+
+def self_attention_shard(p, cfg: ModelConfig, x: torch.Tensor, j: int, *,
+                         mode: str, window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, bool]:
+    """Model shard ``j`` of a head-parallel ``self_attention``: (its
+    output, whether that is a partial sum over ``model``)."""
+    p, partial = _shard_view(p, cfg, j)
     return self_attention(p, cfg, x, mode=mode, window=window), partial
 
 
@@ -355,3 +363,13 @@ def cross_attention(p, cfg: ModelConfig, x: torch.Tensor, enc: torch.Tensor
     out = _sdpa(_proj(x, p["wq"]), _proj(enc, p["wk"]), _proj(enc, p["wv"]),
                 None)
     return _out_proj(out, p["wo"])
+
+
+def cross_attention_shard(p, cfg: ModelConfig, x: torch.Tensor,
+                          enc: torch.Tensor, j: int
+                          ) -> Tuple[torch.Tensor, bool]:
+    """Model shard ``j`` of a head-parallel ``cross_attention`` (the
+    weights under self-attention's head specs): (its output, whether that
+    is a partial sum over ``model``)."""
+    p, partial = _shard_view(p, cfg, j)
+    return cross_attention(p, cfg, x, enc), partial

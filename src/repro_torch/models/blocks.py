@@ -37,8 +37,18 @@ does not divide) is computed on every device that holds it, as a real
 mesh does.  The meshed stack is differentiable: autograd's transposes
 of the row sums and of the FSDP gathers land on the blocks each device
 read, and ``models.sharding.reduce_replicas`` completes the gradient.
-The dense and MoE families run there; the recurrent mixers,
-cross-attention and the VLM prefix on a mesh are ROADMAP A19 item 3.
+Every mixer runs there.  A Mamba shard runs its block of the inner
+channels (conv, ``dt_proj``, scan and state per channel), an mLSTM or
+sLSTM shard the heads its channels fall in; ``in_proj``'s and ``up``'s
+fused ``(x, z)`` columns are read at the shard's channels of each half
+(``sharding.read``), mLSTM's ``wq``/``wk``/``wv`` (cut within a head)
+whole for its heads.  The contractions over the inner channels
+(``x_proj``, the xLSTM gate inputs, ``out_norm``'s mean square, the
+output projections) are summed over ``model`` before what follows them.
+The xLSTM decode states are whole on every device of a row: each head's
+new state is copied from the device that ran it into every copy.
+Cross-attention splits its heads as self-attention does, against every
+device's rows of the encoder output.
 """
 
 from __future__ import annotations
@@ -343,16 +353,10 @@ def _local(shards, specs, name: str, mesh, k: int):
                                mesh, k)
 
 
-def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
-                mb: MeshBatch, *, mode: str = "causal", states=None,
-                pos: int = 0):
-    """One layer on the mesh: prefill (``states`` None) or one decode
-    step on every device's block of its cache.  Returns (xs, aux)."""
-    mesh = mb.mesh
-    if spec.mixer not in ATTN_MIXERS or spec.cross_attention:
-        raise NotImplementedError(
-            f"the {spec.mixer} mixer{' with cross-attention' if spec.cross_attention else ''}"
-            f" on a mesh is ROADMAP A19 item 3")
+def _attention_mesh(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
+                    mesh, mode: str, states, pos: int):
+    """Every device's self-attention on its heads: (outputs, whether they
+    are partial sums over ``model``)."""
     ys, partial = [], False
     for k in range(mesh.size):
         norm = _local(shards, specs, "pre_norm", mesh, k)
@@ -368,9 +372,122 @@ def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
                 mode=_attn_mode(spec, "causal"))
         ys.append(y)
         del p
+    return ys, partial
+
+
+def _mixer_params(shards, specs, mesh, k: int, reads: Dict):
+    """Device ``k``'s mixer parameters: every leaf gathered over the data
+    axes (``sharding.local_tree``) but those of ``reads``, read at the
+    regions it gives them (``sharding.read``)."""
+    mine = [sh["mixer"] for sh in shards]
+    sp = specs["mixer"]
+    p = sharding.local_tree([{n: t for n, t in m.items() if n not in reads}
+                             for m in mine],
+                            {n: e for n, e in sp.items() if n not in reads},
+                            mesh, k)
+    for n, region in reads.items():
+        p[n] = sharding.read([m[n] for m in mine], sp[n], mesh, k, region)
+    return p
+
+
+def _store_heads(views, news, shares, mesh) -> None:
+    """Write an xLSTM layer's new states, each device's of its heads, into
+    every device's whole copy (the states are replicated over
+    ``model``): each head from the first device of the row that ran it,
+    so every copy of a row is the same, bit for bit."""
+    m = mesh.n_model
+    for r in range(mesh.n_rows):
+        row = range(r * m, (r + 1) * m)
+        done = set()
+        for i in row:
+            heads = shares[i].heads
+            if (heads.start, heads.stop) in done:
+                continue
+            done.add((heads.start, heads.stop))
+            for k in row:
+                for dst, src in zip(views[k], news[i]):
+                    dst[:, heads].copy_(src)
+
+
+def _recurrent_mesh(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
+                    mesh, states):
+    """The Mamba, mLSTM and sLSTM mixers on the mesh: each device runs its
+    block of the inner channels (an xLSTM shard the heads they fall in),
+    the contractions over them summed over ``model``; a decode step
+    writes every device's state block in place.  Returns (outputs,
+    whether they are partial sums over ``model``)."""
+    hs = [layers.apply_norm(_local(shards, specs, "pre_norm", mesh, k),
+                            xs[k], cfg.norm) for k in range(mesh.size)]
+    mamba = spec.mixer == "mamba"
+    di = ssm.d_inner(cfg) if mamba else xlstm.d_inner(cfg)
+    inner = specs["mixer"]["out_proj" if mamba else "down"][0]
+    ranges = [sharding.block_range(inner, mesh, k, di)
+              for k in range(mesh.size)]
+    partial = ranges[0] != (0, di)
+
+    def psum(parts):
+        return sharding.psum_model(parts, mesh) if partial else parts
+
+    if mamba:
+        ps = [_mixer_params(shards, specs, mesh, k, {"in_proj": [
+            None, [(lo, hi), (di + lo, di + hi)]]})
+            for k, (lo, hi) in enumerate(ranges)]
+        if states is None:
+            return ssm.mamba_forward_shard(ps, cfg, hs, psum), partial
+        ys, new = ssm.mamba_decode_shard(ps, cfg, hs, states, psum)
+        for view, n in zip(states, new):
+            _store(view, n)
+        return ys, partial
+    shares = [xlstm.share(cfg, lo, hi) for lo, hi in ranges]
+    ps = []
+    for k, sh in enumerate(shares):
+        reads = {"up": [None, xlstm.up_columns(cfg, sh)]}
+        if spec.mixer == "mlstm":
+            reads.update({w: [[(sh.heads.start, sh.heads.stop)], None, None]
+                          for w in ("wq", "wk", "wv")})
+        ps.append(_mixer_params(shards, specs, mesh, k, reads))
+    if states is None:
+        fwd = (xlstm.mlstm_forward_shard if spec.mixer == "mlstm"
+               else xlstm.slstm_forward_shard)
+        return fwd(ps, cfg, hs, shares, psum), partial
+    dec = (xlstm.mlstm_decode_shard if spec.mixer == "mlstm"
+           else xlstm.slstm_decode_shard)
+    ys, new = dec(ps, cfg, hs, states, shares, psum)
+    _store_heads(states, new, shares, mesh)
+    return ys, partial
+
+
+def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
+                mb: MeshBatch, *, mode: str = "causal", states=None,
+                pos: int = 0, enc=None):
+    """One layer on the mesh: prefill (``states`` None) or one decode
+    step on every device's block of its state; ``enc`` every device's
+    rows of the encoder output (enc-dec).  Returns (xs, aux)."""
+    mesh = mb.mesh
+    if spec.mixer in ATTN_MIXERS:
+        ys, partial = _attention_mesh(shards, specs, cfg, spec, xs, mesh,
+                                      mode, states, pos)
+    elif spec.mixer in ("mamba", "mlstm", "slstm"):
+        ys, partial = _recurrent_mesh(shards, specs, cfg, spec, xs, mesh,
+                                      states)
+    else:
+        raise ValueError(spec.mixer)
     if partial:
         ys = sharding.psum_model(ys, mesh)
     xs = [x + y for x, y in zip(xs, ys)]
+    if spec.cross_attention and enc is not None:
+        ys = []
+        for k in range(mesh.size):
+            h = layers.apply_norm(_local(shards, specs, "cross_norm", mesh,
+                                         k), xs[k], cfg.norm)
+            p = _local(shards, specs, "cross", mesh, k)
+            y, partial = attention.cross_attention_shard(p, cfg, h, enc[k],
+                                                         mesh.col(k))
+            ys.append(y)
+            del p
+        if partial:
+            ys = sharding.psum_model(ys, mesh)
+        xs = [x + y for x, y in zip(xs, ys)]
     aux = None
     if spec.ff == "dense":
         ys = []
@@ -402,11 +519,12 @@ def _mesh_block(shards, specs, cfg: ModelConfig, spec: BlockSpec, xs,
 
 
 def apply_stack_mesh(placed: "sharding.Placed", cfg: ModelConfig,
-                     plan: StackPlan, xs, mb: MeshBatch, *,
+                     plan: StackPlan, xs, mb: MeshBatch, *, enc=None,
                      mode: str = "causal", remat: bool = True):
     """``apply_stack`` on the mesh: ``placed`` the stack's placed
-    parameters, ``xs`` every device's (B_k, S, D) residual.  Returns (xs,
-    total moe_aux).
+    parameters, ``xs`` every device's (B_k, S, D) residual, ``enc`` every
+    device's rows of the encoder output (enc-dec; ``mode`` "bidir" runs
+    the encoder itself).  Returns (xs, total moe_aux).
 
     Differentiable.  ``remat`` (where autograd records) runs each layer
     under ``torch.utils.checkpoint``: its FSDP-gathered blocks and
@@ -429,8 +547,9 @@ def apply_stack_mesh(placed: "sharding.Placed", cfg: ModelConfig,
     def layer(shards, specs, spec, xs):
         if ckpt:
             return checkpoint(_mesh_block, shards, specs, cfg, spec, xs, mb,
-                              mode=mode, use_reentrant=False)
-        return _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode)
+                              mode=mode, enc=enc, use_reentrant=False)
+        return _mesh_block(shards, specs, cfg, spec, xs, mb, mode=mode,
+                           enc=enc)
 
     for i in range(plan.n_super):
         for pi, spec in enumerate(plan.period):
@@ -450,18 +569,20 @@ def apply_stack_mesh(placed: "sharding.Placed", cfg: ModelConfig,
 
 def apply_stack_decode_mesh(placed: "sharding.Placed", cfg: ModelConfig,
                             plan: StackPlan, xs, state: "sharding.Placed",
-                            pos: int, mb: MeshBatch):
+                            pos: int, mb: MeshBatch, *, enc=None):
     """One decode step through the stack on the mesh; every device's
-    block of every cache (``state.shards[k]``) is written in place."""
+    block of every cache and recurrent state (``state.shards[k]``) is
+    written in place, a recurrent state through the stack's views as
+    ``apply_stack_decode`` writes it."""
     for i in range(plan.n_super):
         for pi, spec in enumerate(plan.period):
             shards, specs = _layer(placed, f"p{pi}", i)
             views = [_slice(st["super"][f"p{pi}"], i) for st in state.shards]
             xs, _ = _mesh_block(shards, specs, cfg, spec, xs, mb,
-                                states=views, pos=pos)
+                                states=views, pos=pos, enc=enc)
     for ri, spec in enumerate(plan.remainder):
         shards, specs = _layer(placed, f"r{ri}", None)
         views = [st["rem"][f"r{ri}"] for st in state.shards]
         xs, _ = _mesh_block(shards, specs, cfg, spec, xs, mb, states=views,
-                            pos=pos)
+                            pos=pos, enc=enc)
     return xs

@@ -49,13 +49,21 @@ def init_norm(d: int, norm: str, device, lead: Tuple[int, ...] = ()):
     return p
 
 
+def rms_normalize(xf: torch.Tensor, mean_sq: torch.Tensor,
+                  scale: torch.Tensor, dtype, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """The RMS norm of fp32 ``xf`` given its mean square over the normed
+    dimension (of which ``xf`` and ``scale`` may be one block), cast to
+    ``dtype``."""
+    return (xf * torch.rsqrt(mean_sq + eps) * scale.float()).to(dtype)
+
+
 def apply_norm(p, x: torch.Tensor, norm: str, eps: float = 1e-6
                ) -> torch.Tensor:
     xf = x.float()
     if norm == "rmsnorm":
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps)
-        return (y * p["scale"].float()).to(x.dtype)
+        return rms_normalize(xf, torch.mean(xf * xf, dim=-1, keepdim=True),
+                             p["scale"], x.dtype, eps)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)

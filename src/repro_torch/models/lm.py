@@ -42,9 +42,11 @@ device.  Training runs there too: ``loss_fn``, ``value_and_grad`` and
 :func:`place_train_state` (or ``convert.train_state_to_mesh``); the
 cross-entropy is vocab-parallel, each device's gradient is that of its
 blocks (``sharding.reduce_replicas`` sums the replicas) and the
-optimizer updates every device's blocks (``optim.update_placed``).  The
-dense and MoE families serve and train on a mesh; the others raise
-``NotImplementedError`` there (ROADMAP A19 item 3).
+optimizer updates every device's blocks (``optim.update_placed``).
+Every family serves and trains there: a VLM's patch prefix is split over
+data with its tokens, and an enc-dec model runs its encoder on the mesh
+(``"bidir"``), its decode state holding every device's rows of the
+encoder output under ``("batch", "seq", None)``.
 
 For the dry-run (``launch/dryrun.py``): ``abstract_params``,
 ``abstract_train_state`` and ``abstract_decode_state`` build the same
@@ -172,9 +174,8 @@ def forward(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
     each super-block (on a ``mesh``, each layer) in the backward pass.
     On a ``mesh`` (``params`` placed on it) the logits are gathered on
     its first device."""
-    if _meshed(params, cfg, mesh):
-        xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"],
-                                    remat=remat)
+    if _meshed(params, mesh):
+        xs, mb, aux = _decoder_mesh(params, cfg, batch, remat=remat)
         return _logits_mesh(params, cfg, xs, mb), aux
     params = _unwrap(params)
     x, aux = _decoder(params, cfg, batch, remat)
@@ -187,9 +188,8 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict, remat: bool = True,
     (total, {"ce", "moe_aux"}).  On a ``mesh`` the cross-entropy is
     vocab-parallel (:func:`_ce_mesh`): no device holds the whole
     logits."""
-    if _meshed(params, cfg, mesh):
-        xs, mb, aux = _decoder_mesh(params, cfg, batch["tokens"],
-                                    remat=remat)
+    if _meshed(params, mesh):
+        xs, mb, aux = _decoder_mesh(params, cfg, batch, remat=remat)
         ce = _ce_mesh(params, cfg, xs, mb, batch["tokens"])
         return ce + aux, {"ce": ce, "moe_aux": aux}
     logits, aux = forward(params, cfg, batch, remat=remat, mesh=mesh)
@@ -224,7 +224,7 @@ def value_and_grad(params, cfg: ModelConfig, batch: Dict,
     dtypes, as ``jax.value_and_grad`` gives them.  On a ``mesh`` the
     grads are a ``sharding.Placed`` of every device's blocks, each the
     whole gradient of its block (``sharding.reduce_replicas``)."""
-    if _meshed(params, cfg, mesh):
+    if _meshed(params, mesh):
         return _value_and_grad_mesh(params, cfg, batch, remat)
     if mesh is not None:
         loss, metrics, grads = value_and_grad(_unwrap(params), cfg, batch,
@@ -322,8 +322,8 @@ def prefill(params, cfg: ModelConfig, batch: Dict, mesh=None
     logits (34 GB at S = 32768 for a 262k vocabulary).  ``batch`` is
     ``forward``'s (``patch_embeds``, ``enc_frames`` where the family
     takes them).  On a ``mesh``, ``params`` are placed on it."""
-    if _meshed(params, cfg, mesh):
-        xs, mb, _ = _decoder_mesh(params, cfg, batch["tokens"])
+    if _meshed(params, mesh):
+        xs, mb, _ = _decoder_mesh(params, cfg, batch)
         return _logits_mesh(params, cfg, [x[:, -1] for x in xs], mb)
     x, _ = _decoder(_unwrap(params), cfg, batch)
     return _logits(_unwrap(params), cfg, x[:, -1])
@@ -409,10 +409,9 @@ def _value_and_grad_mesh(params: sharding.Placed, cfg: ModelConfig,
             sharding.reduce_replicas(placed))
 
 
-def _meshed(params, cfg: ModelConfig, mesh) -> bool:
+def _meshed(params, mesh) -> bool:
     """Whether a call runs the meshed path (a mesh of several devices):
-    checks that ``params`` are placed on ``mesh`` and that the family
-    runs on a mesh."""
+    checks that ``params`` are placed on ``mesh``."""
     if mesh is None:
         if isinstance(params, sharding.Placed):
             raise TypeError("placed parameters need their mesh= as well")
@@ -420,23 +419,44 @@ def _meshed(params, cfg: ModelConfig, mesh) -> bool:
     if not isinstance(params, sharding.Placed) or params.mesh != mesh:
         raise TypeError("on a mesh, pass the parameters placed on it "
                         "(lm.place_params or convert.lm_params_to_mesh)")
-    if mesh.size == 1:
-        return False
-    if cfg.family not in ("dense", "moe") or cfg.is_encdec:
-        raise NotImplementedError(
-            f"the {cfg.family} family on a mesh of several devices is "
-            f"ROADMAP A19 item 3")
-    return True
+    return mesh.size > 1
 
 
-def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig,
-                  tokens: torch.Tensor, state=None, remat: bool = True):
-    """Every device's residual stream after the stack: the forward
-    (``state`` None) or one decode step on ``state`` (its caches written
-    in place).  Returns (xs, the MeshBatch, moe_aux)."""
+def _encoder_mesh(params: sharding.Placed, cfg: ModelConfig,
+                  frames: torch.Tensor, remat: bool = True):
+    """Enc-dec: every device's rows of the encoder output over ``frames``
+    (B, S_enc, D), its batch over the data axes: the encoder stack in
+    ``"bidir"`` mode on the mesh, then each device's ``enc_norm``."""
     mesh = params.mesh
+    frames = frames.to(_dtype(cfg))
+    pe = layers.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                     frames.device)
+    b, s, d = frames.shape
+    mb = blocks.MeshBatch.of(mesh, b, s, d)
+    hs = sharding.split(frames + pe.to(frames.dtype), mb.spec, mesh)
+    stack = sharding.Placed(mesh, params.specs["encoder"],
+                            tuple(sh["encoder"] for sh in params.shards))
+    hs, _ = blocks.apply_stack_mesh(stack, cfg, encoder_plan_for(cfg), hs,
+                                    mb, mode="bidir", remat=remat)
+    return [layers.apply_norm(sharding.local_tree(
+        [sh["enc_norm"] for sh in params.shards], params.specs["enc_norm"],
+        mesh, k), h, cfg.norm) for k, h in enumerate(hs)]
+
+
+def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig, batch: Dict,
+                  state=None, remat: bool = True):
+    """Every device's residual stream after the stack, at the text
+    positions: the forward (``state`` None) or one decode step on
+    ``state`` (its caches and recurrent states written in place).  A VLM
+    batch's patch prefix is split over data with the tokens and prefixed
+    on every device; an enc-dec forward runs the encoder on the mesh
+    first (a decode step reads ``state.enc``).  Returns (xs, the
+    MeshBatch, moe_aux)."""
+    mesh = params.mesh
+    tokens = batch["tokens"]
     b, s = tokens.shape
-    mb = blocks.MeshBatch.of(mesh, b, s, cfg.d_model)
+    n_p = _patches(cfg, batch)
+    mb = blocks.MeshBatch.of(mesh, b, n_p + s, cfg.d_model)
     toks = sharding.split(tokens, mb.spec[:2], mesh)
     parts, partial = [], False
     for k in range(mesh.size):
@@ -450,16 +470,30 @@ def _decoder_mesh(params: sharding.Placed, cfg: ModelConfig,
     if partial:
         parts = sharding.psum_model(parts, mesh)
     xs = [x.to(_dtype(cfg)) for x in parts]
+    if n_p:
+        pre = sharding.split(batch["patch_embeds"], mb.spec, mesh)
+        xs = [torch.cat([p.to(x.dtype), x], dim=1) for p, x in zip(pre, xs)]
+    enc = None
+    if cfg.is_encdec:
+        if state is None:
+            pe = layers.sinusoidal_positions(n_p + s, cfg.d_model,
+                                             mesh.devices[0])
+            enc = _encoder_mesh(params, cfg, batch["enc_frames"], remat)
+        else:
+            pe = layers.sinusoid_at(state.pos, cfg.d_model, mesh.devices[0])
+            enc = list(state.enc.shards)
+        xs = [x + pe.to(x.device, x.dtype) for x in xs]
     stack = sharding.Placed(mesh, params.specs["stack"],
                             tuple(sh["stack"] for sh in params.shards))
     if state is None:
         xs, aux = blocks.apply_stack_mesh(stack, cfg, plan_for(cfg), xs, mb,
-                                          remat=remat)
+                                          enc=enc, remat=remat)
     else:
         xs = blocks.apply_stack_decode_mesh(stack, cfg, plan_for(cfg), xs,
-                                            state.stack, state.pos, mb)
+                                            state.stack, state.pos, mb,
+                                            enc=enc)
         aux = None
-    return xs, mb, aux
+    return [x[:, n_p:] for x in xs], mb, aux
 
 
 def _logits_mesh(params: sharding.Placed, cfg: ModelConfig, xs,
@@ -560,11 +594,26 @@ def init_decode_state(params, cfg: ModelConfig, batch_size: int,
     attends to.  On a ``mesh``, the stack is a ``sharding.Placed`` of
     every device's blocks under :func:`decode_state_pspecs`, each
     allocated on its device."""
-    if _meshed(params, cfg, mesh):
+    if _meshed(params, mesh):
         shapes = blocks.init_stack_state(cfg, plan_for(cfg), batch_size,
                                          cache_len, _dtype(cfg), META)
-        return DecodeState(stack=sharding.zeros(
-            shapes, decode_state_pspecs(cfg, shapes, mesh), mesh), pos=0)
+        # a fresh state holds one value a field (the recurrent states'
+        # stabilisers are not 0): read each from a one-token state
+        one = blocks.init_stack_state(cfg, plan_for(cfg), 1, 1, _dtype(cfg),
+                                      "cpu")
+        stack = sharding.zeros(shapes, decode_state_pspecs(cfg, shapes, mesh),
+                               mesh, fill=[float(t.flatten()[0]) for t in
+                                           tree.named_values(one)])
+        enc = None
+        if cfg.is_encdec:
+            if enc_frames is None:
+                raise ValueError("enc-dec decode requires enc_frames")
+            with torch.no_grad():
+                rows = _encoder_mesh(params, cfg, enc_frames)
+            spec = decode_state_pspecs(cfg, DecodeState(
+                stack=None, pos=0, enc=enc_frames), mesh).enc
+            enc = sharding.Placed(mesh, spec, tuple(rows))
+        return DecodeState(stack=stack, pos=0, enc=enc)
     params = _unwrap(params)
     dev = params["embed"]["table"].device
     st = blocks.init_stack_state(cfg, plan_for(cfg), batch_size, cache_len,
@@ -590,11 +639,11 @@ def make_serve_step(cfg: ModelConfig, mesh=None):
 
     @torch.inference_mode()
     def serve_step(params, state: DecodeState, tokens: torch.Tensor):
-        if _meshed(params, cfg, mesh):
-            xs, mb, _ = _decoder_mesh(params, cfg, tokens, state)
+        if _meshed(params, mesh):
+            xs, mb, _ = _decoder_mesh(params, cfg, {"tokens": tokens}, state)
             logits = _logits_mesh(params, cfg, [x[:, 0] for x in xs], mb)
-            return logits, DecodeState(stack=state.stack,
-                                       pos=state.pos + 1)
+            return logits, DecodeState(stack=state.stack, pos=state.pos + 1,
+                                       enc=state.enc)
         params = _unwrap(params)
         x = _embed(params, cfg, tokens)
         if cfg.is_encdec:

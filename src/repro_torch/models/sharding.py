@@ -46,6 +46,7 @@ Default rules (MaxText-style FSDP + TP), the reference's:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -342,6 +343,58 @@ def local_tree(shards: Sequence, specs, mesh, k: int):
     return tree_mod.unflatten_named(shards[k], out)
 
 
+def read(blocks: Sequence, spec_: Spec, mesh, k: int,
+         region: Sequence) -> torch.Tensor:
+    """Device ``k``'s copy of a region of a leaf cut into ``blocks`` by
+    ``spec_``: ``region`` gives, for each dimension, a list of ``[lo,
+    hi)`` ranges of the whole leaf (``None``: all of it), laid side by
+    side in that order.  Each piece comes from device ``k``'s own block
+    where it holds it, else from the first device holding it (the
+    devices of its row across ``model``, of its column across the data
+    axes); only the ranges asked for are copied.  Autograd's transpose of
+    the copies (``CopySlices``) lands on the block each piece was read
+    from.  A region equal to device ``k``'s block is that block itself.
+
+    The reads a device needs where its computation does not follow a
+    leaf's cut: the ``x`` and ``z`` halves of a fused ``(d, 2 di)``
+    projection cut over ``model`` as one dimension, or whole heads of a
+    leaf cut within them."""
+    sizes = _axis_sizes(mesh)
+    own = blocks[k]
+    dev = mesh.devices[k]
+    whole = [d * block_count(e, mesh) for d, e in zip(own.shape, spec_)]
+    ranges = [[(0, n)] if r is None else [tuple(x) for x in r]
+              for r, n in zip(region, whole)]
+    mine = [block_range(e, mesh, k, n) for e, n in zip(spec_, whole)]
+    if all(r == [m] for r, m in zip(ranges, mine)):
+        return own.to(dev)
+    out = torch.empty([sum(hi - lo for lo, hi in r) for r in ranges],
+                      dtype=own.dtype, device=dev)
+    seen = set()
+    for i in [k] + [i for i in range(mesh.size) if i != k]:
+        coords = mesh.coords(i)
+        pos = tuple(_position(e, coords, sizes, mesh.axis_names)[0]
+                    for e in spec_)
+        if pos in seen:
+            continue
+        seen.add(pos)
+        blk = blocks[i]
+        per_dim = []
+        for p, d, rs in zip(pos, blk.shape, ranges):
+            b_lo, b_hi, off, pieces = p * d, (p + 1) * d, 0, []
+            for lo, hi in rs:
+                a, b = max(lo, b_lo), min(hi, b_hi)
+                if a < b:
+                    pieces.append((slice(off + a - lo, off + b - lo),
+                                   slice(a - b_lo, b - b_lo)))
+                off += hi - lo
+            per_dim.append(pieces)
+        for combo in itertools.product(*per_dim):
+            out[tuple(o for o, _ in combo)].copy_(
+                blk[tuple(s for _, s in combo)])
+    return out
+
+
 def psum_model(parts: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
     """All-reduce over ``model``: each row's partials summed in model order
     on the row's first device (so two runs are bit-equal), the sum handed
@@ -442,13 +495,17 @@ def sum_blocks(parts: Sequence[torch.Tensor], spec_: Spec, summed: Entry,
     return out
 
 
-def zeros(shapes, specs, mesh) -> Placed:
-    """Every device's zero blocks of the abstract tree ``shapes`` (meta
-    tensors) under ``specs``, each allocated on its device."""
+def zeros(shapes, specs, mesh, fill: Optional[Sequence[float]] = None
+          ) -> Placed:
+    """Every device's blocks of the abstract tree ``shapes`` (meta
+    tensors) under ``specs``, each allocated on its device: zeros, or
+    ``fill``'s value of each leaf (in ``tree.named_leaves`` order)."""
     pairs = _paired(shapes, specs)
+    fill = [0.0] * len(pairs) if fill is None else list(fill)
     return Placed(mesh, specs, tuple(tree_mod.unflatten_named(shapes, [
-        torch.zeros(local_shape(t.shape, sp, mesh), dtype=t.dtype,
-                    device=dev) for t, sp in pairs]) for dev in mesh.devices))
+        torch.full(local_shape(t.shape, sp, mesh), v, dtype=t.dtype,
+                   device=dev) for (t, sp), v in zip(pairs, fill)])
+        for dev in mesh.devices))
 
 
 def device_bytes(placed: Placed) -> List[int]:

@@ -17,12 +17,18 @@ The last chunk is not padded: the JAX package pads it with ``dt = 0``
 the carry out of the last chunk is not used.
 
 Decode is the exact single-step recurrence with a rolling conv window.
+
+On a ``(data, model)`` mesh (``mamba_forward_shard``,
+``mamba_decode_shard``) each ``model`` shard runs its block of the inner
+channels: the conv, ``dt_proj``, the scan and the state are per channel;
+``x_proj``'s contraction over the channels is summed over ``model``
+before ``dt_proj`` and the softplus, and ``out_proj``'s partial after.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,16 +94,37 @@ class MambaState(NamedTuple):
                             dtype=torch.float32, device=device))
 
 
+def _x_proj(p, u: torch.Tensor) -> torch.Tensor:
+    """u: (..., di) conv output -> (..., dt_rank + 2 d_state): the
+    ``x_proj`` contraction over the inner channels (a partial sum over
+    ``model`` on a shard)."""
+    return torch.matmul(u, p["x_proj"].to(u.dtype))
+
+
+def _dt_bc(p, cfg: ModelConfig, proj: torch.Tensor):
+    """The whole ``x_proj`` output -> (dt (..., di), B (..., ds), C (...,
+    ds)), all fp32: ``dt_proj`` and the softplus on the channels of
+    ``p``."""
+    dr, ds = dt_rank(cfg), cfg.mamba.d_state
+    dt_in, b, c = (proj[..., :dr], proj[..., dr:dr + ds],
+                   proj[..., dr + ds:])
+    dt = torch.matmul(dt_in, p["dt_proj"].to(proj.dtype))
+    dt = layers.softplus(dt.float() + p["dt_bias"].float())
+    return dt, b.float(), c.float()
+
+
 def _ssm_params(p, cfg: ModelConfig, u: torch.Tensor):
     """u: (..., di) conv output -> (dt (..., di), B (..., ds), C (..., ds)),
     all fp32."""
-    dr, ds = dt_rank(cfg), cfg.mamba.d_state
-    proj = torch.matmul(u, p["x_proj"].to(u.dtype))
-    dt_in, b, c = (proj[..., :dr], proj[..., dr:dr + ds],
-                   proj[..., dr + ds:])
-    dt = torch.matmul(dt_in, p["dt_proj"].to(u.dtype))
-    dt = layers.softplus(dt.float() + p["dt_bias"].float())
-    return dt, b.float(), c.float()
+    return _dt_bc(p, cfg, _x_proj(p, u))
+
+
+def _in_proj(p, x: torch.Tensor):
+    """x (..., D) -> the (x, z) halves of ``in_proj``: its first and second
+    halves of columns (a shard reads its channels of each)."""
+    xz = torch.matmul(x, p["in_proj"].to(x.dtype))
+    di = xz.shape[-1] // 2
+    return xz[..., :di], xz[..., di:]
 
 
 def _causal_conv(p, cfg: ModelConfig, x: torch.Tensor,
@@ -133,22 +160,16 @@ def _scan_chunk(carry: torch.Tensor, a_bar: torch.Tensor, bx: torch.Tensor
     return h[:, -1], h
 
 
-def mamba_forward(p, cfg: ModelConfig, x: torch.Tensor,
-                  chunk: int = CHUNK) -> torch.Tensor:
-    """Training/prefill.  x: (B, S, D) -> (B, S, D)."""
-    b, s, _ = x.shape
-    di, ds = d_inner(cfg), cfg.mamba.d_state
-    dt_ = x.dtype
-    xz = torch.matmul(x, p["in_proj"].to(dt_))
-    xs, z = xz[..., :di], xz[..., di:]
-    prefix = torch.zeros((b, cfg.mamba.d_conv - 1, di), dtype=dt_,
-                         device=x.device)
-    u = _causal_conv(p, cfg, xs, prefix)
-    dt, bmat, cmat = _ssm_params(p, cfg, u)
+def _scan(p, u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+          cmat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The chunked selective scan over the channels of ``p``, plus the
+    skip: (B, S, di) fp32."""
+    b, s, di = u.shape
+    ds = bmat.shape[-1]
     a = -torch.exp(p["a_log"])                                 # (di, ds)
     uf = u.float()
     q = max(1, min(chunk, s))
-    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, di, ds), dtype=torch.float32, device=u.device)
     ys = []
     for c0 in range(0, s, q):
         dt_c, u_c = dt[:, c0:c0 + q], uf[:, c0:c0 + q]
@@ -159,30 +180,103 @@ def mamba_forward(p, cfg: ModelConfig, x: torch.Tensor,
         del a_bar, bx
         ys.append(torch.matmul(hs, cmat[:, c0:c0 + q, :, None])[..., 0])
         del hs
-    y = torch.cat(ys, dim=1) + uf * p["d_skip"]
-    y = y.to(dt_) * F.silu(z)
-    return torch.matmul(y, p["out_proj"].to(dt_))
+    return torch.cat(ys, dim=1) + uf * p["d_skip"]
+
+
+def _out(p, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The silu(z) gate and ``out_proj`` (a partial sum over ``model`` on
+    a shard)."""
+    y = y.to(z.dtype) * F.silu(z)
+    return torch.matmul(y, p["out_proj"].to(z.dtype))
+
+
+def _prefix(cfg: ModelConfig, xs: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((xs.shape[0], cfg.mamba.d_conv - 1, xs.shape[-1]),
+                       dtype=xs.dtype, device=xs.device)
+
+
+def mamba_forward(p, cfg: ModelConfig, x: torch.Tensor,
+                  chunk: int = CHUNK) -> torch.Tensor:
+    """Training/prefill.  x: (B, S, D) -> (B, S, D)."""
+    xs, z = _in_proj(p, x)
+    u = _causal_conv(p, cfg, xs, _prefix(cfg, xs))
+    dt, bmat, cmat = _ssm_params(p, cfg, u)
+    return _out(p, _scan(p, u, dt, bmat, cmat, chunk), z)
+
+
+def _conv_step(p, cfg: ModelConfig, xs: torch.Tensor, state: MambaState):
+    """One token's conv: (u (B, di), the new conv window)."""
+    dt_ = xs.dtype
+    window = torch.cat([state.conv.to(dt_), xs], dim=1)
+    u = sum(window[:, i, :] * p["conv_w"][i].to(dt_)
+            for i in range(cfg.mamba.d_conv))
+    return F.silu(u + p["conv_b"].to(dt_)), window[:, 1:]
+
+
+def _ssm_step(p, u: torch.Tensor, dt: torch.Tensor, bmat: torch.Tensor,
+              cmat: torch.Tensor, ssm: torch.Tensor):
+    """One token's recurrence: (y (B, di) fp32 with the skip, the new
+    SSM state)."""
+    a = -torch.exp(p["a_log"])
+    a_bar = torch.exp(dt[..., None] * a)                       # (B,di,ds)
+    uf = u.float()
+    bx = (dt * uf)[..., None] * bmat[:, None, :]
+    h = a_bar * ssm + bx
+    y = torch.matmul(h, cmat[..., None])[..., 0] + uf * p["d_skip"]
+    return y, h
 
 
 def mamba_decode(p, cfg: ModelConfig, x: torch.Tensor, state: MambaState
                  ) -> Tuple[torch.Tensor, MambaState]:
     """One token.  x: (B, 1, D) -> ((B, 1, D), the new state: fresh
     tensors, ``state`` untouched)."""
-    di = d_inner(cfg)
-    dt_ = x.dtype
-    xz = torch.matmul(x, p["in_proj"].to(dt_))
-    xs, z = xz[..., :di], xz[..., di:]                         # (B,1,di)
-    window = torch.cat([state.conv.to(dt_), xs], dim=1)
-    u = sum(window[:, i, :] * p["conv_w"][i].to(dt_)
-            for i in range(cfg.mamba.d_conv))
-    u = F.silu(u + p["conv_b"].to(dt_))                        # (B, di)
+    xs, z = _in_proj(p, x)                                     # (B,1,di)
+    u, conv = _conv_step(p, cfg, xs, state)                    # (B, di)
     dt, bmat, cmat = _ssm_params(p, cfg, u)
-    a = -torch.exp(p["a_log"])
-    a_bar = torch.exp(dt[..., None] * a)                       # (B,di,ds)
-    uf = u.float()
-    bx = (dt * uf)[..., None] * bmat[:, None, :]
-    h = a_bar * state.ssm + bx
-    y = torch.matmul(h, cmat[..., None])[..., 0] + uf * p["d_skip"]
-    y = y.to(dt_) * F.silu(z[:, 0])
-    out = torch.matmul(y, p["out_proj"].to(dt_))
-    return out[:, None, :], MambaState(conv=window[:, 1:], ssm=h)
+    y, h = _ssm_step(p, u, dt, bmat, cmat, state.ssm)
+    return _out(p, y, z[:, 0])[:, None, :], MambaState(conv=conv, ssm=h)
+
+
+# ------------------------------------------------------------ on a mesh ----
+
+def mamba_forward_shard(ps, cfg: ModelConfig, xs, psum,
+                        chunk: int = CHUNK) -> List[torch.Tensor]:
+    """Every ``model`` shard's Mamba forward on its inner channels: device
+    ``k`` computes with ``ps[k]`` (its channels of every ``inner`` leaf,
+    ``in_proj`` read as its columns of ``x`` then of ``z``) on its
+    (B_k, S, D) input ``xs[k]``.  The conv, ``dt_proj``, the scan and the
+    state are per channel; ``x_proj``'s contraction over the channels is
+    summed by ``psum`` (a list of every device's partials -> the sums
+    over ``model``; the identity where the channels are not cut) before
+    ``dt_proj`` and the softplus.  Returns each device's ``out_proj``
+    partial, for the caller to sum as ``psum`` does."""
+    pre = []
+    for p, x in zip(ps, xs):
+        xs_, z = _in_proj(p, x)
+        pre.append((_causal_conv(p, cfg, xs_, _prefix(cfg, xs_)), z))
+    proj = psum([_x_proj(p, u) for p, (u, _) in zip(ps, pre)])
+    out = []
+    for p, (u, z), pr in zip(ps, pre, proj):
+        dt, bmat, cmat = _dt_bc(p, cfg, pr)
+        out.append(_out(p, _scan(p, u, dt, bmat, cmat, chunk), z))
+    return out
+
+
+def mamba_decode_shard(ps, cfg: ModelConfig, xs, states, psum
+                       ) -> Tuple[List[torch.Tensor], List[MambaState]]:
+    """One decode step of every shard on its block of the state (its
+    channels): :func:`mamba_forward_shard`'s split.  Returns (each
+    device's ``out_proj`` partial (B_k, 1, D), its new state)."""
+    pre = []
+    for p, x, st in zip(ps, xs, states):
+        xs_, z = _in_proj(p, x)
+        u, conv = _conv_step(p, cfg, xs_, st)
+        pre.append((u, z, conv))
+    proj = psum([_x_proj(p, u) for p, (u, _, _) in zip(ps, pre)])
+    out, new = [], []
+    for p, (u, z, conv), pr, st in zip(ps, pre, proj, states):
+        dt, bmat, cmat = _dt_bc(p, cfg, pr)
+        y, h = _ssm_step(p, u, dt, bmat, cmat, st.ssm)
+        out.append(_out(p, y, z[:, 0])[:, None, :])
+        new.append(MambaState(conv=conv, ssm=h))
+    return out, new

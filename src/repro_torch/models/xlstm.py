@@ -20,12 +20,18 @@ Both sit in xLSTM's up-projection block:
 The stabiliser ``max(|den|, exp(-m))``, the initial ``m = -1e30``,
 sLSTM's initial ``n = 1e-6``, the forget-gate bias 3.0 and the z/i/f/o
 column order of ``w_gates``/``b_gates`` are the JAX package's.
+
+On a ``(data, model)`` mesh (``*_shard``) each ``model`` shard owns a
+block of the inner channels and runs the heads they fall in
+(:func:`share`); the contractions over the channels (the ``w_i``/``w_f``
+and ``w_gates`` gate inputs, ``out_norm``'s mean square and ``down``)
+are summed over ``model`` before what follows them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -99,8 +105,11 @@ class MLSTMState(NamedTuple):
     m: torch.Tensor   # (B, H)
 
     @staticmethod
-    def zeros(b: int, cfg: ModelConfig, device, lead=()) -> "MLSTMState":
+    def zeros(b: int, cfg: ModelConfig, device, lead=(), heads=None
+              ) -> "MLSTMState":
+        """The initial state of ``heads`` heads (all of them: None)."""
         h, hd = _heads(cfg)
+        h = h if heads is None else heads
         lead = tuple(lead)
 
         def z(*shape):
@@ -111,22 +120,35 @@ class MLSTMState(NamedTuple):
                                        dtype=torch.float32, device=device))
 
 
-def _qkv_gates(p, cfg: ModelConfig, xin: torch.Tensor):
-    """xin: (B, S, di) -> q, k, v (B, S, H, hd); log_i, log_f (B, S, H)
-    fp32.  q/k/v are per-head block-diagonal (official xLSTM)."""
+def _qkv(p, xin: torch.Tensor):
+    """xin: (B, S, H_p * hd) -> q, k, v (B, S, H_p, hd) for the heads of
+    ``p["wq"]`` (H_p, hd, hd): per-head block-diagonal (official xLSTM),
+    q divided by sqrt(hd)."""
     b, s, _ = xin.shape
-    h, hd = _heads(cfg)
+    h, hd = p["wq"].shape[0], p["wq"].shape[-1]
     dt = xin.dtype
     xh = xin.reshape(b, s, h, hd)
     q, k, v = (torch.einsum("bshd,hde->bshe", xh, p[w].to(dt))
                for w in ("wq", "wk", "wv"))
-    xf = xin.float()
-    log_i = torch.matmul(xf, p["w_i"]) + p["b_i"]
-    f_raw = torch.matmul(xf, p["w_f"]) + p["b_f"]
-    log_f = _log_sigmoid(f_raw)
     # divided by a tensor, as the JAX package divides by sqrt(hd) at run
     # time (CUDA divides by a Python scalar through its reciprocal)
     q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=q.device)
+    return q, k, v
+
+
+def _gates(p, i_raw: torch.Tensor, f_raw: torch.Tensor):
+    """The input and forget gates' pre-activations (B, S, H) (their
+    ``w_i``/``w_f`` contractions) -> log_i, log_f, fp32."""
+    return i_raw + p["b_i"], _log_sigmoid(f_raw + p["b_f"])
+
+
+def _qkv_gates(p, cfg: ModelConfig, xin: torch.Tensor):
+    """xin: (B, S, di) -> q, k, v (B, S, H, hd); log_i, log_f (B, S, H)
+    fp32."""
+    q, k, v = _qkv(p, xin)
+    xf = xin.float()
+    log_i, log_f = _gates(p, torch.matmul(xf, p["w_i"]),
+                          torch.matmul(xf, p["w_f"]))
     return q, k, v, log_i, log_f
 
 
@@ -181,30 +203,29 @@ def _mlstm_chunk(state: MLSTMState, q, k, v, log_i, log_f):
     return MLSTMState(c_new, n_new, m_next), h_out
 
 
-def mlstm_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
-    b, s, _ = x.shape
-    di = d_inner(cfg)
-    xin, z = _up_split(p, x, di)
-    q, k, v, log_i, log_f = _qkv_gates(p, cfg, xin)
+def _mlstm_cell(cfg: ModelConfig, q, k, v, log_i, log_f) -> torch.Tensor:
+    """The chunkwise mLSTM over the heads of q: (B, S, H_p * hd) fp32."""
+    b, s, h, hd = q.shape
     qc = max(1, min(cfg.xlstm.chunk_size, s))
-    st = MLSTMState.zeros(b, cfg, x.device)
+    st = MLSTMState.zeros(b, cfg, q.device, heads=h)
     hs = []
     for c0 in range(0, s, qc):
-        st, h = _mlstm_chunk(st, *(t[:, c0:c0 + qc]
-                                   for t in (q, k, v, log_i, log_f)))
-        hs.append(h)
-    hcat = torch.cat(hs, dim=1).reshape(b, s, di).to(x.dtype)
-    return _down(p, hcat, z)
+        st, hh = _mlstm_chunk(st, *(t[:, c0:c0 + qc]
+                                    for t in (q, k, v, log_i, log_f)))
+        hs.append(hh)
+    return torch.cat(hs, dim=1).reshape(b, s, h * hd)
 
 
-def mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor, state: MLSTMState
-                 ) -> Tuple[torch.Tensor, MLSTMState]:
-    """x: (B, 1, D) -> ((B, 1, D), the new state: fresh tensors)."""
-    b = x.shape[0]
-    di = d_inner(cfg)
-    xin, z = _up_split(p, x, di)
+def mlstm_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D)."""
+    xin, z = _up_split(p, x, d_inner(cfg))
     q, k, v, log_i, log_f = _qkv_gates(p, cfg, xin)
+    return _down(p, _mlstm_cell(cfg, q, k, v, log_i, log_f).to(x.dtype), z)
+
+
+def _mlstm_step(state: MLSTMState, q, k, v, log_i, log_f):
+    """One token's exact recurrence: q/k/v (B, 1, H_p, hd), the gates
+    (B, 1, H_p) -> (h (B, H_p, hd) fp32, the new state)."""
     qf, kf, vf = (t[:, 0].float() for t in (q, k, v))     # (B,H,hd)
     log_i, log_f = log_i[:, 0], log_f[:, 0]              # (B,H)
     c_st, n_st, m_st = state
@@ -217,8 +238,17 @@ def mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor, state: MLSTMState
     num = torch.einsum("bhd,bhde->bhe", qf, c_new)
     den = torch.abs(torch.einsum("bhd,bhd->bh", qf, n_new))
     h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = _down(p, h.reshape(b, 1, di).to(x.dtype), z)
-    return out, MLSTMState(c_new, n_new, m_new)
+    return h, MLSTMState(c_new, n_new, m_new)
+
+
+def mlstm_decode(p, cfg: ModelConfig, x: torch.Tensor, state: MLSTMState
+                 ) -> Tuple[torch.Tensor, MLSTMState]:
+    """x: (B, 1, D) -> ((B, 1, D), the new state: fresh tensors)."""
+    b = x.shape[0]
+    di = d_inner(cfg)
+    xin, z = _up_split(p, x, di)
+    h, new = _mlstm_step(state, *_qkv_gates(p, cfg, xin))
+    return _down(p, h.reshape(b, 1, di).to(x.dtype), z), new
 
 
 # ------------------------------------------------------------- sLSTM -------
@@ -252,9 +282,11 @@ class SLSTMState(NamedTuple):
     m: torch.Tensor
 
     @staticmethod
-    def zeros(b: int, cfg: ModelConfig, device, lead=()) -> "SLSTMState":
+    def zeros(b: int, cfg: ModelConfig, device, lead=(), heads=None
+              ) -> "SLSTMState":
+        """The initial state of ``heads`` heads (all of them: None)."""
         hh, hd = _heads(cfg)
-        shape = tuple(lead) + (b, hh, hd)
+        shape = tuple(lead) + (b, hh if heads is None else heads, hd)
 
         def full(v):
             return torch.full(shape, v, dtype=torch.float32, device=device)
@@ -262,10 +294,11 @@ class SLSTMState(NamedTuple):
                           m=full(-1e30))
 
 
-def _slstm_step(p, cfg: ModelConfig, st: SLSTMState, wx: torch.Tensor
+def _slstm_step(p, st: SLSTMState, wx: torch.Tensor
                 ) -> Tuple[SLSTMState, torch.Tensor]:
-    """wx: (B, 4*di) precomputed input contribution (fp32)."""
-    h, hd = _heads(cfg)
+    """wx: (B, 4 * H_p * hd) precomputed input contribution (fp32) of the
+    heads of ``p["r_z"]`` (H_p, hd, hd)."""
+    h, hd = p["r_z"].shape[0], p["r_z"].shape[-1]
     b = wx.shape[0]
     di = h * hd
 
@@ -292,18 +325,23 @@ def _gate_inputs(p, xin: torch.Tensor) -> torch.Tensor:
             + p["b_gates"])
 
 
-def slstm_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    b, s, _ = x.shape
-    di = d_inner(cfg)
-    xin, zgate = _up_split(p, x, di)
-    wx = _gate_inputs(p, xin)                             # (B,S,4di)
-    st = SLSTMState.zeros(b, cfg, x.device)
+def _slstm_loop(p, st: SLSTMState, wx: torch.Tensor) -> torch.Tensor:
+    """The recurrence over time from ``st``: wx (B, S, 4 * H_p * hd) ->
+    h (B, S, H_p * hd) fp32."""
+    b, s, _ = wx.shape
     hs = []
     for t in range(s):
-        st, h = _slstm_step(p, cfg, st, wx[:, t])
+        st, h = _slstm_step(p, st, wx[:, t])
         hs.append(h)
-    hcat = torch.stack(hs, dim=1).reshape(b, s, di).to(x.dtype)
-    return _down(p, hcat, zgate)
+    return torch.stack(hs, dim=1).reshape(b, s, -1)
+
+
+def slstm_forward(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    di = d_inner(cfg)
+    xin, zgate = _up_split(p, x, di)
+    st = SLSTMState.zeros(x.shape[0], cfg, x.device)
+    hcat = _slstm_loop(p, st, _gate_inputs(p, xin))
+    return _down(p, hcat.to(x.dtype), zgate)
 
 
 def slstm_decode(p, cfg: ModelConfig, x: torch.Tensor, state: SLSTMState
@@ -311,5 +349,172 @@ def slstm_decode(p, cfg: ModelConfig, x: torch.Tensor, state: SLSTMState
     b = x.shape[0]
     di = d_inner(cfg)
     xin, zgate = _up_split(p, x, di)
-    st, h = _slstm_step(p, cfg, state, _gate_inputs(p, xin)[:, 0])
+    st, h = _slstm_step(p, state, _gate_inputs(p, xin)[:, 0])
     return _down(p, h.reshape(b, 1, di).to(x.dtype), zgate), st
+
+
+# ------------------------------------------------------------ on a mesh ----
+
+class Share(NamedTuple):
+    """A ``model`` shard's share of an xLSTM layer: the heads it runs
+    (those its own inner channels fall in, whole), its own channels
+    within those heads' channels, and the same channels of the whole
+    inner dimension."""
+    heads: slice
+    own: slice
+    channels: slice
+
+
+def share(cfg: ModelConfig, lo: int, hi: int) -> Share:
+    """The share of the shard whose own inner channels are [lo, hi)."""
+    hd = _heads(cfg)[1]
+    h0, h1 = lo // hd, -(-hi // hd)
+    return Share(slice(h0, h1), slice(lo - h0 * hd, hi - h0 * hd),
+                 slice(lo, hi))
+
+
+def up_columns(cfg: ModelConfig, sh: Share):
+    """The columns of ``up`` a shard reads: its heads' channels of the
+    cell's input half, then its own channels of the gate half."""
+    di, hd = d_inner(cfg), _heads(cfg)[1]
+    return [(sh.heads.start * hd, sh.heads.stop * hd),
+            (di + sh.channels.start, di + sh.channels.stop)]
+
+
+def _up_shard(p, x: torch.Tensor, sh: Share):
+    """``x @ up`` on a shard's columns: (the cell's input over its heads'
+    channels, its own channels of it, the gate half on its own)."""
+    up = torch.matmul(x, p["up"].to(x.dtype))
+    n = up.shape[-1] - (sh.own.stop - sh.own.start)
+    return up[..., :n], up[..., :n][..., sh.own], up[..., n:]
+
+
+def _down_shard(p, h: torch.Tensor, z: torch.Tensor, sumsq: torch.Tensor,
+                sh: Share, di: int) -> torch.Tensor:
+    """``out_norm`` over the whole inner dimension from the squares summed
+    over ``model``, the silu gate and a shard's partial of ``down`` on
+    its own channels ``h``."""
+    y = layers.rms_normalize(h.float(), sumsq / di,
+                             p["out_norm"]["scale"][sh.channels], h.dtype)
+    return torch.matmul(y * F.silu(z), p["down"].to(h.dtype))
+
+
+def _sumsq(h: torch.Tensor) -> torch.Tensor:
+    hf = h.float()
+    return torch.sum(hf * hf, dim=-1, keepdim=True)
+
+
+def _run_shards(ps, cfg: ModelConfig, xs, shares, psum, pre, cell):
+    """The skeleton of every ``*_shard`` function.  ``pre(p, x, sh)`` ->
+    (the gate half z, the partial of the contraction over the shard's
+    channels, what the cell reads); the partials summed by ``psum``
+    (every device's partials -> the sums over ``model``; the identity
+    where the inner dimension is not cut); ``cell(k, p, read, summed,
+    sh)`` -> (h over the shard's heads, the new state of its heads or
+    None); ``out_norm``'s squares of the shard's own channels of h summed
+    by ``psum``; ``out_norm``, the gate and ``down``.  Returns (each
+    device's ``down`` partial, each device's new state)."""
+    di = d_inner(cfg)
+    parts = [pre(p, x, sh) for p, x, sh in zip(ps, xs, shares)]
+    summed = psum([g for _, g, _ in parts])
+    hs, new = [], []
+    for k, (p, (z, _, read), g, sh) in enumerate(zip(ps, parts, summed,
+                                                     shares)):
+        h, st = cell(k, p, read, g, sh)
+        hs.append(h.to(z.dtype)[..., sh.own])
+        new.append(st)
+    sumsq = psum([_sumsq(h) for h in hs])
+    return [_down_shard(p, h, z, ss, sh, di) for p, h, (z, _, _), ss, sh
+            in zip(ps, hs, parts, sumsq, shares)], new
+
+
+def _heads_of(p, sh: Share) -> dict:
+    """An sLSTM's ``p`` with its recurrent weights (whole on every
+    device) cut to the shard's heads."""
+    return dict(p, **{r: p[r][sh.heads] for r in ("r_z", "r_i", "r_f",
+                                                   "r_o")})
+
+
+def _state_heads(st, sh: Share):
+    """A shard's heads of a whole (replicated) recurrent state."""
+    return type(st)(*(t[:, sh.heads] for t in st))
+
+
+def _mlstm_pre(p, x, sh: Share):
+    xin, own, z = _up_shard(p, x, sh)
+    xf = own.float()
+    return z, torch.cat([torch.matmul(xf, p["w_i"]),
+                         torch.matmul(xf, p["w_f"])], dim=-1), xin
+
+
+def _split_gates(p, g: torch.Tensor, sh: Share):
+    h = g.shape[-1] // 2
+    log_i, log_f = _gates(p, g[..., :h], g[..., h:])
+    return log_i[..., sh.heads], log_f[..., sh.heads]
+
+
+def mlstm_forward_shard(ps, cfg: ModelConfig, xs, shares, psum
+                        ) -> List[torch.Tensor]:
+    """Every ``model`` shard's mLSTM forward: device ``k`` runs the heads
+    of ``shares[k]`` with ``ps[k]`` (``up`` read at :func:`up_columns`,
+    ``wq``/``wk``/``wv`` whole for its heads, its rows of ``w_i``,
+    ``w_f`` and ``down``) on its input ``xs[k]``, the ``w_i``/``w_f``
+    contractions summed before the gates' nonlinearity and ``out_norm``'s
+    squares before the divide (:func:`_run_shards`).  Returns each
+    device's ``down`` partial."""
+    def cell(k, p, xin, g, sh):
+        return _mlstm_cell(cfg, *_qkv(p, xin), *_split_gates(p, g, sh)), None
+    return _run_shards(ps, cfg, xs, shares, psum, _mlstm_pre, cell)[0]
+
+
+def mlstm_decode_shard(ps, cfg: ModelConfig, xs, states, shares, psum
+                       ) -> Tuple[List[torch.Tensor], List[MLSTMState]]:
+    """One decode step of every shard from its (whole, replicated) state
+    ``states[k]``: :func:`mlstm_forward_shard`'s split.  Returns (each
+    device's ``down`` partial, the new state of its heads)."""
+    def cell(k, p, xin, g, sh):
+        h, st = _mlstm_step(_state_heads(states[k], sh), *_qkv(p, xin),
+                            *_split_gates(p, g, sh))
+        return h.reshape(h.shape[0], 1, -1), st
+    return _run_shards(ps, cfg, xs, shares, psum, _mlstm_pre, cell)
+
+
+def _slstm_pre(p, x, sh: Share):
+    _, own, z = _up_shard(p, x, sh)
+    return z, torch.matmul(own, p["w_gates"].to(own.dtype)).float(), None
+
+
+def _gate_columns(p, wx: torch.Tensor, cfg: ModelConfig, sh: Share):
+    """The summed gate inputs plus ``b_gates``, cut to the shard's heads'
+    columns of each of the z, i, f, o gates."""
+    di, hd = d_inner(cfg), _heads(cfg)[1]
+    wx = wx + p["b_gates"]
+    lo, hi = sh.heads.start * hd, sh.heads.stop * hd
+    return torch.cat([wx[..., i * di + lo:i * di + hi] for i in range(4)],
+                     dim=-1)
+
+
+def slstm_forward_shard(ps, cfg: ModelConfig, xs, shares, psum
+                        ) -> List[torch.Tensor]:
+    """Every ``model`` shard's sLSTM forward on its heads: ``w_gates``'s
+    contraction over the inner channels summed before the recurrence,
+    then the loop over time on the shard's heads only, then ``out_norm``
+    and ``down`` as :func:`mlstm_forward_shard`."""
+    def cell(k, p, _, wx, sh):
+        st = SLSTMState.zeros(wx.shape[0], cfg, wx.device,
+                              heads=sh.heads.stop - sh.heads.start)
+        return _slstm_loop(_heads_of(p, sh), st,
+                           _gate_columns(p, wx, cfg, sh)), None
+    return _run_shards(ps, cfg, xs, shares, psum, _slstm_pre, cell)[0]
+
+
+def slstm_decode_shard(ps, cfg: ModelConfig, xs, states, shares, psum
+                       ) -> Tuple[List[torch.Tensor], List[SLSTMState]]:
+    """One decode step of every shard on its heads of its (whole,
+    replicated) state.  Returns (each device's ``down`` partial, the new
+    state of its heads)."""
+    def cell(k, p, _, wx, sh):
+        st, h = _slstm_step(_heads_of(p, sh), _state_heads(states[k], sh),
+                            _gate_columns(p, wx, cfg, sh)[:, 0])
+        return h.reshape(h.shape[0], 1, -1), st
+    return _run_shards(ps, cfg, xs, shares, psum, _slstm_pre, cell)
