@@ -111,7 +111,12 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    rounds/s, hetero-a grouped on virtual shards (each step against the
    unsharded step), the simulator with ``mesh=1`` (bit-equal), the
    sparse collectives against a float64 oracle, and ``sparse_agg``'s
-   ``select`` flag against its plain version, timed at fc0;
+   ``select`` flag against its plain version, timed at fc0.  Then the
+   quickstart's command line (``quickstart_cli_phase``,
+   ``repro_torch.quickstart.main``): 3 rounds of the fault and outage
+   flags with ``--robust-agg trimmed`` and ``--checkpoint-dir``, resumed to 5, bit-equal to an uninterrupted 5;
+   and the 100,000-client population by cohorts of 256 for 3 rounds (host
+   s per round, peak memory); each launching all three FedDD kernels;
 6. the serving path: gemma3-27b at full width (d 5376, 32/16 heads,
    hd 128, d_ff 21504, vocab 262144) cut to 12 layers (two 5:1
    local:global periods), seeded random bf16 weights on cuda.  Two
@@ -326,6 +331,13 @@ SHARD_FLEET_SAMPLES = 8
 SHARD_FLEET_ROUNDS, SHARD_FLEET_WARM = 6, 2
 SHARD_HETERO_ROUNDS, SHARD_HETERO_SHARDS = 2, 2     # (c)
 SHARD_SIM_ROUNDS = 3        # (d)
+CLI_FAULTS = ["--fault-rate", "0.2", "--cells", "3", "--robust-agg",
+              "trimmed"]           # quickstart_cli (a)
+CLI_CRASH_ROUNDS = 3               # (a): checkpointed, then resumed to
+CLI_ROUNDS = 5                     # CLI_ROUNDS against an uninterrupted run
+CLI_POPULATION = ["--clients", "32", "--population", "100000", "--cohort",
+                  "256", "--availability", "bernoulli"]   # (b)
+CLI_POP_ROUNDS = 3
 _SHARD_LEAVES = len(MLP_LEAVES)
 _SHARD_BIASES = sum(len(s) == 1 for s in MLP_LEAVES)
 
@@ -3102,6 +3114,115 @@ def sim_phase(dev="cuda") -> dict:
     out["e"] = dict(digest=full, snapshot_round=snap)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"  sim phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
+
+def quickstart_cli_phase(dev="cuda") -> dict:
+    """The quickstart's command line (``repro_torch.quickstart.main``) on
+    the card, launches counted per call (FedDD and FedAvg together):
+
+    (a) ``--rounds 3`` of CLI_FAULTS with ``--checkpoint-dir``, then
+        ``--rounds 5 --resume``, held bit for bit against an uninterrupted
+        ``--rounds 5`` (every FedDD record field but host wall time, the
+        global parameters);
+    (b) the reference docstring's population command, CLI_POPULATION, for
+        CLI_POP_ROUNDS rounds: host s per FedDD round, peak device memory.
+
+    Each of (a) and (b) must launch importance, sparse_agg and
+    masked_merge."""
+    import shutil
+
+    import torch
+    from repro_torch import kernels, quickstart, tree
+
+    def cli(argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        feddd, fedavg = quickstart.main(argv + ["--device", dev])
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        got = _launch_counts()
+        for res in (feddd, fedavg):
+            if not all(l.device.type == torch.device(dev).type
+                       for l in tree.leaves(res.global_params)):
+                raise AssertionError(f"{argv}: params left the card")
+            if not all(math.isfinite(r.mean_loss) for r in res.history):
+                raise AssertionError(f"{argv}: non-finite loss")
+        return feddd, dict(got, wall=wall)
+
+    def want_all(counts: list, what: str) -> dict:
+        total = {k: sum(c["launches"][k] for c in counts)
+                 for k in FEDDD_KERNELS}
+        if not all(total.values()):
+            raise AssertionError(f"quickstart_cli {what}: a FedDD kernel "
+                                 f"never launched: {total}")
+        return total
+
+    t_phase = time.perf_counter()
+    out = {}
+    ck = ROOT / "build" / "quickstart_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = {}
+    for key, argv in (
+            ("crash", ["--rounds", str(CLI_CRASH_ROUNDS), "--checkpoint-dir",
+                       str(ck)]),
+            ("resume", ["--rounds", str(CLI_ROUNDS), "--checkpoint-dir",
+                        str(ck), "--resume"]),
+            ("full", ["--rounds", str(CLI_ROUNDS)])):
+        runs[key] = cli(CLI_FAULTS + argv)
+    shutil.rmtree(ck, ignore_errors=True)
+    (resumed, _), (full, _) = runs["resume"], runs["full"]
+    if len(resumed.history) != CLI_ROUNDS:
+        raise AssertionError(f"resumed run has {len(resumed.history)} "
+                             "rounds")
+    for x, y in zip(resumed.history, full.history):
+        fx, fy = _record_fields(x), _record_fields(y)
+        if fx != fy:
+            raise AssertionError(
+                f"quickstart_cli (a): round {x.round} differs in "
+                f"{[k for k in fx if fx[k] != fy[k]]}")
+    if not all(torch.equal(x, y) for x, y in zip(
+            tree.leaves(resumed.global_params),
+            tree.leaves(full.global_params))):
+        raise AssertionError("quickstart_cli (a): resumed global params "
+                             "differ")
+    out["a"] = dict(
+        launches=want_all([c for _, c in runs.values()], "(a)"),
+        by_run={k: c["launches"] for k, (_, c) in runs.items()},
+        sparse_agg={k: c["sparse_agg"] for k, (_, c) in runs.items()},
+        wall_s={k: c["wall"] for k, (_, c) in runs.items()},
+        survivors=[r.survivors for r in full.history],
+        skipped=sum(r.skipped for r in full.history),
+        retries=sum(r.retries for r in full.history),
+        accuracy=full.history[-1].metrics["accuracy"])
+    print(f"  quickstart_cli (a) {' '.join(CLI_FAULTS)}: "
+          f"{CLI_CRASH_ROUNDS} rounds + resume to {CLI_ROUNDS} == "
+          f"uninterrupted, bit for bit; survivors {out['a']['survivors']}, "
+          f"retries {out['a']['retries']}; launches (crash / resume / full, "
+          "FedDD + FedAvg) " + " / ".join(str(c["launches"])
+                                          for _, c in runs.values())
+          + "; sparse_agg by route (full) " + str(runs["full"][1][
+              "sparse_agg"]) + "; wall s " + ", ".join(
+              f"{c['wall']:.2f}" for _, c in runs.values()), flush=True)
+
+    resident = _fresh_peak(dev)
+    pop, pcnt = cli(CLI_POPULATION + ["--rounds", str(CLI_POP_ROUNDS)])
+    peak = _peak_gb()
+    host = [r.host_wall_time for r in pop.history]
+    out["b"] = dict(launches=want_all([pcnt], "(b)"),
+                    sparse_agg=pcnt["sparse_agg"], wall_s=pcnt["wall"],
+                    host_s_per_round=host, peak_gib=peak,
+                    resident_gib=resident,
+                    accuracy=pop.history[-1].metrics["accuracy"])
+    print(f"  quickstart_cli (b) {' '.join(CLI_POPULATION)} --rounds "
+          f"{CLI_POP_ROUNDS}: host s per FedDD round "
+          + ", ".join(f"{h:.3f}" for h in host)
+          + f"; FedDD + FedAvg {pcnt['wall']:.2f} s; launches "
+          f"{pcnt['launches']}; peak device memory {peak:.3f} GiB "
+          f"({resident:.3f} resident before)", flush=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  quickstart_cli phase: {out['wall_s']:.1f} s", flush=True)
     return out
 
 
@@ -6021,6 +6142,7 @@ def main(argv=None) -> int:
         grouped_out = grouped_phase()
         sim_out = sim_phase()
         shard_out = sharded_phase(card)
+        cli_out = quickstart_cli_phase()
         serve_out = serving_phase()
         torch.cuda.empty_cache()
         mesh_out = lm_mesh_phase(card)
@@ -6170,7 +6292,11 @@ def main(argv=None) -> int:
                 launches_sharded_grouped=shard_out["c"]["launches"][name],
                 launches_sim_policies={
                     p: v["launches"][name]
-                    for p, v in sim_out["a"]["policies"].items()})
+                    for p, v in sim_out["a"]["policies"].items()},
+                launches_quickstart_cli_faults=cli_out["a"]["launches"][
+                    name],
+                launches_quickstart_cli_population=cli_out["b"][
+                    "launches"][name])
         if name == "importance":
             line_kernels[-1]["launches_federated_pods"] = fed_out[
                 "launches"]["importance"]
@@ -6209,6 +6335,7 @@ def main(argv=None) -> int:
             comm_engine=comm_check, main_path=path_out, comm_run=comm_out,
             loop=loop_out, baselines=base_out, obs=obs_out, scan=scan_out,
             grouped=grouped_out, sim=sim_out, sharded=shard_out,
+            quickstart_cli=cli_out,
             serving=serve_out, lm_mesh=mesh_out, train=train_out,
             lm_mesh_train=mesh_train_out,
             federated=fed_out,
@@ -6230,7 +6357,10 @@ def main(argv=None) -> int:
           + "; hetero-a grouped / loop (grouped phase): " + ", ".join(
               f"{v:.4f}" for v in grouped_out["a"]["steady_host_s"].values())
           + f"; straggler demo sync (sim phase): "
-          f"{sim_out['a']['steady_host_s']:.4f}; sharded fleet (sharded "
+          f"{sim_out['a']['steady_host_s']:.4f}; 100k population by "
+          f"cohorts of 256 (quickstart CLI): " + ", ".join(
+              f"{h:.3f}" for h in cli_out["b"]["host_s_per_round"])
+          + "; sharded fleet (sharded "
           "phase) rounds/s: " + ", ".join(
               f"{k} {v:.3f}" for k, v in shard_out["b"][
                   "rounds_per_s"].items())

@@ -3,7 +3,8 @@ synchronisation of a whole parameter set moves, and its time on virtual
 pods of one card.
 
     PYTHONPATH=src python -m repro_torch.launch.perf_federated \
-        [--arch granite_3_8b] [--device cpu] [--results-dir DIR]
+        [--arch granite_3_8b] [--rates 0.0 0.4 0.6 0.8] [--device cpu] \
+        [--results-dir DIR]
 
 The counterpart of ``repro.launch.perf_federated``.  Within a pod every
 leaf is sharded as the trainer shards it (``lm.param_pspecs`` on the
@@ -18,7 +19,7 @@ exchanges only its local shard with its cross-pod peer:
             (``compact_topk``), all-gathers the compacted values and their
             indices, scatter-adds them (``scatter_accumulate``) and takes
             the mean, keeping the local value where no pod sent the
-            channel;
+            channel; one sync at each of ``--rates``;
   int8      feddd whose compacted values travel as int8 with a
             per-channel fp32 absmax scale.
 
@@ -198,9 +199,19 @@ def random_cell(cfg, local_shapes, pods: ClientMesh, seed: int = 0):
     return olds, news
 
 
-MODES = ([("dense", 0.0, "none")]
-         + [("feddd", d, "none") for d in (0.0, 0.4, 0.6, 0.8)]
-         + [("feddd", d, "int8") for d in (0.6, 0.8)])
+RATES = (0.0, 0.4, 0.6, 0.8)         # ``--rates``' default
+INT8_RATES = (0.6, 0.8)
+
+
+def modes(rates: Sequence[float] = RATES) -> List[Tuple[str, float, str]]:
+    """The syncs one run measures, in the reference's order: dense, feddd
+    at each of ``rates``, then int8 feddd at 0.6 and 0.8."""
+    return ([("dense", 0.0, "none")]
+            + [("feddd", float(d), "none") for d in rates]
+            + [("feddd", d, "int8") for d in INT8_RATES])
+
+
+MODES = modes()
 
 
 def mode_tag(mode: str, d_rate: float, quant: str) -> str:
@@ -246,6 +257,8 @@ def main(argv=None) -> List[Dict]:
     ap.add_argument("--arch", default="granite_3_8b", choices=ARCH_IDS)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--results-dir", default=str(RESULTS_DIR))
+    ap.add_argument("--rates", nargs="*", type=float, default=list(RATES),
+                    help="the feddd syncs' dropout rates")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -254,7 +267,7 @@ def main(argv=None) -> List[Dict]:
     _, local = build_sync(cfg, mesh_shape, "dense")
     cell = random_cell(cfg, local, pods)
     out = []
-    for mode, d, quant in MODES:
+    for mode, d, quant in modes(args.rates):
         rec, _ = run_one(cfg, mesh_shape, pods, mode, d, quant, cell)
         out.append(rec)
         print(f"{rec['tag']:>16}: "

@@ -192,3 +192,12 @@ def test_cli_on_the_cpu(tmp_path, monkeypatch, capsys):
                        .read_text())
     assert saved == recs
     assert "fed_feddd_d60_int8" in capsys.readouterr().out
+    # --rates replaces the feddd rows only; the int8 rows stay at 0.6, 0.8
+    recs = perf_federated.main(["--device", "cpu", "--results-dir",
+                                str(tmp_path), "--rates", "0.5"])
+    assert [r["tag"] for r in recs] == [
+        "fed_dense", "fed_feddd_d50", "fed_feddd_d60_int8",
+        "fed_feddd_d80_int8"]
+    assert [(r["mode"], r["d_rate"], r["quant"]) for r in recs] == [
+        ("dense", 0.0, "none"), ("feddd", 0.5, "none"),
+        ("feddd", 0.6, "int8"), ("feddd", 0.8, "int8")]
