@@ -384,10 +384,11 @@ class _EngineExecutor(_RoundExecutor):
         # ride in it)
         with obs.span("host_transfer", round=t):
             if isinstance(loss_dev, torch.Tensor):
-                dens, oh, new_losses = _to_host(out.densities,
-                                                out.wire_overhead, loss_dev)
+                dens, oh, new_losses = obs.to_host(
+                    _to_host, out.densities, out.wire_overhead, loss_dev)
             else:
-                dens, oh = _to_host(out.densities, out.wire_overhead)
+                dens, oh = obs.to_host(_to_host, out.densities,
+                                       out.wire_overhead)
                 new_losses = [float(l) for l in loss_dev]
         new_losses = np.asarray(new_losses, float)
         uploaded, wire = account_uplink(dens, part, srv.tel.model_bytes, oh,
@@ -437,7 +438,7 @@ class _EngineExecutor(_RoundExecutor):
         srv.global_params = out.global_params
         srv.rng = out.rng
         with srv.obs.span("host_transfer", round=t_start):
-            return trace.to_host()
+            return srv.obs.to_host(trace.to_host)
 
     def finalize(self) -> None:
         for cs, p in zip(self.srv.clients, round_engine.unstack_pytree(
@@ -539,7 +540,7 @@ class _GroupedEngineExecutor(_RoundExecutor):
                 srv.global_params, weights, rk,
                 full_round=(t % cfg.h == 0) or dense, dense=dense)
         with obs.span("host_transfer", round=t):
-            dens, oh = _to_host(densities, wire_oh)
+            dens, oh = obs.to_host(_to_host, densities, wire_oh)
         new_losses = np.asarray([float(l) for l in loss_list], float)
         uploaded, wire = account_uplink(dens, part, srv.tel.model_bytes, oh,
                                         cfg.comm, obs=obs)
@@ -591,7 +592,7 @@ class _ReferenceLoopExecutor(_RoundExecutor):
                     p, l = self.local_train_fn(cs.params, i,
                                                prng.fold_in(rk, i))
                     new_params[i] = p
-                    losses[i] = float(l)
+                    losses[i] = obs.to_host(float, l)
 
         # Steps 2-3: masks and the (simulated) upload
         densities = np.zeros(n)
@@ -608,8 +609,8 @@ class _ReferenceLoopExecutor(_RoundExecutor):
                         config=cfg.selection, coverage=cov,
                         rng=prng.fold_in(rk, selection.MASK_KEY_OFFSET + i))
                     client_masks[i] = m
-                    densities[i] = _host_float(
-                        selection.mask_density(new_params[i], m))
+                    densities[i] = obs.to_host(
+                        _host_float, selection.mask_density(new_params[i], m))
             else:
                 for i in np.flatnonzero(part):
                     client_masks[i] = tree.tree_map(
@@ -645,7 +646,8 @@ class _ReferenceLoopExecutor(_RoundExecutor):
                                                      new_params[i])
                              for i in idxs]
             if cfg.track_epsilon:
-                eps_val = _host_float(estimate_epsilon(agg_params, agg_masks))
+                eps_val = obs.to_host(
+                    _host_float, estimate_epsilon(agg_params, agg_masks))
             srv.global_params = aggregation.aggregate_sparse(
                 agg_params, agg_masks,
                 [srv.clients[i].num_samples for i in idxs],
@@ -860,9 +862,9 @@ class FedDDServer:
             sim_time = float(st.extra.get("sim_time", 0.0))
             start_t = st.round + 1
         self.obs = obs_mod.make_recorder(
-            cfg.obs, driver="protocol", scheme=cfg.scheme,
-            executor="scanned" if scanned else kind, clients=n,
-            rounds=rounds)
+            cfg.obs, driver="protocol", device=self.device,
+            scheme=cfg.scheme, executor="scanned" if scanned else kind,
+            clients=n, rounds=rounds)
         try:
             if scanned:
                 self._run_scanned(executor, rounds, history, full_bytes)

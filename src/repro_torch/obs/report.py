@@ -295,7 +295,8 @@ def rounds_csv(events: List[Dict]) -> str:
 
 def registry_from_events(events: List[Dict]) -> MetricsRegistry:
     """Replay round + fault events into a fresh registry via the SAME
-    mapping a live Recorder uses (update_round_metrics)."""
+    mapping a live Recorder uses (update_round_metrics), and a traced
+    CUDA run's span ``syncs`` into ``feddd_device_syncs_total{span}``."""
     from repro_torch.obs.recorder import update_round_metrics
     from repro_torch.obs.runlog import record_from_event
     reg = MetricsRegistry()
@@ -307,6 +308,8 @@ def registry_from_events(events: List[Dict]) -> MetricsRegistry:
         elif e.get("event") == "fault":
             reg.inc("feddd_fault_incidents_total", 1,
                     kind=e.get("kind", "unknown"))
+        elif e.get("event") == "span" and "syncs" in e:
+            reg.inc("feddd_device_syncs_total", e["syncs"], span=e["name"])
     return reg
 
 

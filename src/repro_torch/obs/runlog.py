@@ -4,7 +4,9 @@ Event kinds (the ``event`` field):
 
 * ``run_start`` — first line of every log; carries ``schema`` (this
   module's :data:`SCHEMA_VERSION`), the driver (``protocol`` | ``sim``),
-  and run metadata (scheme, fleet size, executor/policy, rounds).
+  and run metadata (scheme, fleet size, executor/policy, rounds); traced,
+  ``clock``: a ``perf_counter_ns`` reading and the trace clock's at the
+  same moment, the zero of ``t_start``.
 * ``round`` — one per :class:`~repro_torch.core.protocol.RoundRecord`, a
   faithful serialization of every record field (plus ``path`` and the
   optional per-client upload-completion offsets ``client_up`` the
@@ -13,15 +15,23 @@ Event kinds (the ``event`` field):
   ``RunResult`` history, bit for bit — Python's ``json`` emits float64
   ``repr`` which parses back to the identical double, and every array
   field is written as a list of native floats.
-* ``span`` — one per host-side span (``name``, chunk-relative ``t_start``
-  and ``dur_s``, optional ``round``).
+* ``span`` — one per host-side span (``name``, run-relative ``t_start``
+  and ``dur_s``, optional ``round``); with ``ObsConfig.trace`` also
+  ``host_ns`` and ``device_ns`` ([start, end] on the profiler trace's
+  clock, ``device_ns`` null where the device was not timed) and, on a
+  CUDA device, ``syncs`` (repro_torch.obs.recorder).  A traced
+  CUDA run charges the syncs outside every span to a span named
+  ``outside_spans`` of no duration, one per round that had any.
 * ``fault`` — one per fault incident (crash / retry / abort / corrupt /
   quarantine / quorum_skip), written by an event-driven simulator.
-* ``run_end`` — totals (rounds, host seconds, rounds/sec).
+* ``run_end`` — totals (rounds, host seconds, rounds/sec); a traced CUDA
+  run adds ``sync_sites``, the synchronising calls by ``file:line``.
 
 Everything here is host-side plumbing over data the drivers already
 pulled (the round's one device-to-host copy): writing a log adds
-NO device->host syncs (tests/test_torch_obs.py counts them).
+NO device->host syncs (tests/test_torch_obs.py counts them).  A traced
+run's log is held in memory and written in one go when the run closes;
+any other run's is written event by event.
 """
 
 from __future__ import annotations
@@ -60,23 +70,49 @@ def jsonable(x):
 
 
 class JsonlWriter:
-    """Append-only JSONL sink; one ``write`` = one line = one event."""
+    """JSONL sink; one ``write`` = one line = one event.  By default each
+    event reaches the file as it is written, so a run that is killed
+    keeps the lines before it.  ``buffered`` (a traced run) keeps the
+    events in memory and writes them, in order, at ``close``: no file I/O
+    while the run records, and its span events may still be filled in.
+    The file is opened, and truncated, at its first line."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, buffered: bool = False):
         self.path = str(path)
-        self._fh: Optional[IO] = open(self.path, "w", encoding="utf-8")
+        self._buffered = buffered
+        self._fh: Optional[IO] = None
+        self._events: Optional[List[Dict]] = []     # None once closed
 
-    def write(self, event: Dict) -> None:
+    def write(self, event: Dict) -> Dict:
+        """Write a plain-JSON copy of ``event``, or keep it when
+        buffered; returns the copy."""
+        kept = jsonable(event)
+        if self._events is None:
+            return kept
+        if self._buffered:
+            self._events.append(kept)
+        else:
+            self._lines([kept])
+            self._fh.flush()
+        return kept
+
+    def _lines(self, events: List[Dict]) -> None:
         if self._fh is None:
-            return
-        self._fh.write(json.dumps(jsonable(event), separators=(",", ":"))
-                       + "\n")
-        self._fh.flush()
+            self._fh = open(self.path, "w", encoding="utf-8")
+        self._fh.writelines(json.dumps(e, separators=(",", ":")) + "\n"
+                            for e in events)
 
     def close(self) -> None:
-        if self._fh is not None:
-            self._fh.close()
-            self._fh = None
+        if self._events is None:
+            return
+        events, self._events = self._events, None
+        try:
+            if events:
+                self._lines(events)
+        finally:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
 
 
 def round_event(record, **extra) -> Dict:

@@ -747,7 +747,8 @@ class SimRunner:
                               round_engine.unstack_pytree_copies(
                                   stacked, grp.size)):
                 self.client_params[buffer[pos]] = p
-        dens, oh = _to_host(out.densities, out.wire_overhead)
+        dens, oh = self.obs.to_host(_to_host, out.densities,
+                                    out.wire_overhead)
         return np.asarray(dens, float), oh
 
     def _result(self, history: List[RoundRecord]) -> SimResult:
@@ -806,7 +807,8 @@ class SimRunner:
     def run_waves(self, local_train_fn: Callable, eval_fn=None,
                   rounds: Optional[int] = None) -> SimResult:
         self.obs = obs_mod.make_recorder(
-            self.cfg.obs, driver="sim", scheme=self.cfg.scheme,
+            self.cfg.obs, driver="sim", device=self.device,
+            scheme=self.cfg.scheme,
             policy=str(self.simcfg.policy),
             clients=self.tel.num_clients,
             rounds=rounds or self.cfg.rounds)
@@ -1118,8 +1120,8 @@ class SimRunner:
                     dense=self._dense, delivered=delivered_arg,
                     overrides=overrides)
             with obs.span("host_transfer", round=t):
-                dens, oh, loss_host = _host_round(densities, wire_oh,
-                                                  loss_dev)
+                dens, oh, loss_host = obs.to_host(_host_round, densities,
+                                                  wire_oh, loss_dev)
             # the loss report ships WITH the upload: a straggler whose
             # transfer was abandoned (or quarantined) keeps its stale
             # loss server-side
@@ -1198,7 +1200,8 @@ class SimRunner:
         instead of the fleet idling at Eq. (12)'s max.
         """
         self.obs = obs_mod.make_recorder(
-            self.cfg.obs, driver="sim", scheme=self.cfg.scheme,
+            self.cfg.obs, driver="sim", device=self.device,
+            scheme=self.cfg.scheme,
             policy=str(self.simcfg.policy),
             clients=self.tel.num_clients,
             rounds=rounds or self.cfg.rounds)
@@ -1374,7 +1377,8 @@ class SimRunner:
                         merge_key, full_round=full_round,
                         dense_masks=self._dense)
                     self.global_params = out.global_params
-                    dens, oh = _to_host(out.densities, out.wire_overhead)
+                    dens, oh = self.obs.to_host(_to_host, out.densities,
+                                                out.wire_overhead)
                     dens = np.asarray(dens, float)
                     # copies: a kept row must not pin the merge's stack
                     for i, row in zip(buffer,

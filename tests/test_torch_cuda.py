@@ -2091,3 +2091,39 @@ def test_meshed_family_step_on_card_matches_unmeshed(arch, cuda_device,
     _, wm = lm.make_train_step(cfg, opt)(fresh(), batch)
     for k in ("loss", "grad_norm"):
         assert abs(float(gm[k]) - float(wm[k])) <= 2e-5 * abs(float(wm[k]))
+
+
+# ------------------------------------------- obs: spans timed on the device
+
+def test_traced_spans_on_card_carry_device_times_and_syncs(cuda_device,
+                                                            tmp_path):
+    """Two engine rounds of the quickstart on the card with
+    ``ObsConfig(trace=True)``: every span has device times no earlier
+    than its host start less 0.1 ms, ``engine_step`` is charged at least
+    the two syncs of its stagings (the dropout rates and the weights,
+    copied from pageable host memory), and the run puts the sync debug
+    mode and the warning filters back."""
+    import warnings
+
+    from repro_torch.obs import ObsConfig, read_events
+    from repro_torch.quickstart import run
+
+    log = tmp_path / "run.jsonl"
+    mode, filters = torch.cuda.get_sync_debug_mode(), list(warnings.filters)
+    run(2, fedavg_rounds=0, obs=ObsConfig(trace=True, jsonl_path=str(log)),
+        device=cuda_device)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert warnings.filters == filters
+    events = read_events(str(log))
+    spans = [e for e in events if e["event"] == "span"]
+    timed = [e for e in spans if e["name"] != "outside_spans"]
+    assert {"local_train", "engine_step", "host_transfer",
+            "allocate"} <= {e["name"] for e in timed}
+    for e in timed:
+        assert e["device_ns"] is not None, e
+        assert e["device_ns"][0] >= e["host_ns"][0] - 100_000, e
+        assert e["device_ns"][0] <= e["device_ns"][1], e
+    steps = [e for e in timed if e["name"] == "engine_step"]
+    assert len(steps) == 2 and all(e["syncs"] >= 2 for e in steps), steps
+    sites = events[-1]["sync_sites"]
+    assert sum(sites.values()) >= sum(e["syncs"] for e in spans) > 0

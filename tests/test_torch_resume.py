@@ -28,7 +28,7 @@ import torch
 from repro import checkpoint as jckpt
 from repro.core.protocol import RoundRecord as JaxRecord
 from repro_torch import checkpoint as ckpt
-from repro_torch import sim, tree
+from repro_torch import obs, sim, tree
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import protocol
 from repro_torch.core.protocol import ProtocolConfig, RoundRecord
@@ -316,6 +316,10 @@ def test_sigkill_resume_bit_identical_digest(tmp_path):
     assert full.returncode == 0, full.stderr[-2000:]
     crashed = _run_mode("crash", tmp_path)
     assert crashed.returncode == -9, crashed.stderr[-2000:]
+    # the killed run's log holds the rounds it finished
+    rounds = [e["round"] for e in obs.read_events(
+        str(tmp_path / "crash.jsonl")) if e["event"] == "round"]
+    assert rounds == [1, 2, 3, 4]
     meta = ckpt_io.decode_meta((tmp_path / "ck.npz.meta").read_bytes())
     assert meta["round"] == 4
     resumed = _run_mode("resume", tmp_path)
