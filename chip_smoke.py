@@ -48,7 +48,17 @@ Phases, in order; any failure exits non-zero before the final ``ok`` line:
    ``scaled_dot_product_attention`` (a yardstick the port never calls:
    causal through its flash backend, the window through its
    memory-efficient backend with an additive band mask) are timed in
-   bf16;
+   bf16.  The client-batched convolutions (``kernels/conv``): each pass
+   (forward, input gradient, weight gradient) against its plain version
+   in float64 (error norm within 1e-5 of the output's) and twice
+   bit-equal, at the benchmark cell's three CNN2 convs (100 clients x 50
+   images, in the step's layouts), CNN1's 5x5 convs and VGG convs at
+   256-512 channels; the cell's rows timed with their bound, the plain
+   version and today's vmapped cuDNN call with its kernel count; one
+   vmapped CNN2 step (launches by pass, no ATen convolution dispatched,
+   no cuDNN kernel, bit-equal twice; the parent's ``F.conv2d`` step's
+   kernels counted and both steps timed); the cell's program twice
+   from one seed for 6 rounds, the global models bit-equal;
 4. one engine step on the card against the same step on the CPU (the
    plain versions), for a FedDD round, a full FedDD round and FedAvg; and
    one with a round key, CommConfig(auto, 8) and random masks (densities,
@@ -355,7 +365,7 @@ def _shard_launches(shards: int, mode: str) -> dict:
               "mean:elementwise": 0}
     routes[mode] = per
     return dict(launches=dict(importance=per, sparse_agg=per,
-                              masked_merge=partial, flash_attention=0),
+                              masked_merge=partial, flash_attention=0, conv=0),
                 sparse_agg=routes, merges={_SHARD_LEAVES: partial},
                 select=shards * _SHARD_BIASES * SHARD_ROUNDS)
 
@@ -369,7 +379,7 @@ SHARD_LAUNCHES = {"engine": _shard_launches(1, "mean"),
 _HET = 5 * SHARD_HETERO_SHARDS * SHARD_HETERO_ROUNDS
 SHARD_HETERO_LAUNCHES = dict(
     launches=dict(importance=16 * _HET, sparse_agg=16 * _HET,
-                  masked_merge=_HET, flash_attention=0),
+                  masked_merge=_HET, flash_attention=0, conv=0),
     sparse_agg={"partials": 16 * _HET, "mean": 0,
                 "partials:elementwise": 0, "mean:elementwise": 0},
     select=8 * _HET)
@@ -392,6 +402,9 @@ KERNEL_INFO = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention_sm90.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:87"),
+    "conv": dict(
+        source="src/repro_torch/csrc/conv.cu",
+        replaces="none: the JAX package leaves its convolutions to XLA"),
 }
 FEDDD_KERNELS = ("importance", "sparse_agg", "masked_merge")
 # the mean mode against its plain version, by (values, output) dtype: the
@@ -1928,7 +1941,7 @@ def loop_phase(dev="cuda") -> dict:
     partial = sum(r.round % FEDDD_H != 0 for r in loop.history)
     want = dict(importance=MLP_N * leaves * LOOP_ROUNDS,
                 sparse_agg=leaves * LOOP_ROUNDS,
-                masked_merge=MLP_N * partial, flash_attention=0)
+                masked_merge=MLP_N * partial, flash_attention=0, conv=0)
     if (counts != want or modes != {"partials": 0,
                                     "mean": leaves * LOOP_ROUNDS}
             or merged != {leaves: MLP_N * partial}):
@@ -2011,7 +2024,7 @@ def baselines_phase(dev="cuda") -> dict:
                                      f"uploaded {r.uploaded_fraction}")
         agg = 6 * BASELINE_ROUNDS
         if (counts != dict(importance=0, sparse_agg=agg, masked_merge=0,
-                           flash_attention=0)
+                           flash_attention=0, conv=0)
                 or modes != {"partials": 0, "mean": agg}):
             raise AssertionError(f"{scheme} launches {counts}, {modes}")
         print(f"  {scheme}: participants "
@@ -2288,7 +2301,7 @@ def scan_phase(dev="cuda") -> dict:
     runs = {k: drive(SCAN_ROUNDS, k) for k in (1, 5, 4)}
     partial = sum(t % FEDDD_H != 0 for t in range(1, SCAN_ROUNDS + 1))
     want = dict(importance=6 * SCAN_ROUNDS, sparse_agg=6 * SCAN_ROUNDS,
-                masked_merge=partial, flash_attention=0)
+                masked_merge=partial, flash_attention=0, conv=0)
     for k, r in runs.items():
         if (r[2] != want or r[3] != {"partials": 0, "mean": 6 * SCAN_ROUNDS}
                 or r[4] != {6: partial}):
@@ -2612,7 +2625,7 @@ def grouped_phase(dev="cuda") -> dict:
         return dict(importance=leaves * rounds * (n if loop else groups),
                     sparse_agg=leaves * rounds,
                     masked_merge=(n if loop else groups) * partial,
-                    flash_attention=0)
+                    flash_attention=0, conv=0)
 
     out = {}
     for name, clients_n, rounds, num_train in (
@@ -2769,7 +2782,7 @@ def _want_sim_launches(got: dict, steps: int, partial: int,
     channel masks) once a leaf, masked_merge once a partial round for all
     six leaves, no flash attention."""
     want = dict(importance=6 * steps, sparse_agg=6 * steps,
-                masked_merge=partial, flash_attention=0)
+                masked_merge=partial, flash_attention=0, conv=0)
     routes = dict(importance={"plain": 6 * steps, "coverage": 0},
                   sparse_agg={"partials": 0, "mean": 6 * steps,
                               "partials:elementwise": 0,
@@ -4307,6 +4320,246 @@ def _fresh_peak(dev) -> float:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     return torch.cuda.memory_allocated() / 2 ** 30
+
+
+# the client-batched convolutions (kernels/conv) at the benchmark cell's
+# three CNN2 convs, 100 clients x 50 images: (C, O, H, k)
+CONV_CLIENTS, CONV_BATCH = 100, 50
+CONV_CELL = [(3, 16, 32, 3), (16, 32, 16, 3), (32, 64, 8, 3)]
+# held against the plain version only: CNN1's 5x5 convs and VGG convs at
+# 256-512 channels, (N, B, C, O, H, k)
+CONV_MORE = [(10, 32, 1, 10, 16, 5), (10, 32, 10, 20, 8, 5),
+             (4, 16, 256, 512, 4, 3), (4, 16, 512, 512, 2, 3)]
+CONV_REL_TOL = 1e-5          # error norm over the float64 output's norm
+# one vmapped CNN2 step on the card: 3 forward, 2 input-gradient (the
+# images take none), 3 weight-gradient launches and the 3 sums of their
+# splits (every CNN2 wgrad splits on 132 SMs: kernels/conv/ops.wgrad_plan)
+CONV_STEP_LAUNCHES = {"fprop": 3, "dgrad": 2, "wgrad": 3, "wgrad_reduce": 3}
+# cuDNN's kernels of a vmapped convolution, by name
+CUDNN_CONV = ("cudnn", "implicit_gemm", "implicit_convolve", "conv2d_grouped",
+              "winograd", "genericTranspose", "dgrad2d", "wgrad2d")
+
+
+def conv_pass_cost(n, b, c, o, h, k):
+    """{pass: (bytes, flops)} of one client-batched SAME convolution of
+    N clients: each operand read once and the output written once, and
+    2 flops a tap that falls inside the image."""
+    p = (k - 1) // 2
+    taps = sum(h - abs(t - p) for t in range(k)) ** 2
+    flops = 2.0 * n * b * taps * c * o
+    x, w, y = n * b * c * h * h, n * o * c * k * k, n * b * o * h * h
+    return {"fprop": (4 * (x + w + y), flops),
+            "dgrad": (4 * (y + w + x), flops),
+            "wgrad": (4 * (x + y + w), flops)}
+
+
+def _kernel_names(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def conv_checks(card: Card, flush, records: list, dev="cuda",
+                timer=time_ms) -> dict:
+    """Each pass of the client-batched convolutions against the plain
+    version in float64 (error norm within CONV_REL_TOL of the output's)
+    at the cell's shapes and CONV_MORE, and twice bit-equal; at the
+    cell's shapes timed with its bound, the plain version and today's
+    vmapped cuDNN call (``library_ms``, with its kernel launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fl import models
+    from repro_torch.kernels.conv import ops as conv_ops
+    from repro_torch.kernels.conv import ref as conv_ref
+    models._full_fp32()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = 0.0
+    rows = {}
+    shapes = ([(CONV_CLIENTS, CONV_BATCH) + s for s in
+               ((c, o, h, k) for c, o, h, k in CONV_CELL)] + CONV_MORE)
+    for li, (n, b, c, o, h, k) in enumerate(shapes):
+        cell = li < len(CONV_CELL)
+        # the step's layouts: the images an NHWC view, a later conv's
+        # input the NCHW output of a pool; the weights HWIO viewed as OIHW
+        x = (torch.randn((n, b, h, h, c), generator=gen,
+                         device=dev).permute(0, 1, 4, 2, 3) if c <= 3
+             else torch.randn((n, b, c, h, h), generator=gen, device=dev))
+        w = (torch.randn((n, k, k, c, o), generator=gen, device=dev)
+             / math.sqrt(k * k * c)).permute(0, 4, 3, 1, 2)
+        g = torch.randn((n, b, o, h, h), generator=gen, device=dev)
+        d = [t.double() for t in (x, w, g)]
+        passes = {
+            "fprop": (lambda: conv_ops.fprop_batched(x, w),
+                      lambda: conv_ref.conv_fprop_ref(x, w),
+                      lambda: torch.func.vmap(conv_ops._fprop_plain)(x, w),
+                      lambda: conv_ref.conv_fprop_ref(d[0], d[1])),
+            "dgrad": (lambda: conv_ops.dgrad_batched(g, w),
+                      lambda: conv_ref.conv_dgrad_ref(g, w),
+                      lambda: torch.func.vmap(conv_ops._dgrad_plain)(
+                          g, x, w),
+                      lambda: conv_ref.conv_dgrad_ref(d[2], d[1])),
+            "wgrad": (lambda: conv_ops.wgrad_batched(x, g, k),
+                      lambda: conv_ref.conv_wgrad_ref(x, g, k),
+                      lambda: torch.func.vmap(conv_ops._wgrad_plain)(
+                          x, g, w),
+                      lambda: conv_ref.conv_wgrad_ref(d[0], d[2], k))}
+        cost = conv_pass_cost(n, b, c, o, h, k)
+        for name, (kern, plain, lib, exact) in passes.items():
+            got = kern()
+            want = exact()
+            err = ((got.double() - want).norm() / want.norm()).item()
+            if not err <= CONV_REL_TOL:
+                raise AssertionError(f"conv {name} at {(n, b, c, o, h, k)}: "
+                                     f"error norm {err:.3e} of the output's")
+            if not torch.equal(got, kern()):
+                raise AssertionError(f"conv {name} at {(n, b, c, o, h, k)} "
+                                     f"differs between two runs")
+            worst = max(worst, err)
+            del want
+            if not cell or (li == 0 and name == "dgrad"):
+                print(f"  conv {name:5s} {str((n, b, c, o, h, k)):28s} "
+                      f"rel err {err:.2e}", flush=True)
+                continue
+            nbytes, flops = cost[name]
+            rec = _timed(card, flush, timer, f"conv_{name}", n,
+                         (b, c, o, h, k), torch.float32, kern, plain, lib,
+                         nbytes, flops)
+            kernels.reset_launch_counts()
+            kern()
+            rec.update(conv=f"conv{li}", rel_err=err,
+                       library_launches=len(_kernel_names(lib)),
+                       launches=kernels.launch_counts()["conv"])
+            records.append(rec)
+            rows[f"conv{li}_{name}"] = rec
+        torch.cuda.empty_cache()
+    step = conv_step_check(dev)
+    repeat = conv_cell_repeat(dev)
+    main = dict(rows["conv2_fprop"])
+    return {"rows": rows, "max_rel_err": worst, "step": step,
+            "cell_repeat": repeat, "main": main}
+
+
+def conv_cell_repeat(dev="cuda", seed=2718281829, rounds=6) -> dict:
+    """The benchmark cell's program (``perfbench``: CNN2, 100 clients,
+    vmapped local SGD on the batched engine) twice from one seed for its
+    checked rounds: the global models are bit-equal, and the conv
+    kernels ran."""
+    import torch
+    from perfbench import harness, inputs, program
+    from repro_torch.kernels.conv import ops as conv_ops
+    from repro_torch import kernels
+    cell = harness.load_cell(ROOT, "cnn2.c100.fused")
+    finals = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        prog = program.build(cell.cfg, cell.traffic, inputs.make_inputs(
+            cell.cfg, cell.traffic, seed, torch.device(dev)), None)
+        prog.run(rounds)
+        finals.append({n: {k: t.clone() for k, t in lay.items()}
+                       for n, lay in prog.state()[0].items()})
+        launches = conv_ops.route_counts()
+        del prog
+    for n, lay in finals[0].items():
+        for k, t in lay.items():
+            if not torch.equal(t, finals[1][n][k]):
+                raise AssertionError(f"two runs of the cell differ at {n}.{k}")
+    if launches["fprop"] != 3 * 10 * rounds:
+        raise AssertionError(f"the cell's rounds launched {launches}")
+    print(f"  cell {rounds} rounds twice from seed {seed}: global models "
+          f"bit-equal, conv launches {launches}", flush=True)
+    return dict(seed=seed, rounds=rounds, bit_equal=True, launches=launches)
+
+
+def conv_step_check(dev="cuda") -> dict:
+    """One vmapped CNN2 step (``grad_and_value`` and SGD, as the
+    benchmark's trainer) of CONV_CLIENTS x CONV_BATCH: launches by pass
+    equal CONV_STEP_LAUNCHES, no ATen convolution is dispatched and no
+    cuDNN kernel runs, two runs are bit-equal; the same step with the
+    parent's ``F.conv2d`` counts its kernels; both are timed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch import kernels, tree
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.fl import models
+    from repro_torch.kernels.conv import ops as conv_ops
+    spec = models.CNN2_SPEC
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = models.init_cnn_spec(spec, seed=0, device=dev)
+    stacked = {n: {k: t.expand(CONV_CLIENTS, *t.shape).clone()
+                   for k, t in lay.items()} for n, lay in params.items()}
+    x = torch.rand((CONV_CLIENTS, CONV_BATCH, 32, 32, 3), generator=gen,
+                   device=dev)
+    y = torch.randint(0, 10, (CONV_CLIENTS, CONV_BATCH), generator=gen,
+                      device=dev)
+
+    def client_step(p, xb, yb):
+        gr, l = torch.func.grad_and_value(
+            lambda q: models._ce(models.apply_spec(q, spec, xb), yb))(p)
+        return tree.tree_map(lambda a, b: a - 0.05 * b, p, gr), l
+
+    step = make_batched_train_fn(client_step, (x, y))
+
+    class Convs(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "convolution" in func.__name__:
+                Convs.count += 1
+            return func(*args, **(kwargs or {}))
+
+    runs = [step(stacked, None) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(tree.leaves(runs[0][0]) + [runs[0][1]],
+                    tree.leaves(runs[1][0]) + [runs[1][1]]):
+        if not torch.equal(a, b):
+            raise AssertionError("two vmapped CNN2 steps differ")
+    kernels.reset_launch_counts()
+    with Convs():
+        step(stacked, None)
+    torch.cuda.synchronize()
+    got = conv_ops.route_counts()
+    if got != CONV_STEP_LAUNCHES or Convs.count:
+        raise AssertionError(f"a vmapped CNN2 step launched {got} and "
+                             f"dispatched {Convs.count} ATen convolutions")
+    names = _kernel_names(lambda: step(stacked, None))
+    foreign = sorted({n for n in names if any(s in n for s in CUDNN_CONV)})
+    if foreign:
+        raise AssertionError(f"cuDNN kernels in the vmapped step: {foreign}")
+
+    def timed(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        for s, e in ev:
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+    ms = timed(lambda: step(stacked, None))
+    orig = models.conv2d_same
+    models.conv2d_same = lambda a, w: F.conv2d(a, w, padding="same")
+    try:
+        parent_names = _kernel_names(lambda: step(stacked, None))
+        parent_ms = timed(lambda: step(stacked, None))
+    finally:
+        models.conv2d_same = orig
+    out = dict(launches=got, kernels=len(names),
+               parent_kernels=len(parent_names), ms=ms, parent_ms=parent_ms,
+               parent_conv_kernels=sum(any(s in n for s in CUDNN_CONV)
+                                       for n in parent_names))
+    print(f"  vmapped CNN2 step ({CONV_CLIENTS} x {CONV_BATCH}): {out}",
+          flush=True)
+    return out
 
 
 def lm_importance_checks(card: Card, flush, records: list, dev="cuda",
@@ -6129,6 +6382,7 @@ def main(argv=None) -> int:
         records.append(big)
         flash = flash_checks(card, flush, records)
         lm_importance = lm_importance_checks(card, flush, records)
+        conv_out = conv_checks(card, flush, records)
         del flush
         torch.cuda.empty_cache()
         engine_check()
@@ -6168,11 +6422,14 @@ def main(argv=None) -> int:
 
     checks["main"]["flash_attention"] = flash["main"]
     checks["max_abs_err"]["flash_attention"] = flash["max_abs_err"]
+    checks["main"]["conv"] = conv_out["main"]
+    checks["max_abs_err"]["conv"] = conv_out["max_rel_err"]
     # the FedDD kernels' launches on this slice's path: the quickstart in
     # CommConfig(auto, 8) (the default-comm and random runs beside them)
     launches = dict(comm_out["feddd"]["launches"])
     launches["flash_attention"] = serve_out["prefill_launches"][
         "flash_attention"]
+    launches["conv"] = sum(conv_out["step"]["launches"].values())
     line_kernels = []
     for name, info in KERNEL_INFO.items():
         rec = checks["main"][name]
@@ -6180,6 +6437,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=launches[name],
             path=("prefill" if name == "flash_attention" else
+                  "vmapped CNN2 step" if name == "conv" else
                   f"quickstart {COMM['codec']}/{COMM['qbits']}"),
             max_abs_err=checks["max_abs_err"][name], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
@@ -6297,6 +6555,15 @@ def main(argv=None) -> int:
                     name],
                 launches_quickstart_cli_population=cli_out["b"][
                     "launches"][name])
+        if name == "conv":
+            line_kernels[-1].update(
+                max_rel_err=conv_out["max_rel_err"],
+                launches_by_pass=conv_out["step"]["launches"],
+                passes={k: {f: r[f] for f in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_launches", "launches")}
+                    for k, r in conv_out["rows"].items()},
+                step=conv_out["step"], cell_repeat=conv_out["cell_repeat"])
         if name == "importance":
             line_kernels[-1]["launches_federated_pods"] = fed_out[
                 "launches"]["importance"]
@@ -6341,7 +6608,7 @@ def main(argv=None) -> int:
             federated=fed_out,
             moe=moe_out, families=fam_out,
             lm_mesh_families=mesh_fam_out, launch=launch_out,
-            lm_importance=lm_importance,
+            lm_importance=lm_importance, conv=conv_out,
             summary=line_kernels),
             indent=1))
     steady = [r["host_wall_time"] for r in path_out["rounds"]

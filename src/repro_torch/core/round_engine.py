@@ -1102,7 +1102,11 @@ def make_batched_train_fn(per_client_step: Callable,
     its sums differently).  float32 stays float32 on the card: TF32 is
     switched off for matmuls and cuDNN convolutions and cuDNN runs its
     deterministic algorithms, process-wide, as the per-client trainer
-    (``fl.models.make_local_train_fn``) does."""
+    (``fl.models.make_local_train_fn``) does.  The convolutions of
+    ``fl.models.apply_spec`` under this vmap take the client-batched
+    kernels on a card (``kernels.conv``: one launch a pass for the
+    fleet, in float32 FFMA and a fixed order) and the vmapped
+    ``F.conv2d`` elsewhere."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True

@@ -10,7 +10,10 @@ and 6 (hetero-b), the model-heterogeneous fleets of the paper's §6.4.
 Parameters are dicts of tensors in the JAX package's layout — dense
 ``(in, out)``, conv ``HWIO``, images NHWC — so FedDD's channel masks
 (channel_axis=-1) apply unchanged and both packages compare leaf for
-leaf; convolutions run as NCHW ``F.conv2d`` inside :func:`apply_spec`.
+leaf; convolutions run in NCHW inside :func:`apply_spec`, through
+``kernels.conv.ops.conv2d_same``: ``F.conv2d`` outside ``torch.func``
+transforms, and under ``torch.func.vmap`` of a client step on the card
+(weights with a client dimension) the client-batched kernels.
 
 float32 stays float32 on the card, and a run repeats bit for bit:
 :func:`make_local_train_fn` and :func:`make_eval_fn` switch off TF32 for
@@ -20,7 +23,8 @@ deterministic convolution algorithms (``torch.backends.cudnn
 .deterministic``), process-wide.  Without the last, the backward passes
 of a VGG's convolutions may sum in another order each run, and no run of
 a conv model could be held to another (``scripts/conv_determinism.py``
-measures the drift between two equal runs on the card).
+measures the drift between two equal runs on the card).  The
+client-batched kernels sum in a fixed order of their own.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch import prng, tree
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.conv.ops import conv2d_same
 
 # A spec is a list of layer tuples:
 #   ("conv", in_ch, out_ch, kernel)    SAME conv + ReLU
@@ -143,7 +148,7 @@ def apply_spec(params: Dict, spec: Sequence[Tuple],
                 x = x.permute(0, 3, 1, 2)
                 nchw = True
             p = params[f"conv{li}"]
-            x = F.conv2d(x, p["w"].permute(3, 2, 0, 1), padding="same")
+            x = conv2d_same(x, p["w"].permute(3, 2, 0, 1))
             x = F.relu(x + p["b"].view(1, -1, 1, 1))
             li += 1
         elif layer[0] == "pool":

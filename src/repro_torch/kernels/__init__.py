@@ -9,11 +9,16 @@
                 local by channel, every leaf in one launch    (Step 7)
   flash_attention  causal / sliding-window GQA attention with an
                 online softmax, for the LM stack's long-sequence prefill
+  conv          SAME convolutions of a fleet whose weights carry a
+                client dimension (vmapped local SGD): forward, input
+                and weight gradients, one launch a pass
 
 Each kernel has ``ref.py`` (the plain PyTorch version) and ``ops.py``
 (the wrapper): a CPU tensor goes to ``ref.py``, a CUDA tensor to the
-kernel, anything else raises.  ``launch_counts`` reports how many times
-each kernel was launched since ``reset_launch_counts``.
+kernel, anything else raises (``conv`` routes inside its ``vmap``
+rules, its CPU route the vmapped ``F.conv2d``).  ``launch_counts``
+reports how many times each kernel was launched since
+``reset_launch_counts``.
 """
 
 from repro_torch.kernels._lib import (KERNELS, build, launch_counts,

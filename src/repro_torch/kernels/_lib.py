@@ -29,11 +29,12 @@ from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("importance.cu", "sparse_agg.cu", "masked_merge.cu",
-           "flash_attention.cu", "flash_attention_sm90.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu", "conv.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention")
+KERNELS = ("importance", "sparse_agg", "masked_merge", "flash_attention",
+           "conv")
 _launches: Dict[str, int] = collections.Counter()
 _routes: Dict[Tuple[str, object], int] = collections.Counter()
 _flags: Dict[Tuple[str, str], int] = collections.Counter()
@@ -56,6 +57,12 @@ _SIGNATURES = {
     # the same without the dtype (bf16 only)
     "feddd_flash_attention_sm90": (_P, _P, _P, _P) + (_I64,) * 15 + (
         _I32, _I64, _P),
+    # x, w, out, desc (18 int64, kernels/conv/ops._fprop), stream
+    "feddd_conv_fprop": (_P, _P, _P, ctypes.POINTER(_I64), _P),
+    # x, g, out, desc (20 int64, kernels/conv/ops.wgrad_batched), stream
+    "feddd_conv_wgrad": (_P, _P, _P, ctypes.POINTER(_I64), _P),
+    # partials, out, clients, splits, elements a client, stream
+    "feddd_conv_wgrad_reduce": (_P, _P, _I64, _I32, _I64, _P),
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

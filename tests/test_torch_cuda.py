@@ -80,6 +80,7 @@ def test_quickstart_rounds_on_card(cuda_device):
     feddd, fedavg, _ = run(2, fedavg_rounds=1, device=cuda_device)
     counts = kernels.launch_counts()
     assert counts.pop("flash_attention") == 0
+    assert counts.pop("conv") == 0
     assert all(v > 0 for v in counts.values())
     partial = sum(r.round % FEDDD_H != 0 for r in feddd.history)
     assert counts["masked_merge"] == partial == 2
@@ -743,7 +744,7 @@ def test_loop_matches_the_engine_on_card(cuda_device):
         counts = kernels.launch_counts()
         merged = mm_ops.leaf_counts()
     assert counts == dict(importance=180, sparse_agg=18, masked_merge=30,
-                          flash_attention=0)
+                          flash_attention=0, conv=0)
     assert merged == {6: 30}
     assert all(np.isfinite(r.epsilon) and r.epsilon >= 0
                for r in loop.history)
@@ -888,6 +889,165 @@ def test_scanned_chunk_makes_no_synchronising_call(cuda_device):
     host = trace.to_host()
     assert host.losses.shape == (5, n) and np.isfinite(host.losses).all()
     assert host.next_dropout.max() > 0
+
+
+# the client-batched convolutions at the benchmark cell's three CNN2
+# convs (100 clients x 50 images), CNN1's 5x5 convs and VGG convs at
+# 256-512 channels: (N, B, C, O, H, k)
+CONV_SHAPES = [(100, 50, 3, 16, 32, 3), (100, 50, 16, 32, 16, 3),
+               (100, 50, 32, 64, 8, 3), (10, 32, 1, 10, 16, 5),
+               (10, 32, 10, 20, 8, 5), (4, 16, 512, 512, 2, 3),
+               (3, 4, 40, 70, 5, 3)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_passes_match_plain_in_float64(shape, cuda_device):
+    """Each pass of the kernels (float32, inputs in the main path's NHWC
+    and HWIO views) against ``ref.py`` in float64: the error's norm at
+    most 1e-5 of the output's."""
+    from repro_torch.kernels.conv import ops, ref
+    n, b, c, o, h, k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randn((n, b, h, h, c), generator=gen,
+                    device=cuda_device).permute(0, 1, 4, 2, 3)
+    w = torch.randn((n, k, k, c, o), generator=gen,
+                    device=cuda_device).permute(0, 4, 3, 1, 2)
+    g = torch.randn((n, b, o, h, h), generator=gen, device=cuda_device)
+    xd, wd, gd = x.double(), w.double(), g.double()
+    for got, want in ((ops.fprop_batched(x, w), ref.conv_fprop_ref(xd, wd)),
+                      (ops.dgrad_batched(g, w), ref.conv_dgrad_ref(gd, wd)),
+                      (ops.wgrad_batched(x, g, k),
+                       ref.conv_wgrad_ref(xd, gd, k))):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert (got.double() - want).norm() <= 1e-5 * want.norm()
+
+
+def _cnn2_step(dev, n, b):
+    """(one vmapped CNN2 client step as the benchmark's trainer writes
+    it, stacked params, inputs) for ``n`` clients of ``b`` images."""
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.fl import models
+    spec = models.CNN2_SPEC
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = models.init_cnn_spec(spec, seed=1, device=dev)
+    stacked = tree.tree_map(lambda t: t + 0.01 * torch.randn(
+        (n,) + t.shape, generator=gen, device=dev), params)
+    x = torch.rand((n, b, 32, 32, 3), generator=gen, device=dev)
+    y = torch.randint(0, 10, (n, b), generator=gen, device=dev)
+
+    def client_step(p, xb, yb):
+        gr, l = torch.func.grad_and_value(
+            lambda q: models._ce(models.apply_spec(q, spec, xb), yb))(p)
+        return tree.tree_map(lambda u, v: u - 0.05 * v, p, gr), l
+
+    return make_batched_train_fn(client_step, (x, y)), stacked
+
+
+def test_vmapped_cnn2_step_on_card_takes_the_conv_kernels(cuda_device):
+    """One vmapped CNN2 step of the cell (100 clients x 50 images): 3
+    forward, 2 input-gradient (the images take none), 3 weight-gradient
+    launches and 3 sums of their splits (every CNN2 weight gradient
+    splits on 132 SMs); no ATen convolution is dispatched; two runs are
+    bit-equal."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.kernels.conv import ops
+    step, stacked = _cnn2_step(cuda_device, 100, 50)
+    seen = []
+
+    class Convs(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "convolution" in func.__name__:
+                seen.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+
+    first = step(stacked, None)
+    kernels.reset_launch_counts()
+    with Convs():
+        second = step(stacked, None)
+    torch.cuda.synchronize()
+    assert ops.route_counts() == {"fprop": 3, "dgrad": 2, "wgrad": 3,
+                                  "wgrad_reduce": 3}
+    assert seen == []
+    for a, b in zip(tree.leaves(first[0]) + [first[1]],
+                    tree.leaves(second[0]) + [second[1]]):
+        assert torch.equal(a, b)
+
+
+def test_conv_kernels_refuse_other_dtypes_on_card(cuda_device):
+    from repro_torch.kernels.conv import ops
+    x = torch.zeros((2, 1, 3, 4, 4), dtype=torch.bfloat16,
+                    device=cuda_device)
+    w = torch.zeros((2, 5, 3, 3, 3), dtype=torch.bfloat16,
+                    device=cuda_device)
+    with pytest.raises(TypeError):
+        ops.fprop_batched(x, w)
+
+
+def _conv_scan_fixture(dev, n=8, seed=0):
+    """``_scan_fixture`` with a small conv net (two SAME 3x3 convs with
+    pools and a dense head) over 8 x 8 x 3 images: its vmapped step takes
+    the conv kernels."""
+    from repro_torch import prng
+    from repro_torch.core.allocation import ClientTelemetry
+    from repro_torch.core.round_engine import make_batched_train_fn
+    from repro_torch.fl import apply_spec, init_cnn_spec, model_bytes
+    from repro_torch.fl.models import _ce
+    spec = [("conv", 3, 8, 3), ("pool",), ("conv", 8, 16, 3), ("pool",),
+            ("fc", 64, 5)]
+    rng = np.random.default_rng(seed)
+    xs = torch.from_numpy(rng.normal(size=(n, 32, 8, 8, 3)).astype(
+        np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 5, (n, 32))).to(dev)
+    params = init_cnn_spec(spec, prng.PRNGKey(seed), device=dev)
+    tel = ClientTelemetry(
+        model_bytes=np.full(n, float(model_bytes(params))),
+        uplink_rate=rng.uniform(1e3, 5e3, n),
+        downlink_rate=rng.uniform(5e3, 2e4, n),
+        compute_latency=rng.uniform(1.0, 5.0, n),
+        num_samples=rng.integers(10, 50, n).astype(float),
+        label_coverage=rng.uniform(0.5, 1.0, n), train_loss=np.ones(n))
+
+    def step(p, x, y):
+        g, l = torch.func.grad_and_value(
+            lambda q: _ce(apply_spec(q, spec, x), y))(p)
+        return tree.tree_map(lambda w, gw: w - 0.1 * gw, p, g), l
+
+    return params, tel, make_batched_train_fn(step, (xs, ys))
+
+
+def test_scanned_equals_per_round_on_card_through_the_conv_kernels(
+        cuda_device):
+    """``tests/test_torch_scan.py``'s scanned-equals-per-round on the
+    card with a conv net: FedDD, 7 rounds at K = 4 against K = 1, records,
+    global and client params bit for bit, the conv kernels launched as
+    often on both paths (7 steps of 2 forward, 1 input-gradient and 2
+    weight-gradient passes, and their split sums)."""
+    import dataclasses
+    from repro_torch.core.protocol import FedDDServer, ProtocolConfig
+    from repro_torch.kernels.conv import ops
+    params, tel, bt = _conv_scan_fixture(cuda_device)
+    runs = []
+    for rpd in (1, 4):
+        srv = FedDDServer(params, ProtocolConfig(
+            scheme="feddd", rounds=7, a_server=0.6, h=3, seed=0,
+            allocator="jax", rounds_per_dispatch=rpd), tel,
+            device=cuda_device)
+        kernels.reset_launch_counts()
+        res = srv.run(batched_train_fn=bt)
+        runs.append((srv, res, ops.route_counts()))
+    (sa, ra, ca), (sb, rb, cb) = runs
+    assert ca == cb
+    assert (ca["fprop"], ca["dgrad"], ca["wgrad"]) == (14, 7, 14)
+    fields = [[dataclasses.asdict(r) | {
+        "host_wall_time": None, "dropout_rates": r.dropout_rates.tolist()}
+        for r in res.history] for res in (ra, rb)]
+    assert fields[0] == fields[1]
+    for a, b in zip(tree.leaves(ra.global_params),
+                    tree.leaves(rb.global_params)):
+        assert a.is_cuda and torch.equal(a, b)
+    for x, y in zip(sa.clients, sb.clients):
+        for a, b in zip(tree.leaves(x.params), tree.leaves(y.params)):
+            assert torch.equal(a, b)
 
 
 def test_clip_aggregation_launches_the_partials_mode(cuda_device):
@@ -1148,7 +1308,7 @@ def test_grouped_run_equals_loop_on_card(cuda_device):
     counts = kernels.launch_counts()
     assert grp.executor_kind == "grouped"
     assert counts == dict(importance=36, sparse_agg=12, masked_merge=6,
-                          flash_attention=0)
+                          flash_attention=0, conv=0)
     assert imp_ops.route_counts() == {"plain": 0, "coverage": 36}
     assert agg_ops.route_counts()["mean:elementwise"] == 6
     loop, rl = _ragged_fleet_run(cuda_device, False)
@@ -1436,7 +1596,7 @@ def test_virtual_shards_on_card_launch_per_shard_and_match(cuda_device):
         torch.cuda.synchronize()
         assert kernels.launch_counts() == dict(
             importance=6 * p, sparse_agg=6 * p, masked_merge=p,
-            flash_attention=0)
+            flash_attention=0, conv=0)
         assert agg_ops.mode_counts() == {"partials": 6 * p, "mean": 0}
         assert agg_ops.select_counts() == {"select": 3 * p}
         assert merge_ops.leaf_counts() == {6: p}
