@@ -103,15 +103,24 @@ def local_median(prog, clients, start, masks) -> float:
     return float(np.median(gaps)) if gaps else 0.0
 
 
+def cut_to(params: Dict, like: Dict) -> Dict:
+    """``params`` cut to the leaf shapes of the model ``like``: the
+    leading block of every axis (Eq. (6)'s sub-model at its widths); a
+    leaf of the same shape is the whole tensor."""
+    return {n: {k: params[n][k][tuple(slice(0, s) for s in t.shape)]
+                for k, t in lay.items()} for n, lay in like.items()}
+
+
 def numbers(prog, first, after, start_global: Dict) -> Dict[str, float]:
     """``prog``: the program's checked rounds (``reference.feddd.Rounds``);
     ``first``: the reference's round 1 from the seed (``Rounds``);
     ``after``: its round t = len(prog.mean_loss) from the program's global
     model of round t - 1 (``round_from``'s clients, global, loss,
-    uploaded share, masks), which every client starts round t from."""
+    uploaded share, masks), which every client starts round t from, cut
+    to the leaf shapes of its own model."""
     t = len(prog.mean_loss)
     clients, glob, loss, uploaded, masks = after
-    start = [prog.globals[t - 2]] * len(clients)
+    start = [cut_to(prog.globals[t - 2], c) for c in clients]
     out = {
         "r1_loss": abs(prog.mean_loss[0] - first.mean_loss[0])
         / abs(first.mean_loss[0]),

@@ -113,9 +113,16 @@ class RunData:
     traced_round_ids: List[int] = dataclasses.field(default_factory=list)
 
     def leaves(self):
-        """{layer: {key: shape}} of the model every client holds."""
+        """{layer: {key: shape}} of the global spec: the model every
+        client of a homogeneous fleet holds."""
         return inputs_mod.leaf_shapes(
             self.cfg["specs"][self.cfg["global_spec"]])
+
+    def client_leaves(self):
+        """Each client's {layer: {key: shape}}, from its own spec (a
+        ragged fleet's clients hold sub-models of the global one)."""
+        shapes = [inputs_mod.leaf_shapes(s) for s in self.cfg["specs"]]
+        return [shapes[j] for j in self.client_spec]
 
     @property
     def clients(self) -> int:
